@@ -1,0 +1,33 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for an NVIDIA Hopper card.
+
+A second package beside ``repro``: the same paths, PyTorch idiom inside.
+It imports ``torch`` and never ``jax`` or anything of ``repro``.
+
+Subpackages ported so far:
+  core     the paper's solvers on Lasso (SFISTA, CA-SFISTA, SPNM, CA-SPNM),
+           the shared s-step schedule, the Comet cost model
+  kernels  the op registry and the hand-written Hopper kernels
+           (``gram``, ``prox_step``, ``prox_loop``) beside their plain
+           PyTorch versions
+  data     the paper's Table II dataset stand-ins
+  launch   ``python -m repro_torch.launch.lasso_solve``
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; with no card and no such request they raise.
+"""
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Raises when CUDA is asked for (or defaulted to) and there is
+    no card, rather than carrying on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on an NVIDIA card by default and this host has "
+            "none (torch.cuda.is_available() is False); pass device='cpu' "
+            "(--device cpu on the command line) to run on the CPU")
+    return dev

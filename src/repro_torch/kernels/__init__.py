@@ -1,0 +1,34 @@
+"""The port's kernels: each op has a hand-written Hopper kernel (backend
+``cuda``, sources in ``repro_torch/csrc``) and its plain PyTorch version
+(backend ``torch``, the ``ref.py`` beside it).
+
+  registry.py  the op table, backend policy and dispatch counts
+  _build.py    nvcc at first use into ``build/repro_torch/``, ctypes binding
+
+Each CUDA wrapper carries a plain-integer ``launches`` count that it bumps
+once per kernel launch and nowhere else; :func:`launch_counts` reads them.
+"""
+from typing import Dict
+
+from repro_torch.kernels import registry
+
+
+def _cuda_wrappers():
+    registry.ensure_loaded()
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    return {"gram": gram_ops.gram_cuda, "prox_step": prox_ops.prox_step_cuda,
+            "prox_loop": prox_ops.prox_loop_cuda}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per op since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in _cuda_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _cuda_wrappers().values():
+        fn.launches = 0
+
+
+__all__ = ["registry", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,279 @@
+"""The port's solvers against the JAX package's, given the same draws and
+step size: SFISTA, CA-SFISTA, SPNM and CA-SPNM on the paper's Lasso problem,
+the JAX side under ``registry.use("xla")``; and within the port, CA ==
+classical, history, the host loop's block count, validation, the reference
+solve, the data generator, the CLI's device default, and that the port
+imports neither JAX nor ``repro``."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+from repro.core.cost_model import (CostModel as JCostModel,
+                                   MachineParams as JMachineParams)
+from repro.data import PAPER_DATASETS as J_DATASETS, make_lasso_data
+from repro.core.soft_threshold import fista_momentum as j_fista_momentum
+from repro.kernels import registry as jregistry
+import repro_torch.core as tcore
+from repro_torch.core import sstep
+from repro_torch.data import PAPER_DATASETS, make_dataset_like
+from repro_torch.kernels import registry
+from repro_torch.launch import lasso_solve
+
+from _torch_port import (SOLVER_ATOL, jax_draws, step_size, to_torch,
+                         to_torch_config, to_torch_problem)
+
+KEY = jax.random.PRNGKey(42)
+SOLVERS = ["sfista", "ca_sfista", "spnm", "ca_spnm"]
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def problems():
+    jprob, _ = make_lasso_data(jax.random.PRNGKey(0), d=32, n=2048)
+    return jprob, to_torch_problem(jprob)
+
+
+@pytest.fixture(scope="module")
+def cfg(problems):
+    base = jcore.SolverConfig(T=64, k=8, b=0.1, Q=5)
+    return dataclasses.replace(base, step_size=step_size(problems[0], base))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+# ---------------------------------------------------- parity with JAX -----
+@pytest.mark.parametrize("name", SOLVERS)
+def test_solver_matches_jax_given_same_draws_and_step(problems, cfg, name):
+    jprob, tprob = problems
+    with jregistry.use("xla"):
+        w_jax = getattr(jcore, name)(jprob, cfg, KEY)
+    w = getattr(tcore, name)(tprob, to_torch_config(cfg),
+                             idx=jax_draws(KEY, cfg, jprob))
+    np.testing.assert_allclose(_np(w), np.asarray(w_jax), atol=SOLVER_ATOL,
+                               rtol=0)
+
+
+def test_history_matches_jax(problems, cfg):
+    jprob, tprob = problems
+    with jregistry.use("xla"):
+        _, h_jax = jcore.ca_spnm(jprob, cfg, KEY, collect_history=True)
+    _, h = tcore.ca_spnm(tprob, to_torch_config(cfg),
+                         idx=jax_draws(KEY, cfg, jprob), collect_history=True)
+    np.testing.assert_allclose(_np(h), np.asarray(h_jax), atol=SOLVER_ATOL,
+                               rtol=0)
+
+
+def test_reference_solve_and_metrics_match_jax(problems, cfg):
+    jprob, tprob = problems
+    w_jax = jcore.composite_reference(jprob, iters=300,
+                                      step_size=cfg.step_size)
+    w = tcore.composite_reference(tprob, iters=300, step_size=cfg.step_size)
+    np.testing.assert_allclose(_np(w), np.asarray(w_jax), atol=SOLVER_ATOL,
+                               rtol=0)
+    w1 = w * 0.9
+    np.testing.assert_allclose(
+        float(tcore.relative_solution_error(w1, w)),
+        float(jcore.relative_solution_error(jax.numpy.asarray(_np(w1)),
+                                            jax.numpy.asarray(_np(w)))),
+        rtol=1e-6)
+    np.testing.assert_allclose(float(tcore.lasso_objective(tprob, w)),
+                               float(jcore.lasso_objective(jprob, w_jax)),
+                               rtol=1e-5)
+
+
+def test_lipschitz_step_converges_to_jax_step(problems):
+    jprob, tprob = problems
+    np.testing.assert_allclose(
+        float(tcore.lipschitz_step(tprob.X, 300)),
+        float(jcore.problem.lipschitz_step(jprob.X, 300)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["l1", "elastic_net", "box", "none"])
+def test_prox_elem_and_momentum_match_jax(variant):
+    x = np.random.default_rng(0).standard_normal(64).astype(np.float32)
+    kw = dict(lam=0.3, mu=0.5, lo=-0.4, hi=0.6)
+    np.testing.assert_array_equal(
+        _np(tcore.prox_elem(to_torch(x), 0.7, variant, **kw)),
+        np.asarray(jcore.prox_elem(jax.numpy.asarray(x), 0.7, variant,
+                                   **kw)))
+    for j in range(12):
+        assert tcore.fista_momentum(j) == float(j_fista_momentum(j))
+
+
+def test_cost_model_and_datasets_match_jax():
+    for P in (1, 64, 1024):
+        for ca in (False, True):
+            for newton in (False, True):
+                a = tcore.CostModel(d=54, n=581_012, b=0.1, T=256, k=32, Q=5)
+                b = JCostModel(d=54, n=581_012, b=0.1, T=256, k=32, Q=5)
+                assert a.time(P, tcore.MachineParams.comet_like(), ca=ca,
+                              newton=newton) == b.time(
+                    P, JMachineParams.comet_like(), ca=ca, newton=newton)
+    assert PAPER_DATASETS == J_DATASETS
+
+
+# ------------------------------------------------------- within the port --
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("pair", [("sfista", "ca_sfista"),
+                                  ("spnm", "ca_spnm")], ids=["fista", "pnm"])
+def test_ca_matches_classical(problems, cfg, k, pair):
+    _, tprob = problems
+    tcfg = dataclasses.replace(to_torch_config(cfg), k=k)
+    idx = torch.randint(0, tprob.n, (tcfg.T, sstep.draw_size(tprob, tcfg)),
+                        generator=torch.Generator().manual_seed(k))
+    w_cl, h_cl = getattr(tcore, pair[0])(tprob, tcfg, idx=idx,
+                                         collect_history=True)
+    w_ca, h_ca = getattr(tcore, pair[1])(tprob, tcfg, idx=idx,
+                                         collect_history=True)
+    np.testing.assert_allclose(_np(h_ca), _np(h_cl), atol=SOLVER_ATOL)
+    assert h_ca.shape == (tcfg.T, tprob.dim)
+    assert torch.equal(h_ca[-1], w_ca)
+
+
+@pytest.mark.parametrize("rule", ["fista", "pnm"])
+def test_host_loop_counts_T_over_k_vs_T_blocks(problems, rule):
+    _, tprob = problems
+    tcfg = tcore.SolverConfig(T=32, k=8, b=0.25, step_size=0.5)
+    ca_syncs, cl_syncs = sstep.HostSyncs(), sstep.HostSyncs()
+    w_ca = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=f"ca_{rule}",
+                       ca=True, host_loop=True, syncs=ca_syncs)
+    w_cl = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=rule,
+                       host_loop=True, syncs=cl_syncs)
+    assert (ca_syncs.blocks, cl_syncs.blocks) == (tcfg.T // tcfg.k, tcfg.T)
+    w = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=rule)
+    np.testing.assert_allclose(_np(w_cl), _np(w), atol=SOLVER_ATOL)
+    np.testing.assert_allclose(_np(w_ca), _np(w_cl), atol=SOLVER_ATOL)
+    with pytest.raises(ValueError, match="collect_history"):
+        sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=rule,
+                    host_loop=True, collect_history=True)
+
+
+@pytest.mark.parametrize("name", ["ca_sfista", "ca_spnm"])
+def test_validate_schedule_names_the_solver(problems, name):
+    _, tprob = problems
+    tcfg = tcore.SolverConfig(T=64, k=8)
+    object.__setattr__(tcfg, "T", 60)         # mutated past __post_init__
+    with pytest.raises(ValueError, match=f"{name}: cfg.T must be divisible"):
+        getattr(tcore, name)(tprob, tcfg, 0)
+    with pytest.raises(ValueError, match="multiple of k"):
+        tcore.SolverConfig(T=60, k=8)
+
+
+def test_draws_from_generator_are_reproducible_and_checked(problems):
+    _, tprob = problems
+    tcfg = tcore.SolverConfig(T=16, k=4, step_size=0.5)
+    a = tcore.ca_sfista(tprob, tcfg, torch.Generator().manual_seed(3))
+    b = tcore.ca_sfista(tprob, tcfg, 3)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="shape"):
+        tcore.sfista(tprob, tcfg, idx=torch.zeros(16, 3, dtype=torch.int64))
+
+
+def test_sample_columns_batch_equals_per_draw(problems):
+    _, tprob = problems
+    gen = torch.Generator().manual_seed(0)
+    idx = tcore.sample_index_batch(gen, 4, tprob.n, 33)
+    assert idx.dtype == torch.int64 and idx.shape == (4, 33)
+    assert 0 <= int(idx.min()) and int(idx.max()) < tprob.n
+    Xs, ys = tcore.sample_columns(tprob.X, tprob.y, idx)
+    assert Xs.shape == (4, tprob.d, 33) and Xs.is_contiguous()
+    for j in range(4):
+        X1, y1 = tcore.sample_columns(tprob.X, tprob.y, idx[j])
+        assert torch.equal(Xs[j], X1) and torch.equal(ys[j], y1)
+    G, R = tcore.gram_blocks(tprob.X, tprob.y, idx)
+    G1, R1 = tcore.sampled_gram(tprob.X, tprob.y, idx[1])
+    np.testing.assert_allclose(_np(G[1]), _np(G1), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(_np(R[1]), _np(R1), rtol=1e-6, atol=1e-7)
+
+
+def test_gram_blocks_take_G_and_R_from_one_augmented_gram(problems):
+    _, tprob = problems
+    idx = tcore.sample_index_batch(torch.Generator().manual_seed(1), 3,
+                                   tprob.n, 65)
+    registry.reset_dispatch_counts()
+    G, R = tcore.gram_blocks(tprob.X, tprob.y, idx)
+    assert registry.dispatch_counts() == {("gram", "torch"): 1}
+    assert G.shape == (3, tprob.d, tprob.d) and R.shape == (3, tprob.d)
+    assert G.is_contiguous() and R.is_contiguous()
+    Xs, ys = tcore.sample_columns(tprob.X, tprob.y, idx)
+    X64, y64 = Xs.double(), ys.double()
+    np.testing.assert_allclose(_np(G), _np(X64 @ X64.transpose(1, 2) / 65),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        _np(R), _np(torch.einsum("kdm,km->kd", X64, y64) / 65),
+        rtol=1e-6, atol=1e-7)
+    assert tprob.Xy is tprob.Xy and tprob.Xy.shape == (tprob.d + 1, tprob.n)
+    Gp, Rp = tprob.block_stats(idx)
+    assert torch.equal(Gp, G) and torch.equal(Rp, R)
+
+
+# ------------------------------------------------------ data and launch ---
+def test_make_dataset_like_sizes_and_seed():
+    p1, w1 = make_dataset_like("covtype", scale=0.01, device="cpu")
+    p2, w2 = make_dataset_like("covtype", scale=0.01, device="cpu")
+    assert (p1.d, p1.n) == (54, int(58_101 * 0.01))
+    assert torch.equal(p1.X, p2.X) and torch.equal(w1, w2)
+    assert p1.lam > 0 and p1.X.dtype == torch.float32
+    assert int(PAPER_DATASETS["covtype"]["n"] * 10) == 581_010
+    assert int(PAPER_DATASETS["susy"]["n"] * 50) == 5_000_000
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default runs on it")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        lasso_solve.main(["--scale", "0.01"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_dataset_like("abalone")
+
+
+@pytest.mark.parametrize("algorithm", SOLVERS)
+def test_lasso_solve_cli_on_cpu(capsys, algorithm):
+    run = lasso_solve.main(["--device", "cpu", "--scale", "0.01",
+                            "--dataset", "susy", "--algorithm", algorithm,
+                            "--T", "64", "--k", "8"])
+    out = capsys.readouterr().out
+    assert "rel_err=" in out and "predicted CA speedup" in out
+    assert run.w.shape == (18,) and torch.isfinite(run.w).all()
+    assert 0.0 <= run.rel_err < 1.0
+    # the CPU run takes the plain versions: no kernel is launched
+    assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0}
+
+
+def test_lasso_solve_tol_stops_early():
+    run = lasso_solve.main(["--device", "cpu", "--scale", "0.01",
+                            "--dataset", "abalone", "--T", "256", "--k", "8",
+                            "--tol", "0.5"])
+    assert run.iters < 256 and run.rel_err <= 0.5
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+from repro_torch.launch import lasso_solve
+run = lasso_solve.main(["--device", "cpu", "--scale", "0.01", "--T", "16",
+                        "--k", "4", "--algorithm", "ca_spnm"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("ISOLATED", run.rel_err)
+"""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "ISOLATED" in out.stdout

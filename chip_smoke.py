@@ -4,11 +4,17 @@ Hopper card: the quickest proof that the port builds and runs on the GPU.
 
   python3 chip_smoke.py
 
-What it does, in order; any failure raises and the exit code is not 0:
+It drives two paths of the port: the paper's Lasso solvers (phases 4-6) and
+serving internlm2-1.8b at full width through the paged engine (phases
+7-9). What it does, in order; any failure raises and the exit code is not
+0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
    and the compute capability, which must be (9, 0);
-2. turns TF32 off, so every plain PyTorch version is full float32;
+2. turns TF32 off, so every plain PyTorch version is full float32, and
+   cuBLAS's reduced-precision bf16 reductions off
+   (``allow_bf16_reduced_precision_reduction``, True by default), so bf16
+   products sum in float32 as XLA sums them;
 3. builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one
    process per source, all at once) into ``build/repro_torch/``;
 4. kernel phase: holds each kernel against its plain PyTorch version on the
@@ -32,7 +38,46 @@ What it does, in order; any failure raises and the exit code is not 0:
    CA, classical, reported as all six walls and the two medians;
 6. a profiled CA and classical covtype solve: device time by kernel and the
    device's busy share of the wall time;
-7. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+7. attention kernel phase: ``flash_attention`` at the model forward's shape
+   (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
+   (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300)
+   and in float32; ``paged_decode`` at the engine's shape (B=8, Hq=16,
+   Hkv=8, D=128, page size 16, 64 pages a slot, valid 1..1024, table
+   entries past valid at page 0) with bf16, int8 (with scales) and float32
+   pools, and with page size 5. Each against its plain version,
+   normwise (max |kernel - plain| / max |plain|): at most 1e-5 for float32
+   outputs (float32 sums in another order) and 8e-3 for bf16 outputs (one
+   bf16 rounding at the top of the range, 2^-7). Times: kernel and plain
+   version with CUDA events after warm-up (paged decode with the L2 cache
+   flushed before each launch, as 24 layers' pools find it), and the
+   library yardstick ``scaled_dot_product_attention``, timed alone on the
+   same q/k/v (KV heads repeated beforehand; for paged decode on the
+   gathered dense K/V with a length mask). The port never calls it;
+8. model phase: first the JAX package's own check (tests/test_models.py)
+   at its own size, the smoke config: ``forward`` (flash_attention) and
+   the same 64 tokens one at a time through ``decode_step`` on a bf16
+   paged cache (paged_decode), every logit within atol = rtol = 0.05.
+   Then full width: internlm2-1.8b (24 layers) with bf16 weights from the
+   port's ``init_params`` and a seeded ``torch.Generator``; ``forward`` on
+   (2, 512) numpy-seeded tokens (flash_attention launched 24 times) and
+   the 512 positions through ``decode_step`` (paged_decode launched
+   512 * 24 times), every kernel call of both held to its plain version
+   on that call's own inputs (normwise 8e-3); the logits of decode,
+   forward and both with the plain attention against each other, with
+   their atol = rtol = 0.05 margins, and the model's GEMMs at 1,024 rows
+   against the same rows two at a time, printed (see ``model_phase``);
+9. serve phase, full width: ``Engine(num_slots=8, max_len=1024,
+   max_prompt=512, k=8, page_size=16)``, greedy, 16 requests of
+   numpy-seeded prompts of 32-512 tokens and 64 new tokens each, every
+   block under ``torch.cuda.set_sync_debug_mode("error")``: all retire at
+   64 tokens, steps == syncs * k, paged_decode launched steps * 24 times and
+   flash_attention never; the same requests at k=1 give bit-identical
+   streams; then int8 pages (same accounting; the share of tokens equal to
+   the bf16 run is printed, not gated); steady-state tok/s, ms/step and
+   ms/sync at k=8 and k=1; one profiled k=8 block (device time by kernel,
+   busy share); and once the CLI, ``repro_torch.launch.serve.main`` with
+   ``--preset full --page-size 16``;
+10. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 With no card, or run from a directory that holds nothing else of the
@@ -40,6 +85,7 @@ repository, it exits with an error before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -50,10 +96,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s
-#: outside the tensor cores, at the full 700 W power limit
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
+#: outside the tensor cores, dense bf16 and int8 tensor-core rates, at the
+#: full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 #: kernel vs plain version, normwise (see the module docstring)
 KERNEL_RTOL = 1e-5
 GRAM_RTOL = 2e-6
@@ -62,6 +111,11 @@ GRAM_OFFDIAG_RTOL = 2e-5
 CA_ATOL = 5e-6
 #: card vs the port's plain solve with the same draws and step
 PLAIN_ATOL = 1e-4
+#: attention kernel vs plain version, normwise, by output dtype
+ATTN_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+#: teacher-forced decode vs forward logits (tests/test_models.py)
+LOGIT_TOL = 0.05
+ARCH = "internlm2-1.8b"
 T, K, B, Q = 256, 32, 0.1, 5
 VARIANTS = ("l1", "elastic_net", "box", "none")
 SCAL = (0.05, 0.02, 0.3, -0.1, 0.2)     # [t, lam, mu, lo, hi]
@@ -83,10 +137,11 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
     """The least time the card could take: the larger of bytes over HBM
-    bandwidth and float32 operations over the non-tensor-core peak."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    bandwidth and operations over the peak ``rate`` for the inputs' type
+    (default float32 outside the tensor cores)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -97,6 +152,569 @@ def _self_device_us(ev) -> float:
         if hasattr(ev, attr):
             return getattr(ev, attr)
     return 0.0
+
+
+def _event_ms(fn, iters: int, flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches after 3 warm-up
+    calls, by CUDA events. With ``flush`` (a large device buffer) the L2
+    cache is overwritten before each launch, outside the timed span."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if flush is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+    pairs = []
+    for _ in range(iters):
+        # keep the card busy while the host enqueues the flush and the
+        # launch, so no host gap falls inside the timed span
+        torch.cuda._sleep(1_000_000)
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` (enqueue only: no synchronize inside),
+    the wrapper's own cost on the CPU."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _normwise(name, shape, got, want, rtol) -> float:
+    import torch
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}{shape}: not finite")
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    print(f"  {name:15s} {str(shape):44s} max_abs_err={err:.3e} "
+          f"normwise_rel={rel:.3e} (limit {rtol})")
+    check(rel <= rtol, f"{name}{shape}: normwise error {rel:.3e} > {rtol}")
+    return err
+
+
+def _rate(dtype) -> float:
+    import torch
+    return {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S,
+            torch.int8: INT8_OP_PER_S}[dtype]
+
+
+def attention_kernel_phase(dev):
+    """Phase 7: flash_attention and paged_decode against their plain
+    versions, timed beside their bounds and the SDPA yardstick. Returns the
+    JSON entries at the main path's shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = np.random.default_rng(0)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    entries = {}
+    print("kernel phase: flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for (Bq, Hq, Hkv, Sq, Skv, D, causal, dtype) in (
+            (2, 16, 8, 512, 512, 128, True, bf16),      # the forward's
+            (2, 16, 8, 1024, 1024, 128, True, bf16),
+            (2, 16, 8, 1000, 1000, 128, True, bf16),    # ragged
+            (2, 16, 8, 64, 1000, 128, True, bf16),      # right-aligned
+            (2, 16, 8, 37, 300, 128, False, bf16),      # not causal
+            (2, 16, 8, 512, 512, 128, True, f32)):
+        q = normal((Bq, Sq, Hq, D), dtype)
+        k = normal((Bq, Skv, Hkv, D), dtype)
+        v = normal((Bq, Skv, Hkv, D), dtype)
+        shape = (Bq, Hq, Hkv, Sq, Skv, D, "causal" if causal else "full",
+                 str(dtype).split(".")[1])
+        got = fa_ops.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa_ref.flash_attention(q, k, v, causal=causal)
+        err = _normwise("flash_attention", shape, got, want,
+                        ATTN_RTOL[shape[-1]])
+        if Sq != Skv:
+            continue
+        ms = _event_ms(lambda: fa_ops.flash_attention_cuda(
+            q, k, v, causal=causal), 20)
+        plain = _event_ms(lambda: fa_ref.flash_attention(
+            q, k, v, causal=causal), 5)
+        # the yardstick: SDPA on the same q/k/v, KV heads repeated and the
+        # layout made (B, H, S, D) beforehand; only the call is timed
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
+        lib = _event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 20)
+        del qt, kt, vt
+        host = _host_us(lambda: fa_ops.flash_attention_cuda(
+            q, k, v, causal=causal), 50)
+        esz = q.element_size()
+        nbytes = esz * (2 * Bq * Sq * Hq * D + 2 * Bq * Skv * Hkv * D)
+        # causal work counts the visible (query, key) pairs only
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        flops = 4.0 * Bq * Hq * pairs * D
+        bms, by = bound_ms(nbytes, flops, _rate(dtype))
+        cuda_core_ms = max(nbytes / HBM_BYTES_PER_S,
+                           flops / F32_FLOP_PER_S) * 1e3
+        print(f"  time flash_attention {str(shape):44s} kernel={ms:.4f}ms "
+              f"plain={plain:.4f}ms sdpa={lib:.4f}ms bound={bms:.5f}ms "
+              f"({by}, {str(dtype).split('.')[1]} peak) float32-CUDA-core "
+              f"bound={cuda_core_ms:.5f}ms host={host:.1f}us/call")
+        if Sq == 512 and dtype == bf16:
+            entries["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:250",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+        del q, k, v, got, want
+
+    print("kernel phase: paged_decode")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for kv, P, npages in (("bf16", 16, 64), ("int8", 16, 64),
+                          ("f32", 16, 64), ("bf16", 5, 205),
+                          ("int8", 5, 205)):
+        Bq, Hq, Hkv, D = 8, 16, 8, 128
+        num_pages = 1 + Bq * npages
+        valid = np.linspace(1, min(npages * P, 1024), Bq).astype(np.int32)
+        perm = rng.permutation(np.arange(1, num_pages)).reshape(Bq, npages)
+        table = np.where(np.arange(npages)[None] < -(-valid // P)[:, None],
+                         perm, 0).astype(np.int32)
+        qdt = f32 if kv == "f32" else bf16
+        q = normal((Bq, 1, Hq, D), qdt)
+        shp = (num_pages, P, Hkv, D)
+        scales = {}
+        if kv == "int8":
+            kp = torch.randint(-127, 128, shp, dtype=torch.int8, device=dev)
+            vp = torch.randint(-127, 128, shp, dtype=torch.int8, device=dev)
+            scales = {n: torch.rand(shp[:3], device=dev) * 0.02 + 1e-3
+                      for n in ("k_scale", "v_scale")}
+        else:
+            kp = normal(shp, f32 if kv == "f32" else bf16)
+            vp = normal(shp, f32 if kv == "f32" else bf16)
+        t = torch.from_numpy(table).to(dev)
+        n = torch.from_numpy(valid).to(dev)
+        shape = (Bq, Hq, Hkv, D, f"page {P}", kv)
+        got = fa_ops.paged_decode_cuda(q, kp, vp, t, n, **scales)
+        want = fa_ref.paged_decode(q, kp, vp, t, n, **scales)
+        err = _normwise("paged_decode", shape, got, want,
+                        ATTN_RTOL[str(qdt).split(".")[1]])
+        ms = _event_ms(lambda: fa_ops.paged_decode_cuda(
+            q, kp, vp, t, n, **scales), 100, flush)
+        plain = _event_ms(lambda: fa_ref.paged_decode(
+            q, kp, vp, t, n, **scales), 20, flush)
+        # the yardstick: SDPA on the K/V gathered densely beforehand
+        # (dequantized for int8, KV heads repeated), a length mask; only
+        # the call is timed
+        T = npages * P
+        kd = kp[t.long()].reshape(Bq, T, Hkv, D)
+        vd = vp[t.long()].reshape(Bq, T, Hkv, D)
+        if kv == "int8":
+            kd = (kd.float() * scales["k_scale"][t.long()].reshape(
+                Bq, T, Hkv)[..., None]).to(qdt)
+            vd = (vd.float() * scales["v_scale"][t.long()].reshape(
+                Bq, T, Hkv)[..., None]).to(qdt)
+        kd = kd.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous()
+        vd = vd.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(T, device=dev)[None, :] < n[:, None])
+        mask = mask[:, None, None, :]
+        lib = _event_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask), 100, flush)
+        del kd, vd, qd
+        warm = _event_ms(lambda: fa_ops.paged_decode_cuda(
+            q, kp, vp, t, n, **scales), 200)
+        host = _host_us(lambda: fa_ops.paged_decode_cuda(
+            q, kp, vp, t, n, **scales))
+        # bytes: q and out once, the valid K/V rows (and their scales) once
+        tokens = float(valid.sum())
+        row = Hkv * D * kp.element_size() + (Hkv * 4 if scales else 0)
+        nbytes = 2 * q.numel() * q.element_size() + 2 * tokens * row \
+            + table.nbytes + valid.nbytes
+        flops = 4.0 * tokens * Hq * D
+        bms, by = bound_ms(nbytes, flops, _rate(kp.dtype))
+        print(f"  time paged_decode {str(shape):44s} kernel={ms:.4f}ms "
+              f"(L2 flushed; {warm:.4f}ms back to back) plain={plain:.4f}ms "
+              f"sdpa={lib:.4f}ms bound={bms:.5f}ms ({by}) valid "
+              f"tokens={int(tokens)} host={host:.1f}us/call")
+        if kv == "bf16" and P == 16:
+            entries["paged_decode"] = dict(
+                name="paged_decode", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:208",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+        del q, kp, vp, got, want
+    del flush
+    return entries
+
+
+@contextlib.contextmanager
+def _held_to_plain(errs: dict):
+    """Hold every ``flash_attention`` and ``paged_attention`` dispatch of
+    the block against its plain version on the same inputs, right after
+    the kernel and before the next layer writes the pool: ``errs[op]``
+    collects each call's normwise error, max |kernel - plain| / max
+    |plain|, as a device scalar. The plain calls go straight to ``ref.py``,
+    so the launch counts still see the kernels only."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ref
+
+    plain = {"flash_attention": ref.flash_attention,
+             "paged_attention": ref.paged_decode}
+    for name in plain:
+        errs[name] = []
+    dispatch = registry.dispatch
+
+    def held(name, *args, **kw):
+        out = dispatch(name, *args, **kw)
+        if name in plain:
+            want = plain[name](*args, **kw).float()
+            errs.setdefault(name, []).append(
+                (out.float() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30))
+        return out
+
+    registry.dispatch = held
+    try:
+        yield
+    finally:
+        registry.dispatch = dispatch
+    for name, e in errs.items():
+        errs[name] = torch.stack(e) if e else torch.zeros(0)
+
+
+def _allclose_margin(got, ref):
+    """(max |got - ref|, worst excess over allclose(atol=rtol=LOGIT_TOL))
+    of two logit tensors: the check passes where the excess is <= 0."""
+    diff = (got.float() - ref.float()).abs()
+    excess = diff - LOGIT_TOL - LOGIT_TOL * ref.float().abs()
+    return float(diff.max()), float(excess.max())
+
+
+def _teacher_forcing(dev, cfg, params, toks):
+    """decode_step one token at a time through a bf16 paged cache (page
+    16): returns (logits (B, S, V) as decode_step gives them, seconds,
+    launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step
+    from repro_torch.serve import PagedCachePool
+
+    Bm, S = toks.shape
+    pool = PagedCachePool(cfg, Bm, S, page_size=16, device=dev)
+    for b in range(Bm):
+        pool.reserve(pool.allocate(f"tf{b}"), S)
+    cache = pool.make_cache()
+    table = torch.from_numpy(pool.tables.copy()).to(dev)
+    out = torch.empty(Bm, S, cfg.vocab, dtype=torch.bfloat16, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(S):
+        pos = torch.full((Bm,), t, dtype=torch.int32, device=dev)
+        lg, cache = decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                positions=pos, page_table=table)
+        out[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def _gemm_m_gap(x, w):
+    """x (M, K) @ w (K, N) in bf16 at M rows against the same rows two at
+    a time (decode's M at batch 2): (share of outputs whose bits differ,
+    max |difference|)."""
+    import torch
+    full = x @ w
+    pairs = torch.cat([x[i:i + 2] @ w for i in range(0, x.shape[0], 2)])
+    return (float((full != pairs).float().mean()),
+            float((full.float() - pairs.float()).abs().max()))
+
+
+def model_phase(dev, cfg, params):
+    """Phase 8: forward through flash_attention, then teacher-forced
+    decode_step through paged_decode on a bf16 paged cache.
+
+    The JAX package's check (tests/test_models.py: decode vs forward
+    logits, atol = rtol = 0.05) is gated at its own size, the smoke config,
+    with both kernels. At full width the kernels are held on the main
+    path itself: every flash_attention call of a forward and every
+    paged_decode call of the 512 teacher-forced steps against its plain
+    version on that call's inputs, normwise within the bf16 kernel
+    tolerance (8e-3). The logits comparisons at full width are printed,
+    not gated: decode vs forward (the JAX package's 0.05), decode vs
+    decode with the plain attention (same GEMM shapes, only the kernel
+    differs), the two plain paths against each other (no kernel at all)
+    and forward vs forward with the plain attention; and, for the cause of
+    the gap, the model's GEMMs at 1,024 rows against the same rows two at
+    a time. Through 24 bf16 layers any one-ulp flip grows to ~0.09 in the
+    logits, so no pair of paths meets 0.05 at this width (PERF.md).
+    Returns flash_attention's launches in the forward."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.layers import rms_norm
+
+    # the JAX check at its own size
+    small = smoke_config(cfg)
+    sp = init_params(small, torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.bfloat16, device=dev)
+    stoks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, small.vocab, size=(2, 64)).astype(np.int32)).to(dev)
+    sref, _ = forward(sp, small, {"tokens": stoks})
+    sdec, _, launches = _teacher_forcing(dev, small, sp, stoks)
+    worst, excess = _allclose_margin(sdec, sref)
+    print(f"model phase: smoke config ({small.n_layers} layers, d_model "
+          f"{small.d_model}), 64 positions: max |decode - forward| = "
+          f"{worst:.4e}, allclose atol=rtol={LOGIT_TOL} worst margin "
+          f"{excess:+.4e}")
+    check(excess <= 0.0, f"smoke config: decode logits exceed atol=rtol="
+          f"{LOGIT_TOL} of forward's (max |d| {worst:.4e})")
+    check(launches["paged_decode"] == 64 * small.n_layers,
+          "smoke config: paged_decode launches")
+    del sp, sref, sdec
+
+    Bm, S = 2, 512
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(Bm, S)).astype(np.int32)).to(dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"model phase: {cfg.name} forward (B={Bm}, S={S}) {fwd_s:.3f}s "
+          f"(first call) logits {tuple(logits.shape)} {logits.dtype} "
+          f"launches={launches}")
+    check(tuple(logits.shape) == (Bm, S, cfg.vocab), "forward logits shape")
+    check(bool(torch.isfinite(logits).all()), "forward logits not finite")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"forward launched flash_attention {launches['flash_attention']} "
+          f"times, want {cfg.n_layers}")
+    check(launches["paged_decode"] == 0, "forward launched paged_decode")
+    flash_launches = launches["flash_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    print(f"  forward again: {(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+    # the kernels on the main path's own inputs, call by call
+    tol = ATTN_RTOL["bfloat16"]
+    errs = {}
+    with _held_to_plain(errs):
+        held, _ = forward(params, cfg, {"tokens": toks})
+    fe = errs["flash_attention"]
+    fmax = float(fe.max()) if fe.numel() else math.nan
+    print(f"  forward, every flash_attention call held to its plain "
+          f"version: {fe.numel()} calls, normwise max {fmax:.3e} "
+          f"(limit {tol})")
+    check(fe.numel() == cfg.n_layers and fmax <= tol,
+          f"forward: flash_attention vs plain on the main path {fmax:.3e} "
+          f"(limit {tol}) over {fe.numel()} calls")
+    del held
+    errs = {}
+    with _held_to_plain(errs):
+        dec, tf_s, launches = _teacher_forcing(dev, cfg, params, toks)
+    pe = errs["paged_attention"]
+    pmax = float(pe.max()) if pe.numel() else math.nan
+    print(f"  teacher-forced decode_step x{S} (paged, bf16, page 16), "
+          f"every paged_decode call held to its plain version: "
+          f"{pe.numel()} calls, normwise max {pmax:.3e} (limit {tol}); "
+          f"{tf_s:.3f}s with the plain calls; launches={launches}")
+    check(pe.numel() == S * cfg.n_layers and pmax <= tol,
+          f"decode: paged_decode vs plain on the main path {pmax:.3e} "
+          f"(limit {tol}) over {pe.numel()} calls")
+    check(launches["paged_decode"] == S * cfg.n_layers,
+          f"decode launched paged_decode {launches['paged_decode']} times")
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+
+    # the logits, printed: through 24 bf16 layers any rounding flip grows
+    with registry.use("torch"):
+        plain_fwd, _ = forward(params, cfg, {"tokens": toks})
+        plain_dec, _, _ = _teacher_forcing(dev, cfg, params, toks)
+    print(f"  logits max |x| {float(logits.abs().max()):.3f}, std "
+          f"{float(logits.float().std()):.3f}; allclose "
+          f"atol=rtol={LOGIT_TOL} over all {S} positions (max |d|, worst "
+          f"margin; printed, not gated):")
+    for label, a, b in (
+            ("decode vs forward (the kernels)", dec, logits),
+            ("decode vs decode with plain attention", dec, plain_dec),
+            ("plain decode vs plain forward (no kernel)", plain_dec,
+             plain_fwd),
+            ("forward vs forward with plain attention", logits, plain_fwd)):
+        worst, excess = _allclose_margin(a, b)
+        w0, e0 = _allclose_margin(a[:, 0], b[:, 0])
+        print(f"    {label}: {worst:.4e}, {excess:+.4e} "
+              f"({'met' if excess <= 0 else 'not met'}); position 0 "
+              f"{w0:.4e}, {e0:+.4e}")
+    del dec, plain_dec, plain_fwd, logits
+
+    # the cause: the same rows at M = 1,024 and two at a time
+    lp = params["layers"][0]
+    x = rms_norm(torch.randn(Bm * S, cfg.d_model, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16),
+        lp["ln1"], cfg.norm_eps)
+    h = torch.randn(Bm * S, cfg.d_ff, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev).to(torch.bfloat16)
+    for label, a, w in (("wq", x, lp["attn"]["wq"]),
+                        ("w_gate", x, lp["mlp"]["w_gate"]),
+                        ("w_down", h, lp["mlp"]["w_down"]),
+                        ("lm_head", x, params["lm_head"])):
+        share, gap = _gemm_m_gap(a, w.to(torch.bfloat16))
+        print(f"  GEMM {label} {tuple(w.shape)} at M={Bm * S} vs M=2: "
+              f"{100 * share:.3f}% of outputs differ, max |d| {gap:.4e}")
+    return flash_launches
+
+
+def _serve_requests(cfg, n=16, new_tokens=64):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.RandomState(0)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.randint(32, 513))
+        prompt = rng.randint(0, cfg.vocab, size=plen).tolist()
+        reqs.append(Request(id=f"req-{i}", prompt=prompt,
+                            max_new_tokens=new_tokens))
+    return reqs
+
+
+def serve_phase(dev, cfg, params):
+    """Phase 9: the paged engine at full width. Returns paged_decode's
+    launches in the k=8 run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import Engine
+
+    def engine(k, **kw):
+        return Engine(params, cfg, num_slots=8, max_len=1024, max_prompt=512,
+                      k=k, page_size=16, eos_id=None, device=dev,
+                      sync_debug=True, **kw)
+
+    def run(k, **kw):
+        eng = engine(k, **kw)
+        for r in _serve_requests(cfg):
+            eng.submit(r)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step()                 # first block: allocator warm-up
+        first = time.perf_counter() - t0
+        toks0, syncs0 = eng.stats.tokens_out, eng.stats.syncs
+        t0 = time.perf_counter()
+        out += eng.run()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        s = eng.stats
+        steps = (s.syncs - syncs0) * k
+        label = f"k={k} {kw.get('kv_dtype', 'bf16')}"
+        print(f"  serve {label}: first block {first:.3f}s; steady "
+              f"{(s.tokens_out - toks0) / wall:.1f} tok/s, "
+              f"{wall / steps * 1e3:.3f} ms/step, "
+              f"{wall / (s.syncs - syncs0) * 1e3:.3f} ms/sync over "
+              f"{s.syncs - syncs0} syncs; {s.summary()}; "
+              f"page_defrags={s.page_defrags} "
+              f"peak_live_pages={s.peak_live_pages} launches={launches}")
+        check(s.retired == 16 and len(out) == 16, f"{label}: retired "
+              f"{s.retired}")
+        check(all(len(r.tokens) == 64 and r.finish_reason == "length"
+                  for r in out), f"{label}: a response is not 64 tokens "
+              f"finished by length")
+        check(s.steps == s.syncs * k, f"{label}: steps {s.steps} != syncs "
+              f"{s.syncs} * k")
+        check(launches["paged_decode"] == s.steps * cfg.n_layers,
+              f"{label}: paged_decode launched {launches['paged_decode']} "
+              f"times, want steps * {cfg.n_layers} = "
+              f"{s.steps * cfg.n_layers}")
+        check(launches["flash_attention"] == 0,
+              f"{label}: flash_attention launched in decode")
+        return {r.id: r.tokens for r in out}, launches["paged_decode"]
+
+    print(f"serve phase: {cfg.name} Engine(num_slots=8, max_len=1024, "
+          f"max_prompt=512, k, page_size=16), 16 requests x 64 new tokens, "
+          f"blocks under set_sync_debug_mode('error')")
+    streams8, paged_launches = run(8)
+    streams1, _ = run(1)
+    same = streams8 == streams1
+    print(f"  k=8 vs k=1 token streams bit-identical: {same}")
+    check(same, "k=8 and k=1 token streams differ")
+    streams_q, _ = run(8, kv_dtype="int8")
+    total = sum(len(v) for v in streams8.values())
+    equal = sum(a == b for rid in streams8
+                for a, b in zip(streams8[rid], streams_q[rid]))
+    print(f"  int8 pages vs bf16: {equal}/{total} tokens equal "
+          f"({100.0 * equal / total:.1f}%, not gated)")
+
+    # where the time goes: one profiled k=8 block in steady state
+    eng = engine(8)
+    for r in _serve_requests(cfg):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(ev.key, _self_device_us(ev), ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    print(f"  profile one k=8 block: wall {wall * 1e3:.3f} ms (profiled), "
+          f"device kernels {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% "
+          f"busy), {sum(r[2] for r in rows)} kernel launches, "
+          f"{len(rows)} kernel names")
+    for key, us, count in rows[:10]:
+        print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    del eng
+
+    # the normal entry point
+    t0 = time.perf_counter()
+    out = serve_cli.main(["--arch", cfg.name, "--preset", "full",
+                          "--page-size", "16", "--batch", "8",
+                          "--max-len", "1024", "--k", "8",
+                          "--new-tokens", "32", "--requests", "16",
+                          "--device", "cuda"])
+    print(f"  launch.serve --preset full --page-size 16: {len(out)} "
+          f"responses in {time.perf_counter() - t0:.2f}s")
+    check(len(out) == 16 and all(len(r.tokens) == 32 for r in out),
+          "launch.serve: not every request got 32 tokens")
+    return paged_launches
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -129,6 +747,7 @@ def main() -> int:
     # 2. full float32 in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 3. build
     t0 = time.perf_counter()
@@ -349,7 +968,7 @@ def main() -> int:
             covtype = (problem, cfg, draws)
         del runs, ca_run, cl_run, problem, w_plain
 
-    for name, e in entries.items():
+    for name, e in list(entries.items()):
         e["launches"] = total[name]
         check(total[name] > 0, f"{name} was not launched on the main path")
 
@@ -376,6 +995,29 @@ def main() -> int:
               f"({100 * busy / wall:.1f}% busy), {len(rows)} kernel names")
         for key, us, count in rows[:8]:
             print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # 7-9. serving internlm2-1.8b at full width
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, param_count
+    t_phase = time.perf_counter()
+    entries.update(attention_kernel_phase(dev))
+    print(f"attention kernel phase: {time.perf_counter() - t_phase:.1f}s")
+    cfg = get_arch(ARCH)
+    t_phase = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    print(f"{cfg.name}: {param_count(params)} parameters (bf16), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}")
+    entries["flash_attention"]["launches"] = model_phase(dev, cfg, params)
+    print(f"model phase: {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    entries["paged_decode"]["launches"] = serve_phase(dev, cfg, params)
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f}s")
+    for name in ("flash_attention", "paged_decode"):
+        check(entries[name]["launches"] > 0,
+              f"{name} was not launched on the main path")
+    print(f"total: {time.perf_counter() - T_START:.1f}s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k != "shape"}

@@ -1,0 +1,9 @@
+"""qwen2-vl-2b [vlm]: M-RoPE, dynamic-resolution vision frontend STUBBED
+(input_specs provides patch embeddings). [arXiv:2409.12191; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-vl-2b", family="vlm", n_layers=28, d_model=1536,
+    n_heads=12, n_kv_heads=2, d_ff=8960, vocab=151936,
+    vision_patches=1024, mrope=True, rope_theta=1e6,
+)

@@ -1,0 +1,9 @@
+"""whisper-medium [audio]: enc-dec, conv frontend is a STUB — input_specs
+provides precomputed frame embeddings. [arXiv:2212.04356]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="whisper-medium", family="audio", n_layers=24, d_model=1024,
+    n_heads=16, n_kv_heads=16, d_ff=4096, vocab=51865,
+    n_enc_layers=24, dec_len=448,
+)

@@ -1,0 +1,618 @@
+// GQA attention for the model's forward and for paged decode, float32 math.
+//
+// 1. flash_attention_fwd replaces the Pallas kernel `flash_attention`
+//    (src/repro/kernels/flash_attention/kernel.py:219, body `_flash_kernel`
+//    at :83), which the teacher-forced `forward` runs in every layer.
+//    q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), any strides with a unit last one (the
+//    model's layout, so the wrapper passes the projections as they are).
+//    One CTA per (q tile of 64 rows, q head, batch row): the Q tile stays in
+//    shared memory, K/V tiles of 64 rows stream through shared memory in the
+//    input's own type, and the online softmax keeps m, l and the 64 x D
+//    output accumulator in registers, all float32. GQA by index: q head h
+//    reads kv head h / (Hq / Hkv), no K/V copy. Causal rows are
+//    right-aligned (q_offset = Skv - Sq) and the kv tiles past the tile's
+//    last visible key are never loaded. Ragged Sq and Skv are masked here,
+//    with no pad pass; a row that sees no key gives 0.
+//    What bounds it on an H100: at the forward's shape (B=2, Hq=16,
+//    S=1024, D=128, causal, bf16) the work is 4.3 GFLOP of QK^T and as much
+//    of PV against 16.8 MB moved: bound by operations (4.4 us at 989
+//    TFLOP/s on bf16 tensor cores, 64 us at 67 TFLOP/s on float32 CUDA
+//    cores). Both products run here on the CUDA cores in float32, so the
+//    second is the floor this kernel as written can reach: QK^T of bf16
+//    inputs would be exact on the tensor cores (mma.sync, later work), but
+//    PV must stay float32 to keep the Pallas kernel's numbers, since p
+//    rounded to bf16 would not match them.
+//
+// 2. paged_decode replaces the Pallas kernel `paged_flash_decode`
+//    (kernel.py:159, bodies `_paged_kernel` :145 and `_paged_kernel_quant`
+//    :151), which every engine decode step runs in every layer.
+//    q (B,1,Hq,D); pools (num_pages, page_size, Hkv, D) of float32, bf16 or
+//    int8 with float32 scales (num_pages, page_size, Hkv); table
+//    (B, npages) int32; valid (B,) int32. One CTA per (kv head, batch row)
+//    serves all Hq/Hkv query heads of the group, so each K/V row is read
+//    once (the Pallas grid (B, Hq, npages) reads it once per query head).
+//    The sequence is split too (flash-decoding): one CTA per (chunk of 128
+//    positions, kv head, batch row), so a long row spreads over the card
+//    instead of walking its pages in one CTA; a second small kernel merges
+//    each row's chunk states (m, l, acc) into the output. The chunk is a
+//    constant, never a function of the batch, so a row's result does not
+//    depend on its neighbours. Each CTA stages its chunk's table entries in
+//    shared memory and reads the row's valid length; no position at or
+//    past `valid` is read, so pages whose first position is past it (table
+//    entries 0, the pool's scratch page) are never touched and weigh
+//    exactly 0, and a CTA whose chunk starts past it returns at once. Each
+//    of the 4 warps takes every 4th group of 4 positions and issues all 8
+//    K/V row loads of a round before it uses one; a lane holds D/32
+//    consecutive elements of the head dimension, loaded as one vector.
+//    int8 is dequantized in registers (code * scale, then the dot, as the
+//    Pallas body does). Any page size works (5 as well as 16).
+//    What bounds it: the valid K/V bytes. At the engine's shape (B=8,
+//    Hkv=8, D=128, bf16, valid up to 1024) that is at most 33.6 MB a layer
+//    (10 us at 3.35 TB/s); the FLOP are 4 per K/V element, far below.
+//
+// Every C entry returns cudaGetLastError() after its launch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+// ----------------------------------------------------------------- helpers
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// two consecutive elements (the first at an even index) as floats
+__device__ __forceinline__ float2 load2(const float* p) {
+  return make_float2(p[0], p[1]);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// ---------------------------------------------------------- flash attention
+constexpr int FA_BQ = 64;       // query rows per CTA
+constexpr int FA_BK = 64;       // key rows per shared-memory tile
+constexpr int FA_THREADS = 256; // a 16 x 16 thread grid
+constexpr int FA_PS = FA_BK + 1;  // row stride of the p tile (floats)
+
+// Shared-memory row stride of a Q/K/V tile, in elements: D plus one 32-bit
+// word, so a row spans an odd number of words and the 16 threads that read
+// 16 different rows at one column hit 16 different banks.
+template <typename T, int D>
+struct TileStride {
+  static constexpr int value = D + 4 / (int)sizeof(T);
+};
+
+template <typename T, int D>
+constexpr size_t fa_smem_bytes() {
+  return (size_t)3 * FA_BQ * TileStride<T, D>::value * sizeof(T) +
+         (size_t)FA_BQ * FA_PS * sizeof(float);
+}
+
+// Copy `rows` rows of D elements (row r at src + r*stride) into a shared
+// tile of row stride S, in 32-bit words; rows at or past `valid_rows` are
+// zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          int64_t stride, int valid_rows) {
+  constexpr int S = TileStride<T, D>::value;
+  constexpr int WPR = D * (int)sizeof(T) / 4;  // 32-bit words per row
+  for (int i = threadIdx.x; i < FA_BQ * WPR; i += FA_THREADS) {
+    const int r = i / WPR, w = i % WPR;
+    uint32_t val = 0;
+    if (r < valid_rows)
+      val = reinterpret_cast<const uint32_t*>(src + r * stride)[w];
+    reinterpret_cast<uint32_t*>(dst + r * S)[w] = val;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int Hq,
+                 int Hkv, int Sq, int Skv, int64_t qsb, int64_t qss,
+                 int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+                 int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
+                 int64_t oss, int64_t osh, int causal, float scale) {
+  constexpr int S = TileStride<T, D>::value;
+  constexpr int DC = D / 16;  // output columns per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + FA_BQ * S;
+  T* vs = ks + FA_BK * S;
+  float* ps = reinterpret_cast<float*>(vs + FA_BK * S);
+
+  const int q0 = blockIdx.x * FA_BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q_offset = Skv - Sq;
+
+  const T* qb = q + b * qsb + h * qsh + q0 * qss;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
+  load_tile<T, D>(qs, qb, qss, min(FA_BQ, Sq - q0));
+
+  // keys [0, kv_end) can be visible to some row of this tile
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, q_offset + q0 + FA_BQ);
+
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kv_end; k0 += FA_BK) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(ks, kb + k0 * kss, kss, min(FA_BK, Skv - k0));
+    load_tile<T, D>(vs, vb + k0 * vss, vss, min(FA_BK, Skv - k0));
+    __syncthreads();
+
+    // scores: rows ty + 16 i, columns tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 2) {
+      float2 qa[4], ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = load2(qs + (ty + 16 * i) * S + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ka[j] = load2(ks + (tx + 16 * j) * S + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+        }
+    }
+
+    // mask, online softmax, p tile to shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q_offset + q0 + ty + 16 * i;
+      float mx = -CUDART_INF_F;
+      bool keep[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        keep[j] = kpos < Skv && (!causal || kpos <= qpos);
+        s[i][j] *= scale;
+        if (keep[j]) mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
+      const float m_new = fmaxf(m[i], mx);
+      float alpha = 1.f, rs = 0.f;
+      if (m_new != -CUDART_INF_F) {
+        alpha = expf(m[i] - m_new);  // exp(-inf) = 0 on the first visible tile
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
+          ps[(ty + 16 * i) * FA_PS + tx + 16 * j] = p;
+          rs += p;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * FA_PS + tx + 16 * j] = 0.f;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
+      m[i] = m_new;
+      l[i] = l[i] * alpha + rs;
+#pragma unroll
+      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+    // acc += p v: rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+    for (int kk = 0; kk < FA_BK; ++kk) {
+      float pv[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * FA_PS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) vv[j] = to_f(vs[kk * S + tx + 16 * j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+  T* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      ob[r * oss + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+  }
+}
+
+constexpr int FA_MAX_DEVICES = 64;
+
+template <typename T, int D>
+cudaError_t launch_flash(const void* q, const void* k, const void* v,
+                         void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                         const int64_t* st, int causal, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = fa_smem_bytes<T, D>();
+  // the shared-memory opt-in is set once per device and instance, not per
+  // launch: the launch path is host-bound (see PERF.md)
+  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= FA_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev].store(true, std::memory_order_release);
+  }
+  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
+  flash_fwd_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_flash_d(int D, const void* q, const void* k,
+                           const void* v, void* o, int B, int Hq, int Hkv,
+                           int Sq, int Skv, const int64_t* st, int causal,
+                           float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_flash<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
+    case 32: return launch_flash<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
+    case 64: return launch_flash<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
+    case 128: return launch_flash<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------- paged decode
+constexpr int PD_WARPS = 4;
+constexpr int PD_U = 4;        // positions a warp takes per round
+constexpr int PD_GMAX = 8;     // query heads per kv head (GQA group) at most
+constexpr int PD_CHUNK = 128;  // positions per CTA: a constant, so a row's
+                               // result never depends on the batch
+
+// raw vector type of B bytes, for one load of a lane's head-dim slice
+template <int B> struct RawVec;
+template <> struct RawVec<1> { using type = uint8_t; };
+template <> struct RawVec<2> { using type = uint16_t; };
+template <> struct RawVec<4> { using type = uint32_t; };
+template <> struct RawVec<8> { using type = uint2; };
+template <> struct RawVec<16> { using type = uint4; };
+
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
+  using R = typename RawVec<sizeof(T) * N>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+}
+
+// Pass 1: one CTA per (chunk of PD_CHUNK positions, kv head, batch row).
+// A CTA whose chunk starts at or past the row's valid length returns at
+// once. The others write the chunk's softmax state (m, l, acc) for every
+// query head of the group into the partial buffers.
+template <typename TQ, typename TKV, int D, bool QUANT>
+__global__ void __launch_bounds__(PD_WARPS * 32)
+paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
+                   const TKV* __restrict__ vp,
+                   const float* __restrict__ kscale,
+                   const float* __restrict__ vscale,
+                   const int* __restrict__ table,
+                   const int* __restrict__ valid, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ part_acc,
+                   int Hq, int Hkv, int page_size, int npages, int nsplit,
+                   float scale) {
+  constexpr int PER = D >= 32 ? D / 32 : 1;  // head-dim elements per lane
+  __shared__ int s_table[PD_CHUNK + 1];
+  __shared__ float sm_m[PD_WARPS][PD_GMAX];
+  __shared__ float sm_l[PD_WARPS][PD_GMAX];
+  __shared__ float sm_acc[PD_WARPS][PD_GMAX][D];
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  // positions past the table's reach are not read (the Pallas grid stops
+  // at npages pages as well)
+  const int n = min(valid[b], npages * page_size);
+  const int t0 = split * PD_CHUNK;
+  if (t0 >= n) return;
+  const int t1 = min(n, t0 + PD_CHUNK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d0 = lane * PER;
+  const bool lane_on = d0 < D;
+
+  // the chunk's pages, staged once: no table load inside the loop
+  const int p0 = t0 / page_size, np = (t1 - 1) / page_size - p0 + 1;
+  for (int i = threadIdx.x; i < np; i += PD_WARPS * 32)
+    s_table[i] = table[(int64_t)b * npages + p0 + i];
+  __syncthreads();
+
+  float qr[PD_GMAX][PER], acc[PD_GMAX][PER], m[PD_GMAX], l[PD_GMAX];
+#pragma unroll
+  for (int g = 0; g < PD_GMAX; ++g) {
+    m[g] = -CUDART_INF_F;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
+    if (g < group && lane_on) {
+      load_vec<TQ, PER>(q + ((int64_t)b * Hq + hk * group + g) * D + d0,
+                        qr[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PER; ++e) qr[g][e] = 0.f;
+    }
+  }
+
+  for (int base = t0 + warp * PD_U; base < t1; base += PD_WARPS * PD_U) {
+    // issue every K and V load of the round before using any of them
+    int64_t row[PD_U];
+    float kv[PD_U][PER], vv[PD_U][PER], ksc[PD_U], vsc[PD_U];
+#pragma unroll
+    for (int u = 0; u < PD_U; ++u) {
+      const int t = base + u;
+      row[u] = -1;
+      if (t < t1)
+        row[u] = ((int64_t)s_table[t / page_size - p0] * page_size +
+                  t % page_size) * Hkv + hk;
+      ksc[u] = vsc[u] = 1.f;
+      if (row[u] >= 0 && lane_on) {
+        load_vec<TKV, PER>(kp + row[u] * D + d0, kv[u]);
+        load_vec<TKV, PER>(vp + row[u] * D + d0, vv[u]);
+        if (QUANT) {
+          ksc[u] = kscale[row[u]];
+          vsc[u] = vscale[row[u]];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < PER; ++e) kv[u][e] = vv[u][e] = 0.f;
+      }
+    }
+    float s[PD_U][PD_GMAX];
+#pragma unroll
+    for (int u = 0; u < PD_U; ++u) {
+      if (QUANT)  // dequantize, then the dot, as the Pallas body does
+#pragma unroll
+        for (int e = 0; e < PER; ++e) kv[u][e] *= ksc[u];
+#pragma unroll
+      for (int g = 0; g < PD_GMAX; ++g) {
+        float part = 0.f;
+        if (g < group) {
+#pragma unroll
+          for (int e = 0; e < PER; ++e) part = fmaf(qr[g][e], kv[u][e], part);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, off);
+        }
+        s[u][g] = row[u] >= 0 ? part * scale : -CUDART_INF_F;
+      }
+    }
+    // position `base` is < t1, so every group row sees a finite score here
+#pragma unroll
+    for (int g = 0; g < PD_GMAX; ++g) {
+      if (g >= group) continue;
+      float mx = s[0][g];
+#pragma unroll
+      for (int u = 1; u < PD_U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
+      float p[PD_U], rs = 0.f;
+#pragma unroll
+      for (int u = 0; u < PD_U; ++u) {
+        p[u] = row[u] >= 0 ? expf(s[u][g] - m_new) : 0.f;
+        rs += p[u];
+      }
+      l[g] = l[g] * alpha + rs;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        float a = acc[g][e] * alpha;
+#pragma unroll
+        for (int u = 0; u < PD_U; ++u)
+          a = fmaf(p[u], QUANT ? vv[u][e] * vsc[u] : vv[u][e], a);
+        acc[g][e] = a;
+      }
+    }
+  }
+
+  // merge the warps' states into the chunk's (warp 0 always saw a token)
+#pragma unroll
+  for (int g = 0; g < PD_GMAX; ++g) {
+    if (g >= group) continue;
+    if (lane == 0) {
+      sm_m[warp][g] = m[g];
+      sm_l[warp][g] = l[g];
+    }
+    if (lane_on)
+#pragma unroll
+      for (int e = 0; e < PER; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < group * D; i += PD_WARPS * 32) {
+    const int g = i / D, d = i % D;
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < PD_WARPS; ++w) M = fmaxf(M, sm_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < PD_WARPS; ++w) {
+      const float c = expf(sm_m[w][g] - M);  // 0 for a warp with no token
+      L += sm_l[w][g] * c;
+      A += sm_acc[w][g][d] * c;
+    }
+    const int64_t hs = ((int64_t)b * Hq + hk * group + g) * nsplit + split;
+    part_acc[hs * D + d] = A;
+    if (d == 0) {
+      part_m[hs] = M;
+      part_l[hs] = L;
+    }
+  }
+}
+
+// Pass 2: one CTA per (query head, batch row) merges the row's chunks.
+template <typename TQ>
+__global__ void paged_merge_kernel(const float* __restrict__ part_m,
+                                   const float* __restrict__ part_l,
+                                   const float* __restrict__ part_acc,
+                                   const int* __restrict__ valid,
+                                   TQ* __restrict__ out, int Hq, int D,
+                                   int nsplit, int cap) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n = min(valid[b], cap);
+  const int used = n > 0 ? (n + PD_CHUNK - 1) / PD_CHUNK : 0;
+  const int64_t hs = ((int64_t)b * Hq + h) * nsplit;
+  float M = -CUDART_INF_F;
+  for (int s = 0; s < used; ++s) M = fmaxf(M, part_m[hs + s]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < used; ++s) {
+      const float c = expf(part_m[hs + s] - M);
+      L += part_l[hs + s] * c;
+      A += part_acc[(hs + s) * D + d] * c;
+    }
+    // a row with no valid position gives 0, as the Pallas kernel does
+    out[((int64_t)b * Hq + h) * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
+                         const float* ks, const float* vs, const int* table,
+                         const int* valid, float* part, void* out, int B,
+                         int Hq, int Hkv, int page_size, int npages,
+                         int nsplit, float scale, cudaStream_t stream) {
+  float* pm = part;
+  float* pl = pm + (size_t)B * Hq * nsplit;
+  float* pa = pl + (size_t)B * Hq * nsplit;
+  dim3 grid(nsplit, Hkv, B);
+  if (ks != nullptr)
+    paged_chunk_kernel<TQ, TKV, D, true><<<grid, PD_WARPS * 32, 0, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
+        static_cast<const TKV*>(vp), ks, vs, table, valid, pm, pl, pa, Hq,
+        Hkv, page_size, npages, nsplit, scale);
+  else
+    paged_chunk_kernel<TQ, TKV, D, false><<<grid, PD_WARPS * 32, 0, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
+        static_cast<const TKV*>(vp), nullptr, nullptr, table, valid, pm, pl,
+        pa, Hq, Hkv, page_size, npages, nsplit, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_merge_kernel<TQ><<<dim3(Hq, B), D, 0, stream>>>(
+      pm, pl, pa, valid, static_cast<TQ*>(out), Hq, D, nsplit,
+      npages * page_size);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_paged_d(int D, const void* q, const void* kp,
+                           const void* vp, const float* ks, const float* vs,
+                           const int* table, const int* valid, float* part,
+                           void* out, int B, int Hq, int Hkv, int page_size,
+                           int npages, int nsplit, float scale,
+                           cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_paged<TQ, TKV, 16>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 32: return launch_paged<TQ, TKV, 32>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 64: return launch_paged<TQ, TKV, 64>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 128: return launch_paged<TQ, TKV, 128>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ>
+cudaError_t launch_paged_kv(int kv_type, int D, const void* q,
+                            const void* kp, const void* vp, const float* ks,
+                            const float* vs, const int* table,
+                            const int* valid, float* part, void* out, int B,
+                            int Hq, int Hkv, int page_size, int npages,
+                            int nsplit, float scale, cudaStream_t st) {
+  switch (kv_type) {
+    case 0: return launch_paged_d<TQ, float>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 1: return launch_paged_d<TQ, __nv_bfloat16>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 2: return launch_paged_d<TQ, int8_t>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only)
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int dtype, int B,
+                                   int Hq, int Hkv, int Sq, int Skv, int D,
+                                   const int64_t* strides, int causal,
+                                   float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_flash_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                                 causal, scale, st);
+  if (dtype == 1)
+    return launch_flash_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                         strides, causal, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// part: float32 scratch of B*Hq*nsplit*(D + 2) floats, nsplit =
+// ceil(npages*page_size / 128), allocated by the caller
+extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
+                            const void* ks, const void* vs, const void* table,
+                            const void* valid, void* part, void* out,
+                            int q_type, int kv_type, int B, int Hq, int Hkv,
+                            int D, int page_size, int npages, int nsplit,
+                            float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* k_s = static_cast<const float*>(ks);
+  const float* v_s = static_cast<const float*>(vs);
+  const int* t = static_cast<const int*>(table);
+  const int* n = static_cast<const int*>(valid);
+  float* p = static_cast<float*>(part);
+  if (q_type == 0)
+    return launch_paged_kv<float>(kv_type, D, q, kp, vp, k_s, v_s, t, n, p,
+                                  out, B, Hq, Hkv, page_size, npages, nsplit,
+                                  scale, st);
+  if (q_type == 1)
+    return launch_paged_kv<__nv_bfloat16>(kv_type, D, q, kp, vp, k_s, v_s, t,
+                                          n, p, out, B, Hq, Hkv, page_size,
+                                          npages, nsplit, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

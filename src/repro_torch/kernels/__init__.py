@@ -2,6 +2,11 @@
 ``cuda``, sources in ``repro_torch/csrc``) and its plain PyTorch version
 (backend ``torch``, the ``ref.py`` beside it).
 
+  gram/             ``gram``                     csrc/gram.cu
+  prox_step/        ``prox_step``, ``prox_loop``  csrc/prox_step.cu
+  flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
+                    ``paged_attention`` (kernel ``paged_decode``)
+
   registry.py  the op table, backend policy and dispatch counts
   _build.py    nvcc at first use into ``build/repro_torch/``, ctypes binding
 
@@ -17,8 +22,11 @@ def _cuda_wrappers():
     registry.ensure_loaded()
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     return {"gram": gram_ops.gram_cuda, "prox_step": prox_ops.prox_step_cuda,
-            "prox_loop": prox_ops.prox_loop_cuda}
+            "prox_loop": prox_ops.prox_loop_cuda,
+            "flash_attention": fa_ops.flash_attention_cuda,
+            "paged_decode": fa_ops.paged_decode_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,211 @@
+"""Ops ``flash_attention`` and ``paged_attention``: the model's two attention
+kernels, in the model's (B, S, H, D) layout.
+
+``cuda`` launches ``csrc/flash_attention.cu``: ``flash_attention_fwd``
+(counterpart of the Pallas kernel ``repro.kernels.flash_attention.kernel
+.flash_attention``) and ``paged_decode`` (counterpart of
+``paged_flash_decode``); ``torch`` is ``ref.py``. The JAX wrappers pad the
+head dim to 128 lanes, the sequence to the block size and the page rows to
+8 before the kernel; here the kernels mask ragged edges themselves and there
+is no pad pass. The flash kernel takes its operands' strides, so the model
+hands it the projections as views, without a copy.
+
+Each CUDA wrapper counts its launches in a plain-integer ``launches``
+attribute: ``flash_attention_cuda.launches``, ``paged_decode_cuda.launches``.
+One ``paged_decode`` launch is its two CUDA kernels: the chunk pass and the
+merge of each row's chunks.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, registry
+from repro_torch.kernels.flash_attention import ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_FLASH_ARGS = [_P] * 4 + [_I] * 7 + [_P, _I, _F, _P]
+_PAGED_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
+#: positions per CTA of the paged kernel (``PD_CHUNK`` in the source)
+PAGED_CHUNK = 128
+#: head dims the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+#: query heads per kv head the paged kernel serves at most
+MAX_GROUP = 8
+_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check(t: torch.Tensor, name: str, what: str, ndim: int,
+           dtypes) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: {name} must be on a CUDA device, "
+                         f"got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what}: {name} must be one of "
+                         f"{[str(d) for d in dtypes]}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: {name} must have {ndim} dims, "
+                         f"got shape {tuple(t.shape)}")
+
+
+def _gqa(Hq: int, Hkv: int, what: str) -> None:
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{what}: GQA requires Hq % Hkv == 0, got "
+                         f"Hq={Hq} Hkv={Hkv}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention by the Hopper kernel. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D),
+    float32 or bf16 (all three alike), unit stride on D and 4-byte aligned
+    rows -> (B,Sq,Hq,D) in q's dtype. Causal rows are right-aligned
+    (query i sees keys [0, Skv - Sq + i])."""
+    what = "flash_attention"
+    dtypes = (torch.float32, torch.bfloat16)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, what, 4, dtypes)
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: q, k and v must share a dtype, got "
+                             f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{what}: {name} needs a unit stride on its "
+                             f"last dim, got strides {t.stride()}")
+        esz = t.element_size()
+        if t.data_ptr() % 4 or any(s * esz % 4 for s in t.stride()[:3]):
+            raise ValueError(f"{what}: {name} rows must be 4-byte aligned")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
+    _gqa(Hq, Hkv, what)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if min(B, Sq, Skv) < 1 or B > 65535 or Hq > 65535:
+        raise ValueError(f"{what}: unsupported shape q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    scale = D ** -0.5 if scale is None else float(scale)
+    o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *o.stride()[:3])
+    fn = _build.function("flash_attention", "flash_attention_fwd",
+                         _FLASH_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _TYPE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+             ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)), scale,
+             _build.stream_of(q))
+    _build.check("flash_attention", err, what)
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0
+
+
+#: the paged kernel's chunk-state scratch, one buffer per (device, stream),
+#: grown when a call needs more: the launches on one stream run in order,
+#: so they can share it, and a decode step allocates nothing for it
+_PART: dict = {}
+
+
+def _part_scratch(device: torch.device, stream: int,
+                  numel: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _PART.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _PART[key] = buf
+    return buf
+
+
+def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, page_table: torch.Tensor,
+                      kv_valid_len: torch.Tensor, *,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention through a page table by the Hopper kernel.
+    q (B,1,Hq,D) float32 or bf16; pools (num_pages, page_size, Hkv, D)
+    float32, bf16 or int8 (int8 with ``k_scale``/``v_scale``
+    (num_pages, page_size, Hkv) float32); page_table (B, npages) int32;
+    kv_valid_len (B,) int32; all contiguous, on the card -> (B,1,Hq,D) in
+    q's dtype. Nothing here reads a device value back to the host."""
+    what = "paged_decode"
+    _check(q, "q", what, 4, (torch.float32, torch.bfloat16))
+    _check(k_pool, "k_pool", what, 4,
+           (torch.float32, torch.bfloat16, torch.int8))
+    _check(v_pool, "v_pool", what, 4, (k_pool.dtype,))
+    _check(page_table, "page_table", what, 2, (torch.int32,))
+    _check(kv_valid_len, "kv_valid_len", what, 1, (torch.int32,))
+    quant = k_pool.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or (k_scale is None) == quant:
+        raise ValueError(f"{what}: k_scale and v_scale come together, with "
+                         f"an int8 pool and only then")
+    B, S, Hq, D = q.shape
+    npg, P, Hkv = k_pool.shape[:3]
+    if S != 1:
+        raise ValueError(f"{what}: expects a single query, got S={S}")
+    if k_pool.shape != (npg, P, Hkv, D) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)} "
+                         f"{tuple(v_pool.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if page_table.shape[0] != B or kv_valid_len.shape != (B,):
+        raise ValueError(f"{what}: page_table {tuple(page_table.shape)} and "
+                         f"kv_valid_len {tuple(kv_valid_len.shape)} need "
+                         f"{B} rows")
+    _gqa(Hq, Hkv, what)
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{what}: at most {MAX_GROUP} query heads per kv "
+                         f"head, got {Hq // Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if B > 65535 or Hkv > 65535 or P < 1:
+        raise ValueError(f"{what}: unsupported shape")
+    operands = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                ("page_table", page_table), ("kv_valid_len", kv_valid_len)]
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(t, name, what, 3, (torch.float32,))
+            if t.shape != (npg, P, Hkv):
+                raise ValueError(f"{what}: {name} must be "
+                                 f"{(npg, P, Hkv)}, got {tuple(t.shape)}")
+            operands.append((name, t))
+    for name, t in operands:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    scale = D ** -0.5 if scale is None else float(scale)
+    npages = page_table.shape[1]
+    nsplit = max(-(-npages * P // PAGED_CHUNK), 1)
+    if nsplit > 2 ** 31 - 1:
+        raise ValueError(f"{what}: page table too long")
+    out = torch.empty_like(q)
+    stream = _build.stream_of(q)
+    # each row's chunk states (m, l, acc), merged by the second kernel
+    part = _part_scratch(q.device, stream, B * Hq * nsplit * (D + 2))
+    fn = _build.function("flash_attention", "paged_decode", _PAGED_ARGS)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
+             page_table.data_ptr(), kv_valid_len.data_ptr(), part.data_ptr(),
+             out.data_ptr(), _TYPE[q.dtype], _TYPE[k_pool.dtype], B, Hq, Hkv,
+             D, P, npages, nsplit, scale, stream)
+    _build.check("flash_attention", err, what)
+    paged_decode_cuda.launches += 1
+    return out
+
+
+paged_decode_cuda.launches = 0
+
+registry.register("flash_attention", "cuda",
+                  unavailable=_build.unavailable_reason,
+                  rejects=_build.rejects_cpu)(flash_attention_cuda)
+registry.register("flash_attention", "torch")(ref.flash_attention)
+registry.register("paged_attention", "cuda",
+                  unavailable=_build.unavailable_reason,
+                  rejects=_build.rejects_cpu)(paged_decode_cuda)
+registry.register("paged_attention", "torch")(ref.paged_decode)

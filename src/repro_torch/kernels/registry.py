@@ -1,8 +1,14 @@
 """Kernel registry of the port: one named-op table, one impl per backend.
 
 The counterpart of ``repro.kernels.registry``, slimmed to what the port
-runs. Each op (``gram``, ``prox_step``, ``prox_loop``) registers two
-implementations:
+runs. Each op registers two implementations:
+
+* ``gram``, ``prox_step``, ``prox_loop`` — the Lasso solvers' kernels;
+* ``flash_attention`` — the model's teacher-forced attention, (B, S, H, D);
+* ``paged_attention`` — single-query decode attention through a page table
+  (its CUDA kernel is ``paged_decode``).
+
+The two implementations of each:
 
 * ``cuda``  — the hand-written Hopper kernel (``repro_torch/csrc``);
 * ``torch`` — the plain PyTorch version of the same function (``ref.py``).
@@ -43,6 +49,8 @@ ENV_VAR = "REPRO_TORCH_BACKEND"
 _IMPL_MODULES = (
     "repro_torch.kernels.gram.ops",       # registers "gram"
     "repro_torch.kernels.prox_step.ops",  # registers "prox_step", "prox_loop"
+    # registers "flash_attention", "paged_attention"
+    "repro_torch.kernels.flash_attention.ops",
 )
 
 

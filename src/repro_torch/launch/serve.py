@@ -1,0 +1,177 @@
+"""Serving driver: a thin CLI over the continuous-batching engine
+(``repro_torch.serve``), with the classic whole-batch loop kept as
+``--engine off`` (the counterpart of ``repro.launch.serve``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --preset tiny --page-size 5
+
+Engine mode drains a synthetic request stream through
+``repro_torch.serve.Engine`` (k decode steps per host sync); the prompts
+are drawn with numpy exactly as the JAX CLI draws them. Classic mode
+decodes one fixed batch with a host round trip per token. Both report the
+first round (one-time set-up: kernel builds, allocator warm-up) and the
+steady state separately. Weights are random, from a seeded
+``torch.Generator``, held in bf16.
+
+Ported flags: ``--arch`` (dense archs), ``--preset``, ``--batch``,
+``--new-tokens``, ``--max-len``, ``--k``, ``--requests``, ``--engine``,
+``--page-size``, ``--kv-dtype``, plus ``--device`` (default ``cuda``,
+raising on a host with no card). Sampling, streaming, fan-out, the prefix
+cache, overlap, autotune and obs come with their ROADMAP items.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_arch, smoke_config
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import init_cache, init_params
+from repro_torch.models.transformer import require_dense
+from repro_torch.serve import Engine, Request
+
+
+def _synthetic_requests(cfg, n: int, max_prompt: int, new_tokens: int,
+                        enc_len: int, seed: int = 0, sampling=None,
+                        fanout: int = 1):
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.randint(1, max_prompt + 1))
+        prompt = rng.randint(0, cfg.vocab, size=plen).tolist()
+        enc = rng.randn(enc_len, cfg.d_model).astype(np.float32) \
+            if cfg.family == "audio" else None
+        sp = None
+        if sampling is not None:
+            # distinct per-request seeds derived from the CLI seed
+            sp = dataclasses.replace(sampling, seed=(sampling.seed or 0) + i)
+        reqs.append(Request(id=f"req-{i}", prompt=prompt,
+                            max_new_tokens=new_tokens, enc_embeds=enc,
+                            sampling=sp, n=fanout))
+    return reqs
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _params(cfg, device: torch.device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    return init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+
+
+def serve_engine(cfg, args, device: torch.device):
+    params = _params(cfg, device)
+    max_prompt = min(16, args.max_len // 2)
+    engine = Engine(params, cfg, num_slots=args.batch, max_len=args.max_len,
+                    k=args.k, max_prompt=max_prompt,
+                    page_size=args.page_size or None,
+                    kv_dtype=args.kv_dtype, device=device)
+    reqs = _synthetic_requests(cfg, args.requests or 2 * args.batch,
+                               max_prompt, args.new_tokens, args.max_len)
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    responses = engine.step()            # first block: one-time set-up
+    first_s = time.perf_counter() - t0
+    warm_toks = engine.stats.tokens_out
+    t0 = time.perf_counter()
+    responses += engine.run()
+    dt = time.perf_counter() - t0
+    s = engine.stats
+    steady_toks = s.tokens_out - warm_toks
+    steady_steps = (s.syncs - 1) * args.k
+    print(f"arch={cfg.name} engine=on device={device} slots={args.batch} "
+          f"k={args.k} requests={len(reqs)} new_tokens={args.new_tokens}")
+    print(f"first block (incl. set-up): {first_s:.2f} s")
+    if steady_steps and dt > 0:
+        print(f"steady-state: {steady_toks / dt:.1f} tok/s "
+              f"({dt / steady_steps * 1e3:.2f} ms/step, "
+              f"{dt / (s.syncs - 1) * 1e3:.2f} ms/sync at k={args.k})")
+    print(f"stats: syncs={s.syncs} steps={s.steps} tokens_out={s.tokens_out} "
+          f"prefill_tokens={s.prefill_tokens} retired={s.retired} "
+          f"shed={s.shed} defrags={s.defrags} occupancy={s.occupancy:.2f}")
+    print(s.summary())
+    if engine.paged:
+        print(f"paged: page_size={engine.pool.page_size} "
+              f"pages={engine.pool.num_pages} "
+              f"kv_dtype={engine.pool.kv_dtype} "
+              f"page_bytes={engine.pool.page_bytes()} "
+              f"page_defrags={s.page_defrags}")
+    for r in sorted(responses, key=lambda r: r.id)[:2]:
+        print(f"  {r.id}: finish={r.finish_reason} tokens={r.tokens[:16]}")
+    return responses
+
+
+def serve_classic(cfg, args, device: torch.device):
+    """Whole-batch greedy decode, one host round trip per token."""
+    params = _params(cfg, device)
+    cache = init_cache(cfg, args.batch, args.max_len, device=device)
+    serve = make_serve_step(cfg)
+    tok = torch.zeros(args.batch, 1, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    tok, _, cache = serve(params, cache, tok)
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    seqs = [tok]
+    steps = args.new_tokens - 1
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, _, cache = serve(params, cache, tok)
+        seqs.append(tok)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    out = torch.cat(seqs, dim=1).cpu()
+    print(f"arch={cfg.name} engine=off device={device} batch={args.batch} "
+          f"new_tokens={args.new_tokens}")
+    print(f"first step (incl. set-up): {first_s:.2f} s")
+    if steps and dt > 0:
+        print(f"steady-state: {args.batch * steps / dt:.1f} tok/s "
+              f"({dt / steps * 1e3:.2f} ms/step over {steps} timed steps)")
+    for b in range(min(args.batch, 2)):
+        print(f"  seq[{b}]: {out[b, :16].tolist()} ...")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--preset", choices=["tiny", "full"], default="tiny")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="engine slots / classic batch size")
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--k", type=int, default=4,
+                    help="decode steps per host sync (engine mode)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="synthetic request count (default 2*batch)")
+    ap.add_argument("--engine", choices=["on", "off"], default="on",
+                    help="off: classic per-token whole-batch loop")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="engine mode: tokens per KV page (0 = whole-row "
+                         "slot cache)")
+    ap.add_argument("--kv-dtype", choices=["f32", "int8"], default="f32",
+                    help="engine mode, with --page-size: int8 stores the "
+                         "K/V pages as int8 codes + f32 row/head scales")
+    ap.add_argument("--device", default=None,
+                    help="device to run on (default cuda; raises on a host "
+                         "with no card unless this says cpu)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch)
+    require_dense(arch)
+    cfg = smoke_config(arch) if args.preset == "tiny" else arch
+    if args.engine == "on":
+        return serve_engine(cfg, args, device)
+    return serve_classic(cfg, args, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,159 @@
+"""Model orchestration for the dense family: init, forward, cache, decode
+(the counterpart of ``repro.models.transformer``).
+
+Parameters are a plain dict of tensors: ``embed`` (V, d), ``ln_f`` (d,),
+``lm_head`` (d, V) and ``layers``, a list of one dict per layer (JAX
+stacks the layers along a leading axis for ``lax.scan``; the port loops).
+The other families raise until their ROADMAP item brings them, and
+``loss_fn`` comes with training.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.blocks import dense_block, init_dense_block, paged_rows
+from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+                                      rope_tables)
+
+#: where each unported family comes from (ROADMAP, queue 1)
+_LATER = {
+    "moe": "ROADMAP queue 1 item 6 (models: moe.py)",
+    "ssm": "ROADMAP queue 1 item 6 (models: ssm.py, with the ssd kernel)",
+    "hybrid": "ROADMAP queue 1 item 6 (models: hybrid zamba2)",
+    "audio": "ROADMAP queue 1 item 6 (models: encdec.py)",
+    "vlm": "ROADMAP queue 1 item 6 (models: frontend.py, M-RoPE)",
+}
+
+
+def require_dense(cfg) -> None:
+    """Raise for a family the port does not run yet, naming its item."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
+            f"with {_LATER.get(cfg.family, 'a later ROADMAP item')}")
+
+
+def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
+                device=None) -> dict:
+    """Random weights from ``gen``: embeddings N(0, 1/d), projections
+    N(0, 1/fan_in), norms 1, as ``repro.models.init_params`` draws them
+    (``torch.Generator`` gives other numbers than ``jax.random``)."""
+    require_dense(cfg)
+    device = gen.device if device is None else device
+    params = dict(embed=embed_init(gen, cfg.vocab, cfg.d_model, dtype,
+                                   device),
+                  ln_f=torch.ones(cfg.d_model, dtype=dtype, device=device))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
+                                       dtype=dtype, device=device)
+    params["layers"] = [init_dense_block(gen, cfg, dtype, device)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the bf16 stream (JAX: take, then astype)."""
+    return F.embedding(tokens.long(), params["embed"]).to(torch.bfloat16)
+
+
+def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the vocabulary projection, a bf16 product as in
+    JAX."""
+    x = rms_norm(x, params["ln_f"].float(), cfg.norm_eps)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(x.dtype)
+    return x @ head
+
+
+def forward(params, cfg, batch: dict, *, last_only: bool = False):
+    """Teacher-forced forward: batch["tokens"] (B, S) -> (logits (B,S,V)
+    bf16, aux 0). ``last_only`` projects the final position only (the
+    prefill path). Attention dispatches the registry op
+    ``flash_attention``."""
+    require_dense(cfg)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens)
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    pos_info = dict(rope=rope_tables(pos, cfg.head_dim, cfg.rope_theta))
+    for lp in params["layers"]:
+        x, _ = dense_block(lp, x, cfg, pos_info=pos_info)
+    if last_only:
+        x = x[:, -1:]
+    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Decode cache: ``pos`` (scalar int32) and ``layers`` with k/v
+    (n_layers, batch, max_len, Hkv, Dh)."""
+    require_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return dict(pos=torch.zeros((), dtype=torch.int32, device=device),
+                layers=dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                            v=torch.zeros(shape, dtype=dtype, device=device)))
+
+
+def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
+
+    positions: optional (B,) int32 per-slot decode depths (the
+    continuous-batching engine): each row RoPEs at its own position and
+    writes its K/V at its own index; ``cache["pos"]`` is then only
+    advanced. Default: the scalar ``cache["pos"]`` shared by the batch.
+    page_table: optional (B, pages_per_slot) int32 — the K/V leaves are a
+    paged pool (``repro_torch.serve.paging``); requires ``positions``.
+
+    The cache's K/V tensors are written in place (see
+    ``repro_torch.models.blocks``); ``cache["pos"]`` is replaced. Attention
+    dispatches ``paged_attention`` (paged) or runs ``chunked_attention``
+    (slot cache).
+    """
+    require_dense(cfg)
+    B = tokens.shape[0]
+    if page_table is not None and positions is None:
+        raise ValueError("a paged cache needs per-row positions")
+    if positions is None:
+        pos = cache["pos"]
+        rope_pos = pos.expand(B).reshape(B, 1)
+    else:
+        pos = positions
+        rope_pos = positions[:, None]
+    x = _embed(params, tokens)
+    # what every layer of the step shares, computed once: the rotary
+    # tables and, paged, the pool rows written and the valid lengths
+    pos_info = dict(rope=rope_tables(rope_pos, cfg.head_dim, cfg.rope_theta))
+    layers = cache["layers"]
+    if page_table is not None:
+        pos_info["rows"] = paged_rows(page_table, pos, layers["k"].shape[2])
+    for i, lp in enumerate(params["layers"]):
+        cl = {name: leaf[i] for name, leaf in layers.items()}
+        x, _ = dense_block(lp, x, cfg, pos_info=pos_info, cache=cl,
+                           cache_pos=pos, page_table=page_table)
+    logits = _logits(params, cfg, x)
+    cache = dict(cache, pos=cache["pos"] + 1)
+    return logits, cache
+
+
+__all__ = ["init_params", "param_count", "forward", "init_cache",
+           "decode_step", "require_dense"]

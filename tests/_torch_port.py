@@ -1,15 +1,19 @@
 """Carry the JAX package's state over to the PyTorch port, for the parity
 tests of ``repro_torch``: the problem (through numpy), the index draws
 (``jax.random`` gives other numbers than ``torch.Generator``, so the port
-takes the JAX draws as an int64 tensor) and the step size t."""
+takes the JAX draws as an int64 tensor), the step size t, and the model
+weights."""
 import dataclasses
 
+import jax
 import numpy as np
 import torch
 
 from repro.core.problem import lipschitz_step
 from repro.core.sampling import sample_index_batch
 import repro_torch.core as tcore
+from repro_torch.models import params_from_numpy
+from repro_torch.configs import get_arch as t_get_arch
 
 #: the reference's own tolerance for solver trajectories
 #: (tests/test_core.py, tests/test_sstep.py)
@@ -44,3 +48,16 @@ def jax_draws(key, cfg, problem) -> torch.Tensor:
     idx = sample_index_batch(key, cfg.T, problem.n_units, m,
                              cfg.with_replacement)
     return to_torch(idx, np.int64)
+
+
+def to_torch_config_arch(cfg):
+    """``repro`` ArchConfig -> the port's ArchConfig, field by field."""
+    return t_get_arch(cfg.name).scaled(**dataclasses.asdict(cfg))
+
+
+def to_torch_params(jax_params, cfg, dtype=torch.bfloat16):
+    """``repro.models.init_params`` weights -> the port's parameter dict on
+    the CPU (bf16 by default: every use in JAX casts to bf16 first)."""
+    return params_from_numpy(to_torch_config_arch(cfg),
+                             jax.tree.map(np.asarray, jax_params),
+                             device="cpu", dtype=dtype)

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels and solvers on an NVIDIA Hopper card: each kernel
-against its plain PyTorch version, one draw's Gram bits independent of the
-batch, and CA == classical through the kernels. Every test here needs the
-card and skips without one.
+"""The port's CUDA kernels, solvers and serving path on an NVIDIA Hopper
+card: each kernel against its plain PyTorch version, one draw's Gram bits
+independent of the batch, CA == classical through the kernels, and at the
+smoke config the engine's k-invariance and teacher-forced decode against
+the forward. Every test here needs the card and skips without one.
 
 This file imports neither JAX nor ``repro``, so it also runs where only the
 port is installed:
@@ -13,12 +14,16 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core import SolverConfig, ca_sfista, ca_spnm, sfista, spnm
 from repro_torch.data import make_lasso_data
 from repro_torch.kernels import registry
 from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
 from repro_torch.kernels.prox_step.ops import prox_scalars
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.models import decode_step, forward, init_params
+from repro_torch.serve import Engine, PagedCachePool, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +37,9 @@ def cuda():
         pytest.skip("needs an NVIDIA Hopper card (torch.cuda.is_available() "
                     "is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # XLA sums bf16 products in float32; cuBLAS may not unless told
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -101,3 +109,219 @@ def test_ca_matches_classical_through_the_kernels(cuda, pair):
     with registry.use("torch"):
         w_plain = pair[0](problem, cfg, 3)
     assert float((w_cl - w_plain).abs().max()) <= 1e-4
+
+
+# ------------------------------------------------------------- attention --
+#: kernel vs plain version, normwise: float32 sums in another order stay
+#: near 1e-7 of the largest output; a bf16 output may differ by one
+#: rounding, 2^-7 of the largest magnitude
+ATTN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _normal(shape, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,dtype", [
+    (2, 16, 8, 1024, 1024, 128, True, torch.bfloat16),   # the forward's
+    (2, 16, 8, 1000, 1000, 128, True, torch.bfloat16),   # ragged
+    (2, 16, 8, 64, 1000, 128, True, torch.bfloat16),     # right-aligned
+    (2, 16, 8, 37, 300, 128, False, torch.bfloat16),     # not causal
+    (2, 16, 8, 257, 257, 128, True, torch.float32),
+    (2, 4, 2, 12, 12, 16, True, torch.bfloat16),         # smoke config
+    (1, 6, 2, 50, 70, 64, True, torch.float32),
+    (1, 4, 4, 90, 40, 32, True, torch.float32),          # rows seeing no key
+], ids=["fwd", "ragged", "right_aligned", "noncausal", "f32", "smoke",
+        "d64", "sq_gt_skv"])
+def test_flash_attention_cuda_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D,
+                                            causal, dtype):
+    q = _normal((B, Sq, Hq, D), 1, cuda, dtype)
+    k = _normal((B, Skv, Hkv, D), 2, cuda, dtype)
+    v = _normal((B, Skv, Hkv, D), 3, cuda, dtype)
+    got = fa_ops.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa_ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _normwise(got.float(), want.float()) <= ATTN_RTOL[dtype]
+    if Sq > Skv and causal:
+        # query rows before the first key see nothing and give exactly 0
+        assert float(got[:, :Sq - Skv].abs().max()) == 0.0
+
+
+def test_flash_attention_cuda_takes_strided_views(cuda):
+    """The model hands the kernel views of one projection; strides are
+    read, nothing is copied."""
+    qkv = _normal((2, 40, 16 + 2 * 8, 64), 4, cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    got = fa_ops.flash_attention_cuda(q, k, v, causal=True)
+    want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert _normwise(got.float(), want.float()) <= 8e-3
+
+
+def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0):
+    """A page pool with ragged valid lengths 1..npages*P, each row's pages
+    drawn without repeats, and table entries past valid set to 0."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * npages
+    valid = np.linspace(1, npages * P, B).astype(np.int32)
+    perm = rng.permutation(np.arange(1, num_pages)).reshape(B, npages)
+    used = -(-valid // P)
+    table = np.where(np.arange(npages)[None] < used[:, None], perm, 0)
+    qdt = torch.float32 if kv == "f32" else torch.bfloat16
+    q = _normal((B, 1, Hq, D), seed + 1, device, qdt)
+    shape = (num_pages, P, Hkv, D)
+    if kv == "int8":
+        k = torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(device)
+        v = torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(device)
+        ks = torch.from_numpy(rng.uniform(0.001, 0.02, shape[:3]).astype(
+            np.float32)).to(device)
+        vs = torch.from_numpy(rng.uniform(0.001, 0.02, shape[:3]).astype(
+            np.float32)).to(device)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        k = _normal(shape, seed + 2, device, dt)
+        v = _normal(shape, seed + 3, device, dt)
+        scales = {}
+    t = torch.from_numpy(table.astype(np.int32)).to(device)
+    n = torch.from_numpy(valid).to(device)
+    return (q, k, v, t, n), scales
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("P,npages,D,Hq,Hkv", [
+    (16, 64, 128, 16, 8),        # the engine's shape
+    (5, 7, 128, 16, 8),          # odd page size
+    (5, 4, 16, 4, 2),            # smoke config
+    (3, 9, 64, 8, 1),            # group of 8
+])
+def test_paged_decode_cuda_matches_plain(cuda, kv, P, npages, D, Hq, Hkv):
+    args, scales = _paged_case(cuda, B=8, Hq=Hq, Hkv=Hkv, D=D, P=P,
+                               npages=npages, kv=kv)
+    got = fa_ops.paged_decode_cuda(*args, **scales)
+    want = fa_ref.paged_decode(*args, **scales)
+    torch.cuda.synchronize()
+    assert got.dtype == args[0].dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _normwise(got.float(), want.float()) <= ATTN_RTOL[got.dtype]
+
+
+def test_paged_decode_cuda_never_reads_past_valid(cuda):
+    """Pool rows at and past valid, page 0 among them, weigh exactly 0:
+    filling them with NaN changes no output bit."""
+    args, _ = _paged_case(cuda, B=4, Hq=4, Hkv=2, D=64, P=5, npages=6,
+                          kv="bf16")
+    q, k, v, t, n = args
+    before = fa_ops.paged_decode_cuda(q, k, v, t, n)
+    k2, v2 = k.clone(), v.clone()
+    k2[0], v2[0] = float("nan"), float("nan")
+    for b, nb in enumerate(n.tolist()):
+        pg, row = t[b, (nb - 1) // 5].item(), (nb - 1) % 5
+        k2[pg, row + 1:], v2[pg, row + 1:] = float("nan"), float("nan")
+    after = fa_ops.paged_decode_cuda(q, k2, v2, t, n)
+    torch.cuda.synchronize()
+    assert torch.equal(before, after)
+
+
+def test_attention_wrappers_reject_cpu_and_bad_operands(cuda):
+    q = _normal((1, 8, 4, 64), 0, cuda, torch.bfloat16)
+    k = _normal((1, 8, 2, 64), 1, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.flash_attention_cuda(q.cpu(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="dtype|must be one of"):
+        fa_ops.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="share a dtype"):
+        fa_ops.flash_attention_cuda(q, k.float(), k)
+    k3 = _normal((1, 8, 3, 64), 2, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="GQA"):
+        fa_ops.flash_attention_cuda(q, k3, k3)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_cuda(q[..., :48].contiguous(),
+                                    k[..., :48].contiguous(),
+                                    k[..., :48].contiguous())
+    (q1, kp, vp, t, n), _ = _paged_case(cuda, B=2, Hq=4, Hkv=2, D=64, P=5,
+                                        npages=3, kv="bf16")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.paged_decode_cuda(q1.cpu(), kp, vp, t, n)
+    with pytest.raises(ValueError, match="int32"):
+        fa_ops.paged_decode_cuda(q1, kp, vp, t.long(), n)
+    with pytest.raises(ValueError, match="k_scale"):
+        fa_ops.paged_decode_cuda(q1, kp.to(torch.int8), vp.to(torch.int8),
+                                 t, n)
+    with pytest.raises(ValueError, match="single query"):
+        fa_ops.paged_decode_cuda(q1.expand(2, 2, 4, 64).contiguous(), kp,
+                                 vp, t, n)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        with registry.use("cuda"):
+            registry.dispatch("paged_attention", q1.cpu(), kp.cpu(),
+                              vp.cpu(), t.cpu(), n.cpu())
+
+
+# ------------------------------------------------ model and engine (smoke) --
+CFG = smoke_config(get_arch("internlm2-1.8b"))
+PROMPTS = [[7], [3, 11, 5], [9, 2], [4, 4, 4, 8], [13], [1, 2, 3, 4, 5, 6]]
+
+
+def _params(device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    return init_params(CFG, gen, dtype=torch.bfloat16, device=device)
+
+
+def test_teacher_forced_paged_decode_matches_forward(cuda):
+    """forward (flash_attention kernel) and decode_step one token at a
+    time through a bf16 paged cache (paged_decode kernel) agree within the
+    JAX package's own tolerance for this check (tests/test_models.py)."""
+    params = _params(cuda)
+    B, S = 2, 24
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, CFG.vocab, (B, S)).astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    logits, _ = forward(params, CFG, {"tokens": toks})
+    assert kernels.launch_counts()["flash_attention"] == CFG.n_layers
+    pool = PagedCachePool(CFG, B, S, page_size=5, device=cuda)
+    for b in range(B):
+        pool.reserve(pool.allocate(f"r{b}"), S)
+    cache = pool.make_cache()
+    table = torch.from_numpy(pool.tables).to(cuda)
+    outs = []
+    for t in range(S):
+        pos = torch.full((B,), t, dtype=torch.int32, device=cuda)
+        lg, cache = decode_step(params, CFG, cache, toks[:, t:t + 1],
+                                positions=pos, page_table=table)
+        outs.append(lg[:, 0])
+    assert kernels.launch_counts()["paged_decode"] == S * CFG.n_layers
+    torch.testing.assert_close(torch.stack(outs, 1).float(), logits.float(),
+                               atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(page_size=5),
+                                  dict(page_size=5, kv_dtype="int8")],
+                         ids=["slot", "paged", "int8"])
+def test_engine_streams_do_not_depend_on_k(cuda, mode):
+    """Token streams at k=4 equal those at k=1 bit for bit, the k-step
+    block makes no hidden host sync (sync_debug raises on one), and the
+    paged engine launches paged_decode once per layer per step."""
+    params = _params(cuda)
+    streams = {}
+    for k in (1, 4):
+        eng = Engine(params, CFG, num_slots=3, max_len=32, k=k,
+                     device=cuda, sync_debug=True, **mode)
+        kernels.reset_launch_counts()
+        out = eng.run([Request(id=f"r{i}", prompt=p, max_new_tokens=6)
+                       for i, p in enumerate(PROMPTS)])
+        launches = kernels.launch_counts()
+        s = eng.stats
+        assert s.retired == len(PROMPTS) and s.steps == s.syncs * k
+        assert all(len(r.tokens) == 6 for r in out)
+        want = s.steps * CFG.n_layers if "page_size" in mode else 0
+        assert launches["paged_decode"] == want
+        assert launches["flash_attention"] == 0
+        streams[k] = {r.id: r.tokens for r in out}
+    assert streams[1] == streams[4]

@@ -10,10 +10,12 @@ import torch
 
 from repro.kernels.gram import ops as jgram_ops, ref as jgram_ref
 from repro.kernels.prox_step import ops as jprox_ops, ref as jprox_ref
+from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro_torch.kernels import launch_counts, registry, reset_launch_counts
 from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
 from repro_torch.kernels.prox_step.ops import prox_scalars
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 
 VARIANTS = ("l1", "elastic_net", "box", "none")
 #: [t, lam, mu, lo, hi]: every variant's scalars non-trivial
@@ -134,7 +136,145 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     registry.dispatch("gram", torch.from_numpy(_xs((2, 8, 16))))
     registry.dispatch("prox_step", G, R, v, prox_scalars(*SCAL))
     registry.dispatch("prox_loop", G, R, v, prox_scalars(*SCAL), Q=2)
+    q = torch.from_numpy(_xs((1, 4, 2, 16)))
+    registry.dispatch("flash_attention", q, q, q, causal=True)
+    (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
+    registry.dispatch("paged_attention", pq, kp, vp, t, n)
     assert registry.dispatch_counts() == {
         ("gram", "torch"): 1, ("prox_step", "torch"): 1,
-        ("prox_loop", "torch"): 1}
-    assert launch_counts() == {"gram": 0, "prox_step": 0, "prox_loop": 0}
+        ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
+        ("paged_attention", "torch"): 1}
+    assert launch_counts() == {"gram": 0, "prox_step": 0, "prox_loop": 0,
+                               "flash_attention": 0, "paged_decode": 0}
+
+
+# ------------------------------------------------------------- attention ---
+#: the JAX package's own Pallas-vs-XLA tolerance for attention in float32
+#: (tests/test_paged.py): float32 sums in another order
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+#: bf16 outputs: one rounding of the output, 2^-8 relative, on either side
+BF16_TOL = dict(rtol=8e-3, atol=8e-3)
+
+
+def _bhsd(a):
+    return np.ascontiguousarray(np.swapaxes(a, 1, 2))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (2, 4, 2, 12, 12, 16, True),       # smoke config's forward
+    (1, 4, 2, 37, 300, 64, True),      # right-aligned, ragged
+    (2, 6, 3, 50, 50, 32, False),      # not causal
+    (1, 8, 8, 129, 129, 128, True),    # two q blocks, D=128
+])
+def test_flash_attention_ref_matches_pallas(B, Hq, Hkv, Sq, Skv, D, causal):
+    """The plain version against the Pallas kernel (interpret mode) in
+    float32, on the same numpy inputs; layouts (B,S,H,D) vs (B,H,S,D)."""
+    q, k, v = (_xs((B, S, H, D), seed) for seed, S, H in
+               ((1, Sq, Hq), (2, Skv, Hkv), (3, Skv, Hkv)))
+    want = jfa_ops.flash_attention(
+        *(jnp.asarray(_bhsd(a)) for a in (q, k, v)), causal=causal,
+        interpret=True)
+    got = fa_ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 causal=causal)
+    np.testing.assert_allclose(_bhsd(got.numpy()), np.asarray(want),
+                               **ATTN_TOL)
+    # and against the JAX package's own materialized-scores oracle
+    oracle = jfa_ref.attention(*(jnp.asarray(_bhsd(a)) for a in (q, k, v)),
+                               causal=causal)
+    np.testing.assert_allclose(_bhsd(got.numpy()), np.asarray(oracle),
+                               **ATTN_TOL)
+
+
+def test_flash_attention_ref_matches_pallas_bf16():
+    q, k, v = (_xs((2, 40, H, 64), seed) for seed, H in ((1, 8), (2, 4),
+                                                          (3, 4)))
+    jb = [jnp.asarray(_bhsd(a)).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jfa_ops.flash_attention(*jb, causal=True,
+                                              interpret=True), np.float32)
+    tb = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    got = fa_ref.flash_attention(*tb, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_bhsd(got.float().numpy()), want, **BF16_TOL)
+
+
+def _paged_inputs(B, Hq, Hkv, D, P, npages, kv, seed=0):
+    """Numpy page pool with ragged valid lengths and table entries past
+    valid pointing at page 0, the scratch page."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * npages
+    valid = np.linspace(1, npages * P, B).astype(np.int32)
+    perm = rng.permutation(np.arange(1, num_pages)).reshape(B, npages)
+    table = np.where(np.arange(npages)[None] < -(-valid // P)[:, None],
+                     perm, 0).astype(np.int32)
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
+    shape = (num_pages, P, Hkv, D)
+    scales = {}
+    if kv == "int8":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        scales = {n: rng.uniform(0.001, 0.02, shape[:3]).astype(np.float32)
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(q), t(k), t(v), t(table), t(valid)), \
+        {n: t(a) for n, a in scales.items()}
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("B,Hq,Hkv,D,P,npages", [
+    (3, 6, 2, 16, 5, 3),       # odd page size, as tests/test_paged.py
+    (2, 16, 8, 128, 16, 4),    # internlm2's heads, the engine's page size
+    (4, 8, 1, 64, 3, 5),       # a group of 8
+])
+def test_paged_decode_ref_matches_pallas(kv, B, Hq, Hkv, D, P, npages):
+    """The plain version against the Pallas paged kernel (interpret mode),
+    float32 queries, float32 or int8 pools with scales."""
+    args, scales = _paged_inputs(B, Hq, Hkv, D, P, npages, kv)
+    j = [jnp.asarray(a.numpy()) for a in args]
+    js = {n: jnp.asarray(a.numpy()) for n, a in scales.items()}
+    want = jfa_ops.paged_flash_decode(*j, **js, interpret=True)
+    got = fa_ref.paged_decode(*args, **scales)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_paged_decode_ref_matches_pallas_bf16_pool():
+    args, _ = _paged_inputs(3, 4, 2, 16, 5, 4, "f32", seed=1)
+    q, k, v, t, n = args
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    want = jfa_ops.paged_flash_decode(
+        *(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+          for a in (qb, kb, vb)), jnp.asarray(t.numpy()),
+        jnp.asarray(n.numpy()), interpret=True)
+    got = fa_ref.paged_decode(qb, kb, vb, t, n)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+def test_paged_decode_ref_ignores_rows_past_valid():
+    """Rows at and past valid (page 0 among them) weigh exactly 0: garbage
+    there changes no output bit. (The plain version multiplies them by a
+    zero weight, so garbage means finite values here; the card test fills
+    them with NaN, which the kernel never reads.)"""
+    (q, k, v, t, n), _ = _paged_inputs(3, 4, 2, 16, 5, 4, "f32")
+    before = fa_ref.paged_decode(q, k, v, t, n)
+    k2, v2 = k.clone(), v.clone()
+    k2[0] = v2[0] = 1e4
+    for b in range(3):
+        nb = int(n[b])
+        pg, row = int(t[b, (nb - 1) // 5]), (nb - 1) % 5
+        k2[pg, row + 1:] = v2[pg, row + 1:] = 1e4
+    assert torch.equal(before, fa_ref.paged_decode(q, k2, v2, t, n))
+
+
+def test_attention_cuda_wrappers_reject_cpu_tensors():
+    q = torch.from_numpy(_xs((1, 4, 2, 16)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.flash_attention_cuda(q, q, q)
+    (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.paged_decode_cuda(pq, kp, vp, t, n)
+    assert fa_ops.flash_attention_cuda.launches == 0
+    assert fa_ops.paged_decode_cuda.launches == 0

@@ -19,7 +19,8 @@ def clean_policy(monkeypatch):
 
 
 def test_ops_table():
-    assert registry.ops() == ["gram", "prox_loop", "prox_step"]
+    assert registry.ops() == ["flash_attention", "gram", "paged_attention",
+                              "prox_loop", "prox_step"]
 
 
 def test_policy_precedence(monkeypatch):
@@ -107,5 +108,5 @@ def test_dispatch_counts_by_op_and_backend():
 
 def test_unknown_op():
     with pytest.raises(KeyError, match="unknown op"):
-        registry.dispatch("flash_attention", torch.ones(2))
+        registry.dispatch("ssd", torch.ones(2))
 

@@ -247,7 +247,8 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     assert run.w.shape == (18,) and torch.isfinite(run.w).all()
     assert 0.0 <= run.rel_err < 1.0
     # the CPU run takes the plain versions: no kernel is launched
-    assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0}
+    assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0,
+                            "flash_attention": 0, "paged_decode": 0}
 
 
 def test_lasso_solve_tol_stops_early():
@@ -264,8 +265,13 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 from repro_torch.launch import lasso_solve
+import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
 run = lasso_solve.main(["--device", "cpu", "--scale", "0.01", "--T", "16",
                         "--k", "4", "--algorithm", "ca_spnm"])
+out = repro_torch.launch.serve.main(["--device", "cpu", "--preset", "tiny",
+                                     "--page-size", "5", "--requests", "2",
+                                     "--new-tokens", "3"])
+assert len(out) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

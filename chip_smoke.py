@@ -4,10 +4,10 @@ Hopper card: the quickest proof that the port builds and runs on the GPU.
 
   python3 chip_smoke.py
 
-It drives two paths of the port: the paper's Lasso solvers (phases 4-6) and
-serving internlm2-1.8b at full width through the paged engine (phases
-7-9). What it does, in order; any failure raises and the exit code is not
-0:
+It drives three paths of the port: the paper's Lasso solvers (phases 4-6),
+serving internlm2-1.8b at full width through the paged engine (phases 7-9)
+and training it at full width through the CA train step (phases 10-11).
+What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
    and the compute capability, which must be (9, 0);
@@ -77,7 +77,32 @@ serving internlm2-1.8b at full width through the paged engine (phases
    ms/sync at k=8 and k=1; one profiled k=8 block (device time by kernel,
    busy share); and once the CLI, ``repro_torch.launch.serve.main`` with
    ``--preset full --page-size 16``;
-10. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+10. backward kernel phase: the lse forward (o and lse), ``flash_dq`` and
+   ``flash_dkv`` at the training shape (B=8, Hq=16, Hkv=8, S=1024, D=128,
+   causal, bf16) and at phase 7's shapes (ragged S=1000, right-aligned
+   Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512), each
+   against its plain version, normwise as in phase 7 (lse absolute, 1e-4);
+   two launches of each backward kernel bit-equal; kernel and plain
+   version timed with CUDA events, beside their bounds and the library
+   yardstick, the backward of ``scaled_dot_product_attention`` (KV heads
+   repeated, its backward timed alone);
+11. train phase, full width: internlm2-1.8b with float32 masters from a
+   seeded ``torch.Generator``, ``make_train_step(ca_k=4, remat=True)`` on
+   ``TokenStream(32, 1024, seed 0)``: one warm-up step, then three steps
+   with loss and grad norm finite at each, flash_dq and flash_dkv launched
+   24 * ca_k times a step and the lse forward twice that (forward and
+   recompute); for one microbatch every attention call of the forward and
+   the backward held to its plain version on that call's own inputs
+   (normwise 8e-3 for o, dq, dk and dv; each lse absolute, 1e-4); ms/step, tokens/s, the share of 989 TFLOP/s the model's FLOPs
+   reach, peak memory and one profiled step. Then the JAX package's own
+   training checks (tests/test_train.py) on the card at the smoke config:
+   30 steps on one batch at lr 1e-2 bring the loss below 0.7 of the first,
+   the CA-accumulated grad equals the full-batch grad (atol 5e-3, rtol
+   5e-2), CA k=2 and the classical schedule both run; and once the CLI,
+   ``repro_torch.launch.train --preset tiny --steps 12 --ckpt-every 4
+   --fail-at 6``: one restart, and the final loss bit-equal to a run with
+   no failure;
+12. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 With no card, or run from a directory that holds nothing else of the
@@ -113,6 +138,9 @@ CA_ATOL = 5e-6
 PLAIN_ATOL = 1e-4
 #: attention kernel vs plain version, normwise, by output dtype
 ATTN_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+#: an lse output against its plain version: absolute, over the rows that
+#: see a key (a 1e-4 error in lse is a 1e-4 relative error in every p)
+LSE_ATOL = 1e-4
 #: teacher-forced decode vs forward logits (tests/test_models.py)
 LOGIT_TOL = 0.05
 ARCH = "internlm2-1.8b"
@@ -210,6 +238,41 @@ def _normwise(name, shape, got, want, rtol) -> float:
           f"normwise_rel={rel:.3e} (limit {rtol})")
     check(rel <= rtol, f"{name}{shape}: normwise error {rel:.3e} > {rtol}")
     return err
+
+
+#: template arguments as the Itanium mangling writes them, shortened
+_MANGLED_ARGS = (("13__nv_bfloat16", "bf16"), ("Li", ""), ("Lb", ""),
+                 ("S1_", "kv=q"), ("f", "f32"), ("a", "i8"))
+
+
+def _ptxas_report(log: str):
+    """(kernel<args>, registers, spill line) for every entry function in
+    nvcc's ``-Xptxas -v`` report."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_cu_\w{8}(\d+)(\w*)'",
+                      line)
+        if m:
+            n = int(m.group(1))
+            ident, rest = m.group(2)[:n], m.group(2)[n:]
+            args = re.match(r"I(.*?)EE", rest)
+            name = ident
+            if args:
+                toks = re.findall(r"13__nv_bfloat16|Li\d+|Lb\d|S1_|f|a",
+                                  args.group(1))
+                for old, new in _MANGLED_ARGS:
+                    toks = [t.replace(old, new, 1) if t.startswith(old)
+                            else t for t in toks]
+                name = f"{ident}<{','.join(toks)}>"
+        elif name and "spill" in line:
+            spill = line.split(":", 1)[-1].strip() if ":" in line \
+                else line.strip()
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, regs.group(1) if regs else "?", spill))
+            name = None
+    return out
 
 
 def _rate(dtype) -> float:
@@ -370,31 +433,60 @@ def attention_kernel_phase(dev):
     return entries
 
 
+def _normwise_dev(got, want):
+    """max |got - want| / max |want| over the entries where ``want`` is
+    finite (an lse is -inf on rows that see no key), as a device scalar."""
+    import torch
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    zero = torch.zeros((), device=want.device)
+    err = torch.where(fin, (got - want).abs(), zero).max()
+    return err / torch.where(fin, want.abs(), zero).max().clamp_min(1e-30)
+
+
+def _lse_err_dev(got, want):
+    """max |got - want| over the rows where the plain lse is finite, or inf
+    where the two disagree on which rows see no key, as a device scalar."""
+    import torch
+    fin = torch.isfinite(want)
+    err = torch.where(fin, (got - want).abs(),
+                      torch.zeros((), device=want.device)).max()
+    mismatch = (torch.isfinite(got) != fin).any()
+    return torch.where(mismatch, torch.full_like(err, math.inf), err)
+
+
 @contextlib.contextmanager
 def _held_to_plain(errs: dict):
-    """Hold every ``flash_attention`` and ``paged_attention`` dispatch of
-    the block against its plain version on the same inputs, right after
-    the kernel and before the next layer writes the pool: ``errs[op]``
-    collects each call's normwise error, max |kernel - plain| / max
-    |plain|, as a device scalar. The plain calls go straight to ``ref.py``,
-    so the launch counts still see the kernels only."""
+    """Hold every attention dispatch of the block (``flash_attention``,
+    with or without its lse, ``flash_dq``, ``flash_dkv``,
+    ``paged_attention``) against its plain version on the same inputs,
+    right after the kernel and before the next layer writes the pool:
+    ``errs[op]`` collects each call's normwise error, max |kernel - plain|
+    / max |plain| over every output but the lse, as a device scalar, and
+    ``errs["lse"]`` each lse's absolute error (``_lse_err_dev``). The plain
+    calls go straight to ``ref.py``, so the launch counts still see the
+    kernels only."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ref
 
     plain = {"flash_attention": ref.flash_attention,
-             "paged_attention": ref.paged_decode}
-    for name in plain:
+             "paged_attention": ref.paged_decode,
+             "flash_dq": ref.flash_dq, "flash_dkv": ref.flash_dkv}
+    for name in (*plain, "lse"):
         errs[name] = []
     dispatch = registry.dispatch
 
     def held(name, *args, **kw):
         out = dispatch(name, *args, **kw)
         if name in plain:
-            want = plain[name](*args, **kw).float()
-            errs.setdefault(name, []).append(
-                (out.float() - want).abs().max()
-                / want.abs().max().clamp_min(1e-30))
+            want = plain[name](*args, **kw)
+            pairs = list(zip(out, want)) if isinstance(out, tuple) else \
+                [(out, want)]
+            if name == "flash_attention" and kw.get("return_lse"):
+                errs["lse"].append(_lse_err_dev(*pairs.pop()))
+            errs[name].append(torch.stack(
+                [_normwise_dev(g, w) for g, w in pairs]).max())
         return out
 
     registry.dispatch = held
@@ -714,6 +806,334 @@ def serve_phase(dev, cfg, params):
     return paged_launches
 
 
+#: phase 10's shapes (B, Hq, Hkv, Sq, Skv, D, causal, dtype name): the train
+#: step's first, then phase 7's
+BWD_SHAPES = ((8, 16, 8, 1024, 1024, 128, True, "bfloat16"),
+              (2, 16, 8, 1000, 1000, 128, True, "bfloat16"),    # ragged
+              (2, 16, 8, 64, 1000, 128, True, "bfloat16"),      # right-aligned
+              (2, 16, 8, 37, 300, 128, False, "bfloat16"),      # not causal
+              (2, 16, 8, 512, 512, 128, True, "float32"))
+
+
+def backward_kernel_phase(dev):
+    """Phase 10: the lse forward, flash_dq and flash_dkv against their plain
+    versions, bit-equal across launches, timed beside their bounds and the
+    SDPA backward. Returns the JSON entries of flash_dq and flash_dkv at
+    the training shape, and the lse forward's times there (printed)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = np.random.default_rng(1)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    entries = {}
+    print("backward kernel phase: lse forward, flash_dq, flash_dkv")
+    for i, (Bq, Hq, Hkv, Sq, Skv, D, causal, tname) in enumerate(BWD_SHAPES):
+        dtype = getattr(torch, tname)
+        q = normal((Bq, Sq, Hq, D), dtype)
+        k = normal((Bq, Skv, Hkv, D), dtype)
+        v = normal((Bq, Skv, Hkv, D), dtype)
+        do = normal((Bq, Sq, Hq, D), dtype)
+        shape = (Bq, Hq, Hkv, Sq, Skv, D, "causal" if causal else "full",
+                 tname)
+        tol = ATTN_RTOL[tname]
+        o, lse = fa_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                             return_lse=True)
+        wo, wlse = fa_ref.flash_attention_lse(q, k, v, causal=causal)
+        err_o = _normwise("lse fwd: o", shape, o, wo, tol)
+        torch.cuda.synchronize()
+        seen = torch.isfinite(wlse)
+        check(torch.equal(torch.isfinite(lse), seen),
+              f"lse{shape}: rows seeing no key differ")
+        err_l = float((lse[seen] - wlse[seen]).abs().max())
+        print(f"  {'lse fwd: lse':15s} {str(shape):44s} "
+              f"max_abs_err={err_l:.3e} (limit {LSE_ATOL})")
+        check(err_l <= LSE_ATOL, f"lse{shape}: {err_l:.3e} > {LSE_ATOL}")
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq = fa_ops.flash_dq_cuda(*args, causal=causal)
+        dk, dv = fa_ops.flash_dkv_cuda(*args, causal=causal)
+        wdq = fa_ref.flash_dq(*args, causal=causal)
+        wdk, wdv = fa_ref.flash_dkv(*args, causal=causal)
+        err_dq = _normwise("flash_dq", shape, dq, wdq, tol)
+        err_dkv = max(_normwise("flash_dkv: dk", shape, dk, wdk, tol),
+                      _normwise("flash_dkv: dv", shape, dv, wdv, tol))
+        del wdq, wdk, wdv
+        same = (torch.equal(dq, fa_ops.flash_dq_cuda(*args, causal=causal))
+                and all(torch.equal(a, b) for a, b in zip(
+                    (dk, dv), fa_ops.flash_dkv_cuda(*args, causal=causal))))
+        print(f"  two launches of each backward kernel bit-equal: {same}")
+        check(same, f"backward{shape}: two launches differ")
+        if i > 0:
+            del q, k, v, do, o, lse, delta, dq, dk, dv
+            continue
+
+        # times at the training shape
+        t = dict(
+            lse=_event_ms(lambda: fa_ops.flash_attention_cuda(
+                q, k, v, causal=causal, return_lse=True), 20),
+            lse_plain=_event_ms(lambda: fa_ref.flash_attention_lse(
+                q, k, v, causal=causal), 5),
+            dq=_event_ms(lambda: fa_ops.flash_dq_cuda(*args, causal=causal),
+                         10),
+            dq_plain=_event_ms(lambda: fa_ref.flash_dq(*args, causal=causal),
+                               5),
+            dkv=_event_ms(lambda: fa_ops.flash_dkv_cuda(
+                *args, causal=causal), 10),
+            dkv_plain=_event_ms(lambda: fa_ref.flash_dkv(
+                *args, causal=causal), 5))
+        # the yardstick: SDPA's backward on the same q/k/v/do, KV heads
+        # repeated and the layout made (B, H, S, D) beforehand; only the
+        # backward is timed
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt = k.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) \
+            .contiguous().requires_grad_()
+        vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) \
+            .contiguous().requires_grad_()
+        dot = do.transpose(1, 2).contiguous()
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        t["sdpa_fwd"] = _event_ms(lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=causal), 20)
+        t["sdpa_bwd"] = _event_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        del qt, kt, vt, dot, out
+        esz = q.element_size()
+        qb = Bq * Sq * Hq * D * esz          # q, do, o, dq
+        kb = Bq * Skv * Hkv * D * esz        # k, v, dk, dv
+        rows = Bq * Hq * Sq * 4              # lse, delta
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        pf = 2.0 * Bq * Hq * pairs * D       # one product over the pairs
+        b_lse = bound_ms(2 * qb + 2 * kb + rows, 2 * pf, _rate(dtype))
+        b_dq = bound_ms(3 * qb + 2 * kb + 2 * rows, 3 * pf, _rate(dtype))
+        b_dkv = bound_ms(2 * qb + 4 * kb + 2 * rows, 4 * pf, _rate(dtype))
+        for name, (bms, by), ms, plain in (
+                ("lse forward", b_lse, t["lse"], t["lse_plain"]),
+                ("flash_dq", b_dq, t["dq"], t["dq_plain"]),
+                ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"])):
+            print(f"  time {name:11s} {str(shape):44s} kernel={ms:.4f}ms "
+                  f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}, "
+                  f"{tname} peak) float32-CUDA-core bound="
+                  f"{bms * _rate(dtype) / F32_FLOP_PER_S:.5f}ms")
+        print(f"  time sdpa {str(shape):44s} forward={t['sdpa_fwd']:.4f}ms "
+              f"backward={t['sdpa_bwd']:.4f}ms (dq, dk and dv together)")
+        for name, (bms, by), ms, plain, err in (
+                ("flash_dq", b_dq, t["dq"], t["dq_plain"], err_dq),
+                ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"], err_dkv)):
+            entries[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces=("src/repro/kernels/flash_attention/backward.py:144"
+                          if name == "flash_dq" else
+                          "src/repro/kernels/flash_attention/backward.py:178"),
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=t["sdpa_bwd"])
+        lse_times = dict(ms=t["lse"], plain_ms=t["lse_plain"],
+                         bound_ms=b_lse[0], library_ms=t["sdpa_fwd"],
+                         max_abs_err=max(err_o, err_l))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, args
+    return entries, lse_times
+
+
+def _model_flops(cfg, n_params, B, S) -> float:
+    """A training step's model FLOPs (no recompute): 6 per non-embedding
+    parameter per token, plus attention's visible (query, key) pairs, 2 D
+    FLOP per product, 2 products forward and 4 backward."""
+    n = n_params - cfg.vocab * cfg.d_model
+    pairs = S * (S + 1) // 2
+    return (6.0 * n * B * S
+            + 12.0 * cfg.n_layers * B * cfg.n_heads * pairs * cfg.head_dim)
+
+
+def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
+    """Phase 11: the CA train step at full width (``make_train_step(ca_k)``
+    on ``TokenStream(B, S)``: a warm-up step, ``steps`` timed ones), the
+    JAX package's own training checks at the smoke config, and the CLI
+    with a failure. Returns the kernel launches of the timed steps."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import loss_fn, param_count
+    from repro_torch.tree import leaves, tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    step = make_train_step(cfg, ca_k=ca_k, peak_lr=3e-4, warmup=10,
+                           total_steps=100, remat=True)
+    stream = TokenStream(B, S, cfg.vocab, seed=0, device=dev)
+    try:
+        print(f"train phase: {cfg.name} make_train_step(ca_k={ca_k}, "
+              f"remat=True), TokenStream({B}, {S}), float32 masters")
+        t0 = time.perf_counter()
+        state, m = step(state, next(stream))
+        torch.cuda.synchronize()
+        print(f"  warm-up step {time.perf_counter() - t0:.3f}s loss "
+              f"{float(m['loss']):.4f} grad_norm {float(m['grad_norm']):.4f}")
+        kernels.reset_launch_counts()
+        walls, logs = [], []
+        for _ in range(steps):
+            batch = next(stream)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logs.append({k: float(v) for k, v in m.items()})
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for i, (w, lg) in enumerate(zip(walls, logs)):
+            print(f"  step {i + 1}: {w * 1e3:.1f} ms loss {lg['loss']:.5f} "
+                  f"grad_norm {lg['grad_norm']:.5f} lr {lg['lr']:.3e}")
+            check(math.isfinite(lg["loss"]) and math.isfinite(
+                lg["grad_norm"]), f"train step {i + 1}: loss or grad norm "
+                f"not finite: {lg}")
+        want = cfg.n_layers * ca_k * steps
+        print(f"  launches over {steps} steps: {launches} (want flash_dq = "
+              f"flash_dkv = {want}, flash_attention = {2 * want})")
+        check(launches["flash_dq"] == want and launches["flash_dkv"] == want,
+              f"backward kernels launched {launches}, want {want} each")
+        check(launches["flash_attention"] == 2 * want,
+              f"lse forward launched {launches['flash_attention']}, want "
+              f"{2 * want} (forward and recompute)")
+        ms = sorted(walls)[1] * 1e3
+        flops = _model_flops(cfg, param_count(state.params), B, S)
+        print(f"  median {ms:.1f} ms/step, {B * S / ms * 1e3:.0f} tokens/s, "
+              f"model FLOPs {flops:.4e} a step: "
+              f"{100 * flops / (ms * 1e-3) / BF16_FLOP_PER_S:.2f}% of "
+              f"989 TFLOP/s; peak memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated)")
+
+        # every attention call of one microbatch against its plain version
+        mb = {k: v[:B // ca_k] for k, v in batch.items()}
+        params = tree_map(lambda t: t.detach().to(torch.bfloat16)
+                          .requires_grad_(), state.params)
+        p_comp = leaves(params)
+        errs = {}
+        with _held_to_plain(errs):
+            loss = loss_fn(params, cfg, mb, remat=True)
+            torch.autograd.grad(loss, p_comp)
+        tol = ATTN_RTOL["bfloat16"]
+        for name in ("flash_attention", "flash_dq", "flash_dkv"):
+            e = errs[name]
+            emax = float(e.max()) if e.numel() else math.nan
+            n = cfg.n_layers * (2 if name == "flash_attention" else 1)
+            print(f"  one microbatch, every {name} call held to its plain "
+                  f"version: {e.numel()} calls, normwise max {emax:.3e} "
+                  f"(limit {tol})")
+            check(e.numel() == n and emax <= tol,
+                  f"train: {name} vs plain on the main path {emax:.3e} "
+                  f"(limit {tol}) over {e.numel()} calls, want {n}")
+        e, n = errs["lse"], 2 * cfg.n_layers
+        emax = float(e.max()) if e.numel() else math.nan
+        print(f"  one microbatch, every lse of the flash_attention calls "
+              f"held to its plain version: {e.numel()} calls, max abs "
+              f"{emax:.3e} (limit {LSE_ATOL})")
+        check(e.numel() == n and emax <= LSE_ATOL,
+              f"train: lse vs plain on the main path {emax:.3e} (limit "
+              f"{LSE_ATOL}) over {e.numel()} calls, want {n}")
+        del p_comp, params, errs, loss
+
+        # where the time goes: one profiled step
+        batch = next(stream)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(ev.key, _self_device_us(ev), ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows) / 1e6
+        print(f"  profile one step: wall {wall * 1e3:.1f} ms (profiled), "
+              f"device kernels {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% "
+              f"busy), {sum(r[2] for r in rows)} kernel launches")
+        for key, us, count in rows[:12]:
+            print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    finally:
+        stream.close()
+    del state
+    torch.cuda.empty_cache()
+
+    # the JAX package's own training checks, on the card at its own size
+    small = smoke_config(cfg)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, small.vocab, (8, 17),
+                                         dtype=np.int32)).to(dev)
+    sb = dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+    st = init_train_state(small, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    sstep = make_train_step(small, ca_k=2, peak_lr=1e-2, warmup=2,
+                            total_steps=60, remat=False)
+    losses = []
+    for _ in range(30):
+        st, m = sstep(st, sb)
+        losses.append(float(m["loss"]))
+    print(f"  smoke config: 30 steps on one batch, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (want below 0.7 of the first)")
+    check(all(map(math.isfinite, losses)) and losses[-1] < 0.7 * losses[0],
+          f"smoke config: loss did not fall: {losses[::6]}")
+    sparams = init_train_state(small, torch.Generator(
+        device=dev).manual_seed(0), device=dev).params
+    sp = [t.requires_grad_() for t in leaves(sparams)]
+    g_full = torch.autograd.grad(loss_fn(sparams, small, sb), sp)
+    acc = [torch.zeros_like(t) for t in sp]
+    for i in range(4):
+        mb = {k: v[2 * i:2 * i + 2] for k, v in sb.items()}
+        for a, g in zip(acc, torch.autograd.grad(
+                loss_fn(sparams, small, mb), sp)):
+            a.add_(g / 4)
+    excess = max(float(((a - g).abs() - 5e-3 - 5e-2 * g.abs()).max())
+                 for a, g in zip(acc, g_full))
+    print(f"  smoke config: CA-accumulated grad vs full batch, worst margin "
+          f"over atol 5e-3 rtol 5e-2: {excess:+.3e}")
+    check(excess <= 0.0, "smoke config: accumulated grad != full batch")
+    for classical in (False, True):
+        st = init_train_state(small, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        _, m = make_train_step(small, ca_k=2, remat=False,
+                               sync_every_microbatch=classical)(st, sb)
+        check(math.isfinite(float(m["loss"])),
+              f"smoke config: classical={classical} loss not finite")
+    print("  smoke config: CA k=2 and classical steps both run")
+
+    # the CLI, with a failure and without
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for label, extra in (("fail", ["--fail-at", "6"]), ("clean", [])):
+            t0 = time.perf_counter()
+            runs[label] = train_cli.main(
+                ["--arch", cfg.name, "--preset", "tiny", "--steps", "12",
+                 "--ckpt-every", "4", "--ckpt-dir", f"{tmp}/{label}",
+                 "--device", dev.type] + extra)
+            print(f"  launch.train --preset tiny --steps 12 --ckpt-every 4 "
+                  f"{' '.join(extra)}: {time.perf_counter() - t0:.2f}s, "
+                  f"restarts={runs[label].restarts}, final loss "
+                  f"{runs[label].metrics_log[-1]['loss']!r}")
+    check(runs["fail"].restarts == 1 and runs["clean"].restarts == 0,
+          "launch.train: restarts")
+    same = runs["fail"].metrics_log == runs["clean"].metrics_log
+    print(f"  launch.train: metrics of the run with a failure bit-equal to "
+          f"the run without: {same}")
+    check(same, "launch.train: the restarted run's metrics differ")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -755,9 +1175,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f}s "
           + " ".join(f"{s}={v:.2f}s" for s, v in secs.items()))
     for stem in _build.SOURCES:
-        for line in _build.build_log(stem).splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas[{stem}] {line.strip()}")
+        for name, regs, spill in _ptxas_report(_build.build_log(stem)):
+            print(f"  ptxas[{stem}] {name}: {regs} registers, {spill}")
     shared_d, max_d = prox_ops.prox_loop_limits()
     print(f"prox_loop: G in shared memory up to d={shared_d}, "
           f"vectors up to d={max_d}")
@@ -1014,7 +1433,27 @@ def main() -> int:
     t_phase = time.perf_counter()
     entries["paged_decode"]["launches"] = serve_phase(dev, cfg, params)
     print(f"serve phase: {time.perf_counter() - t_phase:.1f}s")
-    for name in ("flash_attention", "paged_decode"):
+    del params
+    torch.cuda.empty_cache()
+
+    # 10-11. training internlm2-1.8b at full width
+    t_phase = time.perf_counter()
+    bwd_entries, lse_times = backward_kernel_phase(dev)
+    entries.update(bwd_entries)
+    print(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    launches = train_phase(dev, cfg)
+    print(f"train phase: {time.perf_counter() - t_phase:.1f}s")
+    # flash_attention's two paths: the serving forward and the training
+    # step's lse forward
+    print(f"flash_attention launches: {entries['flash_attention']['launches']}"
+          f" in the model phase's forward, {launches['flash_attention']} "
+          f"(with lse) in the train phase; lse forward at the training "
+          f"shape: {lse_times}")
+    entries["flash_attention"]["launches"] += launches["flash_attention"]
+    for name in ("flash_dq", "flash_dkv"):
+        entries[name]["launches"] = launches[name]
+    for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv"):
         check(entries[name]["launches"] > 0,
               f"{name} was not launched on the main path")
     print(f"total: {time.perf_counter() - T_START:.1f}s")

@@ -4,13 +4,20 @@ A second package beside ``repro``: the same paths, PyTorch idiom inside.
 It imports ``torch`` and never ``jax`` or anything of ``repro``.
 
 Subpackages ported so far:
-  core     the paper's solvers on Lasso (SFISTA, CA-SFISTA, SPNM, CA-SPNM),
-           the shared s-step schedule, the Comet cost model
-  kernels  the op registry and the hand-written Hopper kernels
-           (``gram``, ``prox_step``, ``prox_loop``) beside their plain
-           PyTorch versions
-  data     the paper's Table II dataset stand-ins
-  launch   ``python -m repro_torch.launch.lasso_solve``
+  core        the paper's solvers on Lasso (SFISTA, CA-SFISTA, SPNM,
+              CA-SPNM), the shared s-step schedule, the Comet cost model
+  kernels     the op registry and the hand-written Hopper kernels
+              (``gram``, ``prox_step``, ``prox_loop``, ``flash_attention``,
+              ``flash_dq``, ``flash_dkv``, ``paged_decode``) beside their
+              plain PyTorch versions
+  configs     the ten architecture configs
+  models      the dense model: init, forward, loss, decode
+  serve       the continuous-batching engine over slot and paged caches
+  optim       AdamW and the cosine schedule
+  checkpoint  async, atomic checkpoints
+  dist        the serve scheduler's deadline gate, the training runner
+  data        the paper's Table II dataset stand-ins, the token stream
+  launch      ``python -m repro_torch.launch.{lasso_solve,serve,train}``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card and no such request they raise.

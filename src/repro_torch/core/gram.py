@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sampling import gather_columns
-from repro_torch.kernels import registry
+from repro_torch.kernels.gram import ops as gram_ops
 
 
 def augment(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -32,7 +32,7 @@ def augmented_gram_blocks(Xy: torch.Tensor, idx_batch: torch.Tensor):
     augmented data Xy = [X; y] (d+1, n): one gather into a contiguous
     (k, d+1, m) tensor and ONE ``gram`` dispatch for the block."""
     d = Xy.shape[0] - 1
-    Ga = registry.dispatch("gram", gather_columns(Xy, idx_batch))
+    Ga = gram_ops.gram(gather_columns(Xy, idx_batch))
     Ga = Ga * (1.0 / idx_batch.shape[1])
     return Ga[:, :d, :d].contiguous(), Ga[:, :d, d].contiguous()
 

@@ -1,4 +1,5 @@
-// GQA attention for the model's forward and for paged decode, float32 math.
+// GQA attention for the model's forward, its backward and paged decode,
+// float32 math.
 //
 // 1. flash_attention_fwd replaces the Pallas kernel `flash_attention`
 //    (src/repro/kernels/flash_attention/kernel.py:219, body `_flash_kernel`
@@ -22,6 +23,14 @@
 //    inputs would be exact on the tensor cores (mma.sync, later work), but
 //    PV must stay float32 to keep the Pallas kernel's numbers, since p
 //    rounded to bf16 would not match them.
+//    With a non-null `lse` it also writes each row's float32 logsumexp of
+//    the scaled, masked scores, lse = m + log(max(l, 1e-30)), (B, Hq, Sq)
+//    contiguous: the residual the backward recomputes p = exp(s - lse)
+//    from, as the Pallas body `_flash_kernel_lse` (kernel.py:87, written at
+//    :75-80) does. Masking is with true -inf, so a row that sees no key has
+//    m = -inf and lse = -inf (Pallas' finite -1e30 gives a finite number);
+//    the backward kernels never evaluate exp(s - lse) at a masked entry,
+//    they select 0 there, so such a row has zero gradients, not NaN.
 //
 // 2. paged_decode replaces the Pallas kernel `paged_flash_decode`
 //    (kernel.py:159, bodies `_paged_kernel` :145 and `_paged_kernel_quant`
@@ -49,6 +58,38 @@
 //    What bounds it: the valid K/V bytes. At the engine's shape (B=8,
 //    Hkv=8, D=128, bf16, valid up to 1024) that is at most 33.6 MB a layer
 //    (10 us at 3.35 TB/s); the FLOP are 4 per K/V element, far below.
+//
+// 3. flash_attention_bwd_dq replaces the Pallas kernel `flash_dq`
+//    (src/repro/kernels/flash_attention/backward.py:125, body `_dq_kernel`
+//    :50). One CTA per (q tile of 64 rows, q head, batch row), the same grid
+//    and causal block skip as the forward: the Q and dO tiles stay in
+//    shared memory, K/V tiles of 64 rows stream through it, and per tile
+//    the CTA recomputes s = q k^T and dp = do v^T (float32), p = exp(s*scale
+//    - lse) on visible entries and 0 elsewhere, ds = p (dp - delta), and
+//    adds ds k to a 64 x D float32 accumulator in registers; dq =
+//    scale * acc. delta = rowsum(do * o), (B, Hq, Sq) float32, comes from
+//    the caller.
+//
+// 4. flash_attention_bwd_dkv replaces the Pallas kernel `flash_dkv`
+//    (backward.py:157, body `_dkv_kernel` :84) together with the sum over
+//    the GQA group that the JAX wrapper does outside it (ops.py:108-111).
+//    One CTA per (kv tile of 64 rows, kv head, batch row): the K/V tile
+//    stays in shared memory and the CTA walks the group's query heads and,
+//    for each, the q tiles that can see the kv tile (the forward's causal
+//    skip, transposed), recomputing p and ds per tile and adding p^T do and
+//    ds^T q to two 64 x D float32 accumulators in registers; dk =
+//    scale * acc_k, dv = acc_v. So there is no (B, Hq, Skv, D) buffer and
+//    no atomics.
+//    Both backward kernels sum in one fixed order (kv tiles in order for
+//    dq; query heads, then q tiles, in order for dk/dv), so a launch gives
+//    the same bits every time, and a row's result never depends on the
+//    batch. Operands keep the model's strided (B, S, H, D) layout.
+//    What bounds them on an H100: at the training shape (B=8, Hq=16,
+//    Hkv=8, S=1024, D=128, causal, bf16) dq does three products and dk/dv
+//    four over the 67 M visible (query, key) pairs (2 D FLOP each): 52 and
+//    69 GFLOP against ~135 MB moved, so operations: 52 and 70 us on the
+//    bf16 tensor cores, 0.77 and 1.03 ms on the float32 CUDA cores where
+//    these kernels run every product.
 //
 // Every C entry returns cudaGetLastError() after its launch.
 #include <cuda_bf16.h>
@@ -104,6 +145,15 @@ constexpr size_t fa_smem_bytes() {
          (size_t)FA_BQ * FA_PS * sizeof(float);
 }
 
+// the backward kernels: four Q/dO/K/V tiles, `ptiles` 64 x 64 float tiles
+// (ds for dq; p and ds for dk/dv) and the tile's lse and delta rows
+template <typename T, int D>
+constexpr size_t bwd_smem_bytes(int ptiles) {
+  return (size_t)4 * FA_BQ * TileStride<T, D>::value * sizeof(T) +
+         (size_t)ptiles * FA_BQ * FA_PS * sizeof(float) +
+         (size_t)2 * FA_BQ * sizeof(float);
+}
+
 // Copy `rows` rows of D elements (row r at src + r*stride) into a shared
 // tile of row stride S, in 32-bit words; rows at or past `valid_rows` are
 // zero-filled.
@@ -124,7 +174,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Hq,
                  int Hkv, int Sq, int Skv, int64_t qsb, int64_t qss,
                  int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                  int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
@@ -253,52 +304,440 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       ob[r * oss + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+    // m and l are the same in the 16 threads of a row; -inf for a row
+    // that sees no key
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * Hq + h) * Sq + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// Operands of the backward kernels: base pointers and (batch, seq, head)
+// strides in elements, the unit-stride head dim last.
+template <typename T>
+struct Strided {
+  const T* p;
+  int64_t sb, ss, sh;
+};
+
+// dq of one (q tile, q head, batch row); see the file's note 3.
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dq_kernel(Strided<T> q, Strided<T> k, Strided<T> v, Strided<T> dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int64_t dqsb, int64_t dqss, int64_t dqsh, int Hq,
+                    int Hkv, int Sq, int Skv, int causal, float scale) {
+  constexpr int S = TileStride<T, D>::value;
+  constexpr int DC = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* dos = qs + FA_BQ * S;
+  T* ks = dos + FA_BQ * S;
+  T* vs = ks + FA_BK * S;
+  float* dss = reinterpret_cast<float*>(vs + FA_BK * S);
+  float* lse_s = dss + FA_BQ * FA_PS;
+  float* dl_s = lse_s + FA_BQ;
+
+  const int q0 = blockIdx.x * FA_BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q_offset = Skv - Sq;
+  const int qrows = min(FA_BQ, Sq - q0);
+
+  load_tile<T, D>(qs, q.p + b * q.sb + h * q.sh + q0 * q.ss, q.ss, qrows);
+  load_tile<T, D>(dos, dout.p + b * dout.sb + h * dout.sh + q0 * dout.ss,
+                  dout.ss, qrows);
+  const int64_t row0 = ((int64_t)b * Hq + h) * Sq + q0;
+  if (threadIdx.x < FA_BQ) {
+    const bool in = threadIdx.x < qrows;
+    lse_s[threadIdx.x] = in ? lse[row0 + threadIdx.x] : 0.f;
+    dl_s[threadIdx.x] = in ? delta[row0 + threadIdx.x] : 0.f;
+  }
+  const T* kb = k.p + b * k.sb + hk * k.sh;
+  const T* vb = v.p + b * v.sb + hk * v.sh;
+
+  // keys [0, kv_end) can be visible to some row of this tile
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, q_offset + q0 + FA_BQ);
+
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kv_end; k0 += FA_BK) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(ks, kb + k0 * k.ss, k.ss, min(FA_BK, Skv - k0));
+    load_tile<T, D>(vs, vb + k0 * v.ss, v.ss, min(FA_BK, Skv - k0));
+    __syncthreads();
+
+    // s = q k^T and dp = do v^T: rows ty + 16 i, keys tx + 16 j
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 2) {
+      float2 qa[4], oa[4], ka[4], va[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = load2(qs + (ty + 16 * i) * S + d);
+        oa[i] = load2(dos + (ty + 16 * i) * S + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ka[j] = load2(ks + (tx + 16 * j) * S + d);
+        va[j] = load2(vs + (tx + 16 * j) * S + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+          dp[i][j] = fmaf(oa[i].x, va[j].x, dp[i][j]);
+          dp[i][j] = fmaf(oa[i].y, va[j].y, dp[i][j]);
+        }
+    }
+
+    // ds = p (dp - delta), selected to 0 on masked entries: exp(s - lse)
+    // is never taken there (lse may be -inf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int qpos = q_offset + q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool keep = r < qrows && kpos < Skv && (!causal || kpos <= qpos);
+        float ds = 0.f;
+        if (keep) ds = expf(s[i][j] * scale - lse_s[r]) * (dp[i][j] - dl_s[r]);
+        dss[r * FA_PS + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+
+    // acc += ds k: rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+    for (int kk = 0; kk < FA_BK; ++kk) {
+      float dsr[4], kv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsr[i] = dss[(ty + 16 * i) * FA_PS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) kv[j] = to_f(ks[kk * S + tx + 16 * j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(dsr[i], kv[j], acc[i][j]);
+    }
+  }
+
+  T* out = dq + b * dqsb + h * dqsh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      out[r * dqss + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+  }
+}
+
+// dk and dv of one (kv tile, kv head, batch row), summed over the GQA
+// group's query heads; see the file's note 4.
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dkv_kernel(Strided<T> q, Strided<T> k, Strided<T> v,
+                     Strided<T> dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int64_t gsb, int64_t gss,
+                     int64_t gsh, int Hq, int Hkv, int Sq, int Skv,
+                     int causal, float scale) {
+  constexpr int S = TileStride<T, D>::value;
+  constexpr int DC = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + FA_BK * S;
+  T* qs = vs + FA_BK * S;
+  T* dos = qs + FA_BQ * S;
+  float* ps = reinterpret_cast<float*>(dos + FA_BQ * S);  // p^T: (key, query)
+  float* dss = ps + FA_BK * FA_PS;                         // ds^T
+  float* lse_s = dss + FA_BK * FA_PS;
+  float* dl_s = lse_s + FA_BQ;
+
+  const int k0 = blockIdx.x * FA_BK;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q_offset = Skv - Sq;
+  const int krows = min(FA_BK, Skv - k0);
+
+  load_tile<T, D>(ks, k.p + b * k.sb + hk * k.sh + k0 * k.ss, k.ss, krows);
+  load_tile<T, D>(vs, v.p + b * v.sb + hk * v.sh + k0 * v.ss, v.ss, krows);
+
+  // q rows [q_first, Sq) can see some key of this tile; q tiles start at
+  // multiples of FA_BQ, as in the forward and dq
+  int q_first = 0;
+  if (causal) q_first = max(0, k0 - q_offset) / FA_BQ * FA_BQ;
+
+  float acc_k[4][DC], acc_v[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qb = q.p + b * q.sb + h * q.sh;
+    const T* ob = dout.p + b * dout.sb + h * dout.sh;
+    const int64_t rows = ((int64_t)b * Hq + h) * Sq;
+    for (int q0 = q_first; q0 < Sq; q0 += FA_BQ) {
+      const int qrows = min(FA_BQ, Sq - q0);
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D>(qs, qb + q0 * q.ss, q.ss, qrows);
+      load_tile<T, D>(dos, ob + q0 * dout.ss, dout.ss, qrows);
+      if (threadIdx.x < FA_BQ) {
+        const bool in = threadIdx.x < qrows;
+        lse_s[threadIdx.x] = in ? lse[rows + q0 + threadIdx.x] : 0.f;
+        dl_s[threadIdx.x] = in ? delta[rows + q0 + threadIdx.x] : 0.f;
+      }
+      __syncthreads();
+
+      // s^T = k q^T and dp^T = v do^T: keys ty + 16 i, queries tx + 16 j
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 2) {
+        float2 ka[4], va[4], qa[4], oa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = load2(ks + (ty + 16 * i) * S + d);
+          va[i] = load2(vs + (ty + 16 * i) * S + d);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qa[j] = load2(qs + (tx + 16 * j) * S + d);
+          oa[j] = load2(dos + (tx + 16 * j) * S + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(ka[i].x, qa[j].x, s[i][j]);
+            s[i][j] = fmaf(ka[i].y, qa[j].y, s[i][j]);
+            dp[i][j] = fmaf(va[i].x, oa[j].x, dp[i][j]);
+            dp[i][j] = fmaf(va[i].y, oa[j].y, dp[i][j]);
+          }
+      }
+
+      // p and ds, selected to 0 on masked entries
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kr = ty + 16 * i;
+        const int kpos = k0 + kr;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const int qpos = q_offset + q0 + c;
+          const bool keep = c < qrows && kr < krows &&
+                            (!causal || kpos <= qpos);
+          float p = 0.f, ds = 0.f;
+          if (keep) {
+            p = expf(s[i][j] * scale - lse_s[c]);
+            ds = p * (dp[i][j] - dl_s[c]);
+          }
+          ps[kr * FA_PS + c] = p;
+          dss[kr * FA_PS + c] = ds;
+        }
+      }
+      __syncthreads();
+
+      // acc_v += p^T do and acc_k += ds^T q: keys ty + 16 i, columns
+      // tx + 16 j
+#pragma unroll 4
+      for (int qq = 0; qq < FA_BQ; ++qq) {
+        float pv[4], dsv[4], ov[DC], qv[DC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = ps[(ty + 16 * i) * FA_PS + qq];
+          dsv[i] = dss[(ty + 16 * i) * FA_PS + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          ov[j] = to_f(dos[qq * S + tx + 16 * j]);
+          qv[j] = to_f(qs[qq * S + tx + 16 * j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DC; ++j) {
+            acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
+            acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
+          }
+      }
+    }
+  }
+
+  T* dkb = dk + b * gsb + hk * gsh;
+  T* dvb = dv + b * gsb + hk * gsh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = k0 + ty + 16 * i;
+    if (r >= Skv) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      dkb[r * gss + tx + 16 * j] = from_f<T>(acc_k[i][j] * scale);
+      dvb[r * gss + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+    }
   }
 }
 
 constexpr int FA_MAX_DEVICES = 64;
 
-template <typename T, int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                         const int64_t* st, int causal, float scale,
-                         cudaStream_t stream) {
-  const size_t smem = fa_smem_bytes<T, D>();
-  // the shared-memory opt-in is set once per device and instance, not per
-  // launch: the launch path is host-bound (see PERF.md)
-  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+// Opt `kernel` in to `smem` bytes of dynamic shared memory, once per device
+// (`set` is the instance's own flags), not per launch: the launch path is
+// host-bound (see PERF.md).
+template <typename K>
+cudaError_t smem_opt_in(K* kernel, size_t smem, std::atomic<bool>* set) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= FA_MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!smem_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  if (!set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    smem_set[dev].store(true, std::memory_order_release);
+    set[dev].store(true, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_flash(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                         int Skv, const int64_t* st, int causal, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = fa_smem_bytes<T, D>();
+  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+  cudaError_t err = smem_opt_in(flash_fwd_kernel<T, D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_flash_d(int D, const void* q, const void* k,
-                           const void* v, void* o, int B, int Hq, int Hkv,
-                           int Sq, int Skv, const int64_t* st, int causal,
-                           float scale, cudaStream_t stream) {
+Strided<T> strided(const void* p, const int64_t* st) {
+  return Strided<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
+}
+
+// st: (batch, seq, head) strides of q, k, v, do, then dq
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int Hq,
+                          int Hkv, int Sq, int Skv, const int64_t* st,
+                          int causal, float scale, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<T, D>(1);
+  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+  cudaError_t err = smem_opt_in(flash_bwd_dq_kernel<T, D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
+  flash_bwd_dq_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+      strided<T>(q, st), strided<T>(k, st + 3), strided<T>(v, st + 6),
+      strided<T>(dout, st + 9), lse, delta, static_cast<T*>(dq), st[12],
+      st[13], st[14], Hq, Hkv, Sq, Skv, causal, scale);
+  return cudaGetLastError();
+}
+
+// st: (batch, seq, head) strides of q, k, v, do, then dk and dv (alike)
+template <typename T, int D>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B,
+                           int Hq, int Hkv, int Sq, int Skv,
+                           const int64_t* st, int causal, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<T, D>(2);
+  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+  cudaError_t err = smem_opt_in(flash_bwd_dkv_kernel<T, D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Skv + FA_BK - 1) / FA_BK, Hkv, B);
+  flash_bwd_dkv_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+      strided<T>(q, st), strided<T>(k, st + 3), strided<T>(v, st + 6),
+      strided<T>(dout, st + 9), lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), st[12], st[13], st[14], Hq, Hkv, Sq, Skv, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+// One of the three flash kernels (0 forward, 1 dq, 2 dk/dv) for element
+// type T, by head dim. Pointers: q, k, v, o (forward) or do, lse, delta,
+// then the outputs.
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* x;     // forward: o (written); backward: do
+  float* lse;        // forward: written when not null; backward: read
+  const float* delta;
+  void* out0;        // dq, or dk
+  void* out1;        // dv
+  int B, Hq, Hkv, Sq, Skv;
+  const int64_t* st;
+  int causal;
+  float scale;
+};
+
+template <typename T, int D>
+cudaError_t launch_kind(int kind, const FlashArgs& a, cudaStream_t s) {
+  switch (kind) {
+    case 0:
+      return launch_flash<T, D>(a.q, a.k, a.v, const_cast<void*>(a.x), a.lse,
+                                a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st, a.causal,
+                                a.scale, s);
+    case 1:
+      return launch_bwd_dq<T, D>(a.q, a.k, a.v, a.x, a.lse, a.delta, a.out0,
+                                 a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
+                                 a.causal, a.scale, s);
+    case 2:
+      return launch_bwd_dkv<T, D>(a.q, a.k, a.v, a.x, a.lse, a.delta, a.out0,
+                                  a.out1, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
+                                  a.causal, a.scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_flash_d(int kind, int D, const FlashArgs& a,
+                           cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
-    case 32: return launch_flash<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
-    case 64: return launch_flash<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
-    case 128: return launch_flash<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, causal, scale, stream);
+    case 16: return launch_kind<T, 16>(kind, a, s);
+    case 32: return launch_kind<T, 32>(kind, a, s);
+    case 64: return launch_kind<T, 64>(kind, a, s);
+    case 128: return launch_kind<T, 128>(kind, a, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t launch_flash_any(int kind, int dtype, int D, const FlashArgs& a,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_flash_d<float>(kind, D, a, s);
+  if (dtype == 1) return launch_flash_d<__nv_bfloat16>(kind, D, a, s);
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------- paged decode
@@ -572,20 +1011,50 @@ cudaError_t launch_paged_kv(int kv_type, int D, const void* q,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only)
+// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only).
+// strides: (batch, seq, head) of q, k, v, o; lse: (B, Hq, Sq) float32
+// written when not null
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int Hq, int Hkv, int Sq, int Skv, int D,
-                                   const int64_t* strides, int causal,
-                                   float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_flash_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                                 causal, scale, st);
-  if (dtype == 1)
-    return launch_flash_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                         strides, causal, scale, st);
-  return cudaErrorInvalidValue;
+                                   const void* v, void* o, void* lse,
+                                   int dtype, int B, int Hq, int Hkv, int Sq,
+                                   int Skv, int D, const int64_t* strides,
+                                   int causal, float scale, void* stream) {
+  FlashArgs a{q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
+              nullptr, B, Hq, Hkv, Sq, Skv, strides, causal, scale};
+  return launch_flash_any(0, dtype, D, a, stream);
+}
+
+// strides: (batch, seq, head) of q, k, v, do, dq; lse, delta: (B, Hq, Sq)
+// float32
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, int dtype, int B, int Hq,
+                                      int Hkv, int Sq, int Skv, int D,
+                                      const int64_t* strides, int causal,
+                                      float scale, void* stream) {
+  FlashArgs a{q, k, v, dout,
+              const_cast<float*>(static_cast<const float*>(lse)),
+              static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, Sq,
+              Skv, strides, causal, scale};
+  return launch_flash_any(1, dtype, D, a, stream);
+}
+
+// strides: (batch, seq, head) of q, k, v, do, then of dk and dv (alike,
+// (B, Skv, Hkv, D)); lse, delta: (B, Hq, Sq) float32
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int dtype, int B,
+                                       int Hq, int Hkv, int Sq, int Skv,
+                                       int D, const int64_t* strides,
+                                       int causal, float scale,
+                                       void* stream) {
+  FlashArgs a{q, k, v, dout,
+              const_cast<float*>(static_cast<const float*>(lse)),
+              static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, Sq, Skv,
+              strides, causal, scale};
+  return launch_flash_any(2, dtype, D, a, stream);
 }
 
 // part: float32 scratch of B*Hq*nsplit*(D + 2) floats, nsplit =

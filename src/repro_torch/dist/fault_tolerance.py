@@ -1,11 +1,50 @@
-"""Straggler-quorum admission (the counterpart of ``DeadlineGate`` in
-``repro.dist.fault_tolerance``, copied: that module imports JAX). The rest
-of that module — ``TrainingRunner``, ``FailureSource`` — comes with
-training."""
+"""Fault-tolerant training on one device: checkpoint-restore runner,
+failure injection, straggler quorum admission (the counterpart of
+``repro.dist.fault_tolerance``, whose module imports JAX).
+
+``TrainingRunner`` owns the training loop: it snapshots the state through
+``repro_torch.checkpoint.Checkpointer`` every ``ckpt_every`` steps (async,
+atomic commit) and, on an injected or real node failure, restores the
+newest committed checkpoint, fast-forwards the data pipeline to the
+restored step (the data factory is seeded by step index, so recovery is
+deterministic: a crashed run and an uninterrupted one take the same
+trajectory) and resumes. Restarts are budgeted; blowing the budget is an
+error, not a hang.
+
+The loop runs on one device, so unlike the JAX runner it takes the step
+function itself rather than a builder over a mesh: there is no remesh to
+rebuild it for. The elastic remesh comes with the ``torch.distributed``
+slice, and the ``repro.obs`` spans and counters of the JAX loop with the
+port's observability (ROADMAP queue 1 item 5).
+"""
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+
+
+class NodeFailure(RuntimeError):
+    """A (injected or detected) node failure: unwind to the restore path."""
+
+
+class FailureSource:
+    """Deterministic failure injection at global step indices.
+
+    Each scheduled failure fires exactly once: after recovery the
+    re-executed step succeeds, like a real transient node loss.
+    """
+
+    def __init__(self, fail_at: Iterable[int] = ()):
+        self._pending = set(int(s) for s in fail_at)
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self._pending:
+            self._pending.discard(step)
+            raise NodeFailure(f"injected node failure at step {step}")
 
 
 class DeadlineGate:
@@ -38,3 +77,88 @@ class DeadlineGate:
         cutoff = sorted(arrivals)[need - 1]
         admitted = [i for i, t in enumerate(arrivals) if t <= cutoff]
         return admitted, cutoff
+
+
+class TrainingRunner:
+    """Checkpoint-restore training loop on one device.
+
+    step(state, batch) -> (state, metrics dict of device scalars). data_factory(start_step) -> batch iterator
+    positioned at ``start_step`` (the deterministic fast-forward contract),
+    closed by the runner when it has a ``close`` method. init_state() ->
+    the initial state, used for a cold start and as the template a restore
+    copies into.
+    """
+
+    def __init__(self, step: Callable, data_factory: Callable,
+                 init_state: Callable, ckpt_dir, *, ckpt_every: int = 100,
+                 keep: int = 3, failure_source: Optional[FailureSource] = None,
+                 max_restarts: int = 10):
+        self.step = step
+        self.data_factory = data_factory
+        self.init_state = init_state
+        self.ckpt = Checkpointer(ckpt_dir, keep=keep)
+        self.ckpt_every = int(ckpt_every)
+        self.failure_source = failure_source
+        self.max_restarts = int(max_restarts)
+        self.restarts = 0
+        self.metrics_log: List[dict] = []
+
+    def _init_or_restore(self, state=None):
+        """(state, first step): a fresh state, or the newest checkpoint
+        copied into ``state`` (a fresh one when None)."""
+        if self.ckpt.latest_step() is None:
+            return self.init_state(), 0
+        template = self.init_state() if state is None else state
+        state, step, _ = self.ckpt.restore(template)
+        return state, step
+
+    def run(self, total_steps: int):
+        """Train to ``total_steps``, surviving failures; returns the final
+        state. A final checkpoint is committed at ``total_steps`` so a
+        follow-on job resumes exactly where this one stopped."""
+        state, start = self._init_or_restore()
+        while True:
+            try:
+                state = self._loop(state, start, total_steps)
+                if start < total_steps:
+                    # not when the restored step is already at the target
+                    # (a shorter re-run against an old directory): that
+                    # would overwrite a genuine checkpoint with later state
+                    self.ckpt.save(total_steps, state, blocking=True)
+                return state
+            except NodeFailure:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise RuntimeError(
+                        f"restart budget exhausted: {self.restarts - 1} "
+                        f"restarts allowed, training keeps failing")
+                self.ckpt.wait()  # let an in-flight snapshot commit
+                state, start = self._init_or_restore(state)
+                # drop the entries of steps that run again, so the log
+                # reads as one uninterrupted trajectory
+                self.metrics_log = [m for m in self.metrics_log
+                                    if m["step"] < start]
+
+    def _loop(self, state, start: int, total_steps: int):
+        data = self.data_factory(start)
+        try:
+            for step in range(start, total_steps):
+                if step % self.ckpt_every == 0:
+                    # snapshot BEFORE the step: the manifest's step is the
+                    # first to run again on restore
+                    self.ckpt.save(step, state)
+                if self.failure_source is not None:
+                    self.failure_source.maybe_fail(step)
+                state, metrics = self.step(state, next(data))
+                # one host fetch per step, for all the metrics
+                names = sorted(metrics)
+                values = torch.stack([metrics[k].detach().float().reshape(())
+                                      for k in names]).tolist()
+                rec = {"step": step}
+                rec.update(zip(names, values))
+                self.metrics_log.append(rec)
+        finally:
+            close = getattr(data, "close", None)
+            if close is not None:
+                close()
+        return state

@@ -5,6 +5,7 @@
   gram/             ``gram``                     csrc/gram.cu
   prox_step/        ``prox_step``, ``prox_loop``  csrc/prox_step.cu
   flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
+                    ``flash_dq``, ``flash_dkv``,
                     ``paged_attention`` (kernel ``paged_decode``)
 
   registry.py  the op table, backend policy and dispatch counts
@@ -26,7 +27,9 @@ def _cuda_wrappers():
     return {"gram": gram_ops.gram_cuda, "prox_step": prox_ops.prox_step_cuda,
             "prox_loop": prox_ops.prox_loop_cuda,
             "flash_attention": fa_ops.flash_attention_cuda,
-            "paged_decode": fa_ops.paged_decode_cuda}
+            "paged_decode": fa_ops.paged_decode_cuda,
+            "flash_dq": fa_ops.flash_dq_cuda,
+            "flash_dkv": fa_ops.flash_dkv_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,19 +1,25 @@
-"""Ops ``flash_attention`` and ``paged_attention``: the model's two attention
-kernels, in the model's (B, S, H, D) layout.
+"""Ops ``flash_attention``, ``flash_dq``, ``flash_dkv`` and
+``paged_attention``: the model's attention kernels, in the model's
+(B, S, H, D) layout, and :func:`flash_attention`, the differentiable
+attention the model calls.
 
 ``cuda`` launches ``csrc/flash_attention.cu``: ``flash_attention_fwd``
 (counterpart of the Pallas kernel ``repro.kernels.flash_attention.kernel
-.flash_attention``) and ``paged_decode`` (counterpart of
-``paged_flash_decode``); ``torch`` is ``ref.py``. The JAX wrappers pad the
-head dim to 128 lanes, the sequence to the block size and the page rows to
-8 before the kernel; here the kernels mask ragged edges themselves and there
-is no pad pass. The flash kernel takes its operands' strides, so the model
-hands it the projections as views, without a copy.
+.flash_attention``, with its lse output on request), ``flash_attention_bwd_dq``
+and ``flash_attention_bwd_dkv`` (counterparts of ``backward.flash_dq`` and
+``backward.flash_dkv``, the GQA group sum folded into the latter) and
+``paged_decode`` (counterpart of ``paged_flash_decode``); ``torch`` is
+``ref.py``. The JAX wrappers pad the head dim to 128 lanes, the sequence to
+the block size and the page rows to 8 before the kernel; here the kernels
+mask ragged edges themselves and there is no pad pass. The flash kernels
+take their operands' strides, so the model hands them the projections as
+views, without a copy.
 
 Each CUDA wrapper counts its launches in a plain-integer ``launches``
-attribute: ``flash_attention_cuda.launches``, ``paged_decode_cuda.launches``.
-One ``paged_decode`` launch is its two CUDA kernels: the chunk pass and the
-merge of each row's chunks.
+attribute: ``flash_attention_cuda.launches`` (with or without lse),
+``flash_dq_cuda.launches``, ``flash_dkv_cuda.launches``,
+``paged_decode_cuda.launches``. One ``paged_decode`` launch is its two CUDA
+kernels: the chunk pass and the merge of each row's chunks.
 """
 from __future__ import annotations
 
@@ -28,7 +34,9 @@ from repro_torch.kernels.flash_attention import ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_FLASH_ARGS = [_P] * 4 + [_I] * 7 + [_P, _I, _F, _P]
+_FLASH_ARGS = [_P] * 5 + [_I] * 7 + [_P, _I, _F, _P]
+_DQ_ARGS = [_P] * 7 + [_I] * 7 + [_P, _I, _F, _P]
+_DKV_ARGS = [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P]
 _PAGED_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
 #: positions per CTA of the paged kernel (``PD_CHUNK`` in the source)
 PAGED_CHUNK = 128
@@ -58,20 +66,15 @@ def _gqa(Hq: int, Hkv: int, what: str) -> None:
                          f"Hq={Hq} Hkv={Hkv}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """GQA attention by the Hopper kernel. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D),
-    float32 or bf16 (all three alike), unit stride on D and 4-byte aligned
-    rows -> (B,Sq,Hq,D) in q's dtype. Causal rows are right-aligned
-    (query i sees keys [0, Skv - Sq + i])."""
-    what = "flash_attention"
+def _check_qkv(q, k, v, what: str, extra=()):
+    """Validate the flash kernels' strided operands: q-shaped ``extra``
+    tensors (do) beside q, k and v. Returns (B, Sq, Hq, Hkv, Skv, D)."""
     dtypes = (torch.float32, torch.bfloat16)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _check(t, name, what, 4, dtypes)
         if t.dtype != q.dtype:
-            raise ValueError(f"{what}: q, k and v must share a dtype, got "
-                             f"{q.dtype}, {k.dtype}, {v.dtype}")
+            raise ValueError(f"{what}: q, k, v and do must share a dtype, "
+                             f"got {name} {t.dtype} beside q {q.dtype}")
         if t.stride(3) != 1:
             raise ValueError(f"{what}: {name} needs a unit stride on its "
                              f"last dim, got strides {t.stride()}")
@@ -83,28 +86,162 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
+    for name, t in extra:
+        if t.shape != q.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} must have "
+                             f"q's shape {tuple(q.shape)}")
     _gqa(Hq, Hkv, what)
     if D not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
     if min(B, Sq, Skv) < 1 or B > 65535 or Hq > 65535:
         raise ValueError(f"{what}: unsupported shape q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
+    return B, Sq, Hq, Hkv, Skv, D
+
+
+def _check_rows(t: torch.Tensor, name: str, what: str, shape) -> None:
+    """lse and delta: float32 (B, Hq, Sq), contiguous, on the card."""
+    _check(t, name, what, 3, (torch.float32,))
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous {tuple(shape)}, "
+                         f"got {tuple(t.shape)} strides {t.stride()}")
+
+
+def _strides(*ts) -> ctypes.Array:
+    return (ctypes.c_int64 * (3 * len(ts)))(
+        *[s for t in ts for s in t.stride()[:3]])
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """GQA attention by the Hopper kernel. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D),
+    float32 or bf16 (all three alike), unit stride on D and 4-byte aligned
+    rows -> (B,Sq,Hq,D) in q's dtype; with ``return_lse`` also lse
+    (B,Hq,Sq) float32, the row logsumexp of the scaled scores (-inf for a
+    row that sees no key). Causal rows are right-aligned (query i sees keys
+    [0, Skv - Sq + i])."""
+    what = "flash_attention"
+    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what)
     scale = D ** -0.5 if scale is None else float(scale)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *o.stride()[:3])
+    lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    strides = _strides(q, k, v, o)
     fn = _build.function("flash_attention", "flash_attention_fwd",
                          _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr() if return_lse else None, _TYPE[q.dtype], B, Hq,
+             Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
+             int(bool(causal)), scale, _build.stream_of(q))
+    _build.check("flash_attention", err, what)
+    flash_attention_cuda.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """dq of the attention by the Hopper kernel: q/do (B,Sq,Hq,D), k/v
+    (B,Skv,Hkv,D) as for the forward, lse and delta (B,Hq,Sq) float32
+    contiguous -> dq (B,Sq,Hq,D) in q's dtype."""
+    what = "flash_dq"
+    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, (("do", do),))
+    _check_rows(lse, "lse", what, (B, Hq, Sq))
+    _check_rows(delta, "delta", what, (B, Hq, Sq))
+    scale = D ** -0.5 if scale is None else float(scale)
+    dq = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
+    strides = _strides(q, k, v, do, dq)
+    fn = _build.function("flash_attention", "flash_attention_bwd_dq",
+                         _DQ_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _TYPE[q.dtype],
+             B, Hq, Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
+             int(bool(causal)), scale, _build.stream_of(q))
+    _build.check("flash_attention", err, what)
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
+                   scale: Optional[float] = None):
+    """(dk, dv) of the attention by the Hopper kernel, summed over each kv
+    head's GQA group inside it: operands as for :func:`flash_dq_cuda` ->
+    dk, dv (B,Skv,Hkv,D) in k's dtype."""
+    what = "flash_dkv"
+    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, (("do", do),))
+    _check_rows(lse, "lse", what, (B, Hq, Sq))
+    _check_rows(delta, "delta", what, (B, Hq, Sq))
+    scale = D ** -0.5 if scale is None else float(scale)
+    dk = torch.empty(B, Skv, Hkv, D, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    strides = _strides(q, k, v, do, dk)
+    fn = _build.function("flash_attention", "flash_attention_bwd_dkv",
+                         _DKV_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _TYPE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
              ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)), scale,
              _build.stream_of(q))
     _build.check("flash_attention", err, what)
-    flash_attention_cuda.launches += 1
-    return o
+    flash_dkv_cuda.launches += 1
+    return dk, dv
 
 
-flash_attention_cuda.launches = 0
+flash_dkv_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the FA-2 backward, the counterpart of the JAX
+    package's ``custom_vjp`` (``flash_attention_fwd``/``_bwd`` in
+    ``repro.kernels.flash_attention.ops``): the forward runs the
+    ``flash_attention`` op with its lse and saves (q, k, v, o, lse); the
+    backward computes delta = rowsum(do * o) in float32 and runs the ops
+    ``flash_dq`` and ``flash_dkv``. Every op dispatches under the backend
+    resolved when the forward ran (the backward may run on autograd's own
+    thread, where a ``registry.use`` of the caller does not reach)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, backend):
+        with registry.use(backend):
+            o, lse = registry.dispatch("flash_attention", q, k, v,
+                                       causal=causal, scale=scale,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.backend = causal, scale, backend
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        with registry.use(ctx.backend):
+            dq = registry.dispatch("flash_dq", q, k, v, do, lse, delta, **kw)
+            dk, dv = registry.dispatch("flash_dkv", q, k, v, do, lse, delta,
+                                       **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None):
+    """Differentiable GQA attention, (B, S, H, D) layout. With grad enabled
+    and an input that requires it, :class:`FlashAttentionFn` (the lse
+    forward, then ``flash_dq`` and ``flash_dkv`` in the backward); otherwise
+    the plain ``flash_attention`` op, exactly as inference launches it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(
+            q, k, v, causal, scale, registry.resolved_backend(q.device))
+    return registry.dispatch("flash_attention", q, k, v, causal=causal,
+                             scale=scale)
 
 
 #: the paged kernel's chunk-state scratch, one buffer per (device, stream),
@@ -205,6 +342,12 @@ registry.register("flash_attention", "cuda",
                   unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(flash_attention_cuda)
 registry.register("flash_attention", "torch")(ref.flash_attention)
+registry.register("flash_dq", "cuda", unavailable=_build.unavailable_reason,
+                  rejects=_build.rejects_cpu)(flash_dq_cuda)
+registry.register("flash_dq", "torch")(ref.flash_dq)
+registry.register("flash_dkv", "cuda", unavailable=_build.unavailable_reason,
+                  rejects=_build.rejects_cpu)(flash_dkv_cuda)
+registry.register("flash_dkv", "torch")(ref.flash_dkv)
 registry.register("paged_attention", "cuda",
                   unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(paged_decode_cuda)

@@ -1,11 +1,16 @@
-"""Plain PyTorch versions of the two attention kernels: the CPU path and the
+"""Plain PyTorch versions of the attention kernels: the CPU path and the
 oracle each CUDA kernel is held against on the card.
 
-Both compute the Pallas kernels' arithmetic (``repro.kernels.flash_attention
-.kernel``): inputs upcast to float32, scores, softmax and p·v in float32,
-the result cast to q's dtype. Masked positions weigh exactly 0, and a row
-that sees no key at all gives 0 (the kernels' ``acc / max(l, 1e-30)``).
-Layouts are the model's: q (B, S, Hq, D), k/v (B, Skv, Hkv, D).
+The forwards compute the Pallas kernels' arithmetic (``repro.kernels
+.flash_attention.kernel``): inputs upcast to float32, scores, softmax and
+p·v in float32, the result cast to q's dtype. Masked positions weigh
+exactly 0, and a row that sees no key at all gives 0 (the kernels'
+``acc / max(l, 1e-30)``) and has lse = -inf. The backward versions
+(:func:`flash_dq`, :func:`flash_dkv`) are the FA-2 equations of
+``repro.kernels.flash_attention.backward`` on materialized float32 scores,
+with p = exp(s - lse) on visible entries and 0 elsewhere.
+Layouts are the model's: q (B, S, Hq, D), k/v (B, Skv, Hkv, D); lse and
+delta are (B, Hq, Sq) float32.
 """
 from __future__ import annotations
 
@@ -24,26 +29,109 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (p @ v) / l.clamp_min(1e-30)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """GQA attention with materialized scores. q (B,Sq,Hq,D), k/v
-    (B,Skv,Hkv,D), Hq % Hkv == 0 -> (B,Sq,Hq,D) in q's dtype. The causal
-    mask is right-aligned: query i sees keys [0, Skv - Sq + i]."""
+def _visible(Sq: int, Skv: int, causal: bool, device) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query sees. The causal mask is
+    right-aligned: query i sees keys [0, Skv - Sq + i]."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    return (kpos <= qpos) if causal else torch.ones(
+        Sq, Skv, dtype=torch.bool, device=device)
+
+
+def _scores(q, k, causal: bool, scale: float):
+    """Scaled float32 scores (B, Hkv, G, Sq, Skv), -inf where masked, and
+    the mask."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    group = Hq // Hkv
-    scale = D ** -0.5 if scale is None else scale
-    qg = q.float().reshape(B, Sq, Hkv, group, D).permute(0, 2, 3, 1, 4)
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)       # (B,Hkv,1,Skv,D)
+    s = (qg @ kf.transpose(-1, -2)) * scale
+    vis = _visible(Sq, Skv, causal, q.device)
+    return s.masked_fill(~vis, float("-inf")), vis
+
+
+def _heads_last(x: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, G, S, D) -> (B, S, Hkv * G, D)."""
+    B, Hkv, G, S, D = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * G, D)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False):
+    """GQA attention with materialized scores. q (B,Sq,Hq,D), k/v
+    (B,Skv,Hkv,D), Hq % Hkv == 0 -> (B,Sq,Hq,D) in q's dtype, and with
+    ``return_lse`` also the lse (see :func:`flash_attention_lse`). The
+    causal mask is right-aligned: query i sees keys [0, Skv - Sq + i]."""
+    if return_lse:
+        return flash_attention_lse(q, k, v, causal=causal, scale=scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, _ = _scores(q, k, causal, scale)                   # (B,Hkv,G,Sq,Skv)
     vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
-    s = (qg @ kf.transpose(-1, -2)) * scale               # (B,Hkv,G,Sq,Skv)
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
-        kpos = torch.arange(Skv, device=q.device)[None, :]
-        s = s.masked_fill(kpos > qpos, float("-inf"))
-    o = _softmax_pv(s, vf)                                # (B,Hkv,G,Sq,D)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    return _heads_last(_softmax_pv(s, vf)).to(q.dtype)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """The forward with its residual, as ``_flash_kernel_lse`` computes it:
+    (o (B,Sq,Hq,D) in q's dtype, lse (B,Hq,Sq) float32), lse = m +
+    log(max(l, 1e-30)) of the scaled, masked scores; -inf for a row that
+    sees no key."""
+    B, Sq, Hq, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    s, _ = _scores(q, k, causal, scale)
+    vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
+    o = _softmax_pv(s, vf)
+    m = s.amax(dim=-1)
+    m0 = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    l = torch.exp(s - m0[..., None]).sum(dim=-1)
+    lse = m + torch.log(l.clamp_min(1e-30))               # (B,Hkv,G,Sq)
+    return _heads_last(o).to(q.dtype), lse.reshape(B, Hq, Sq)
+
+
+def _probs_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """p and ds (B, Hkv, G, Sq, Skv) float32: p = exp(s - lse) on visible
+    entries, 0 elsewhere (never exp of a masked entry: lse may be -inf);
+    ds = p (do v^T - delta)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    s, vis = _scores(q, k, causal, scale)
+    lse5 = lse.float().reshape(B, Hkv, G, Sq, 1)
+    p = torch.where(vis, torch.exp(torch.where(vis, s, 0.0) - torch.where(
+        vis, lse5, 0.0)), 0.0)
+    dog = do.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)       # (B,Hkv,1,Skv,D)
+    dp = dog @ vf.transpose(-1, -2)
+    ds = p * (dp - delta.float().reshape(B, Hkv, G, Sq, 1))
+    return p, ds, dog
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+             scale: Optional[float] = None) -> torch.Tensor:
+    """dq = scale * ds k, (B,Sq,Hq,D) in q's dtype. do as q; lse and delta
+    (B,Hq,Sq) float32 (delta = rowsum(do * o))."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    _, ds, _ = _probs_ds(q, k, v, do, lse, delta, causal, scale)
+    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)
+    return _heads_last((ds @ kf) * scale).to(q.dtype)
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+              scale: Optional[float] = None):
+    """(dk, dv), each (B,Skv,Hkv,D) in k's dtype: dk = scale * ds^T q and
+    dv = p^T do, summed over the GQA group in float32 before the one
+    rounding."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    p, ds, dog = _probs_ds(q, k, v, do, lse, delta, causal, scale)
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
+    dk = (ds.transpose(-1, -2) @ qg).sum(dim=2) * scale   # (B,Hkv,Skv,D)
+    dv = (p.transpose(-1, -2) @ dog).sum(dim=2)
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -6,6 +6,11 @@ kernel splits the m axis into chunks fixed by m alone (:func:`chunking`),
 writes one partial tile per chunk into scratch the wrapper allocates, and
 sums the partials in chunk order — so a draw's G has the same bits at any
 batch size k.
+
+:func:`gram` is the differentiable form the solvers call: under autograd it
+runs :class:`GramFn`, whose backward is the analytic VJP of the JAX
+package's Pallas impl (``repro.kernels.gram.ops._gram_bwd``), dXs =
+(dG + dG^T) Xs — a plain product outside any kernel, as in JAX.
 """
 from __future__ import annotations
 
@@ -58,6 +63,33 @@ def gram_cuda(Xs: torch.Tensor) -> torch.Tensor:
 
 
 gram_cuda.launches = 0
+
+
+class GramFn(torch.autograd.Function):
+    """G = Xs Xs^T through the ``gram`` op, with dXs = (dG + dG^T) Xs. The
+    op dispatches under the backend resolved when the forward ran."""
+
+    @staticmethod
+    def forward(ctx, Xs, backend):
+        with registry.use(backend):
+            G = registry.dispatch("gram", Xs)
+        ctx.save_for_backward(Xs)
+        return G
+
+    @staticmethod
+    def backward(ctx, dG):
+        Xs, = ctx.saved_tensors
+        dG = dG.float()
+        dXs = torch.matmul(dG + dG.transpose(-1, -2), Xs.float())
+        return dXs.to(Xs.dtype), None
+
+
+def gram(Xs: torch.Tensor) -> torch.Tensor:
+    """G = Xs Xs^T for (d, m) or (k, d, m): :class:`GramFn` when grad is
+    enabled and Xs requires it, else the ``gram`` op as it is."""
+    if torch.is_grad_enabled() and Xs.requires_grad:
+        return GramFn.apply(Xs, registry.resolved_backend(Xs.device))
+    return registry.dispatch("gram", Xs)
 
 registry.register("gram", "cuda", unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(gram_cuda)

@@ -4,7 +4,11 @@ The counterpart of ``repro.kernels.registry``, slimmed to what the port
 runs. Each op registers two implementations:
 
 * ``gram``, ``prox_step``, ``prox_loop`` — the Lasso solvers' kernels;
-* ``flash_attention`` — the model's teacher-forced attention, (B, S, H, D);
+* ``flash_attention`` — the model's teacher-forced attention, (B, S, H, D),
+  with its per-row lse on request (``return_lse=True``);
+* ``flash_dq``, ``flash_dkv`` — its backward: dq, and dk/dv summed over
+  each kv head's GQA group (``models.attention`` reaches all three through
+  the autograd Function of ``kernels.flash_attention.ops``);
 * ``paged_attention`` — single-query decode attention through a page table
   (its CUDA kernel is ``paged_decode``).
 
@@ -49,7 +53,7 @@ ENV_VAR = "REPRO_TORCH_BACKEND"
 _IMPL_MODULES = (
     "repro_torch.kernels.gram.ops",       # registers "gram"
     "repro_torch.kernels.prox_step.ops",  # registers "prox_step", "prox_loop"
-    # registers "flash_attention", "paged_attention"
+    # registers "flash_attention", "flash_dq", "flash_dkv", "paged_attention"
     "repro_torch.kernels.flash_attention.ops",
 )
 

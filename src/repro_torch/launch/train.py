@@ -1,0 +1,113 @@
+"""Training driver: the CA train step on one device, the fault-tolerant
+runner, async checkpoints and the restartable token stream (the counterpart
+of ``repro.launch.train``, without its mesh).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --preset tiny --steps 12 --ckpt-every 4 --fail-at 6 \\
+      --ckpt-dir "$(mktemp -d)"
+
+The run resumes from the newest checkpoint in ``--ckpt-dir`` (default
+``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty directory.
+
+Flags as in JAX: ``--arch`` (dense archs), ``--preset`` (tiny: the smoke
+config at batch 8, seq 64; 100m: 6 layers of width 1024 at batch
+max(ca_k, 8), seq 512; full: the published widths at batch 8 * ca_k, seq
+1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
+``--fail-at``, ``--log-every``, plus ``--device`` (default ``cuda``,
+raising on a host with no card). Weights are float32 masters from a seeded
+``torch.Generator``. Autotune and the obs flags come with their ROADMAP
+items.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_arch, smoke_config
+from repro_torch.data import TokenStream
+from repro_torch.dist import FailureSource, TrainingRunner
+from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.models.transformer import require_dense
+
+
+def build(args):
+    """(cfg, batch, seq) of a preset, as ``repro.launch.train.build``."""
+    arch = get_arch(args.arch)
+    if args.preset == "tiny":
+        cfg = smoke_config(arch)
+        batch, seq = 8, 64
+    elif args.preset == "100m":
+        cfg = arch.scaled(n_layers=6, d_model=1024,
+                          n_heads=8, n_kv_heads=max(arch.n_kv_heads // 4, 1),
+                          head_dim=128, d_ff=4096, vocab=32000)
+        batch, seq = max(args.ca_k, 8), 512
+    else:
+        cfg = arch
+        batch, seq = 8 * args.ca_k, 1024
+    return cfg, batch, seq
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--preset", choices=["tiny", "100m", "full"],
+                    default="tiny")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--ca-k", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject node failures at these steps (FT demo)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="device to run on (default cuda; raises on a host "
+                         "with no card unless this says cpu)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg, batch, seq = build(args)
+    require_dense(cfg)
+
+    step = make_train_step(cfg, ca_k=args.ca_k, peak_lr=args.lr, warmup=10,
+                           total_steps=args.steps, remat=True)
+
+    def data_factory(start_step):
+        return TokenStream(batch=batch, seq=seq, vocab=cfg.vocab, seed=0,
+                           start_step=start_step, device=device)
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init_train_state(cfg, gen, device=device)
+
+    runner = TrainingRunner(
+        step, data_factory, init_state, args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        failure_source=FailureSource(args.fail_at))
+
+    t0 = time.time()
+    runner.run(args.steps)
+    dt = time.time() - t0
+    for m in runner.metrics_log[::args.log_every]:
+        print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
+              f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}")
+    if runner.metrics_log:
+        last = runner.metrics_log[-1]
+        print(f"step {last['step']:5d}  loss {last['loss']:.4f}  (final)")
+    else:
+        print(f"checkpoint in {args.ckpt_dir} already at step "
+              f"{args.steps}; nothing to do")
+    print(f"done: {args.steps} steps in {dt:.1f}s "
+          f"({args.steps / dt:.2f} steps/s), restarts={runner.restarts}")
+    return runner
+
+
+if __name__ == "__main__":
+    main()

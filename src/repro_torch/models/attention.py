@@ -3,8 +3,10 @@
 Three paths, chosen explicitly by the caller's arguments:
 
 * :func:`attention` without ``kv_valid_len`` — the teacher-forced forward —
-  dispatches the registry op ``flash_attention`` (backend ``cuda``: the
-  Hopper kernel; ``torch``: its plain version).
+  runs ``kernels.flash_attention.ops.flash_attention``: the registry op
+  ``flash_attention`` (backend ``cuda``: the Hopper kernel; ``torch``: its
+  plain version), and under autograd the Function whose backward runs the
+  ops ``flash_dq`` and ``flash_dkv``.
 * :func:`attention` with ``kv_valid_len`` — the slot-cache decode — runs
   :func:`chunked_attention`, plain PyTorch, as the JAX package runs its XLA
   path there. JAX reaches the same split through the Pallas impl's
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import registry
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
 
@@ -117,15 +120,14 @@ def attention(q, k, v, *, causal: bool = True, scale=None, kv_valid_len=None,
               chunk: Optional[int] = None,
               q_chunk: Optional[int] = Q_CHUNK_DEFAULT):
     """GQA attention, (B,S,H,D) layout. With ``kv_valid_len`` (a cache read
-    masked per row) it runs :func:`chunked_attention`; without, the registry
-    op ``flash_attention`` under the active backend policy."""
+    masked per row) it runs :func:`chunked_attention`; without, the
+    differentiable ``flash_attention`` under the active backend policy."""
     if kv_valid_len is not None:
         return chunked_attention(q, k, v, causal=causal,
                                  chunk=chunk or KV_CHUNK_DEFAULT,
                                  q_chunk=q_chunk, scale=scale,
                                  kv_valid_len=kv_valid_len)
-    return registry.dispatch("flash_attention", q, k, v, causal=causal,
-                             scale=scale)
+    return fa_ops.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def quantize_kv(x: torch.Tensor):

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameter tree into the port's layout.
+"""Carry the JAX package's parameter tree, and its training state, into the
+port's layout.
 
 ``repro.models.init_params`` returns nested dicts whose per-layer leaves
 are stacked along a leading ``n_layers`` axis (``_stack_init``, for
@@ -10,7 +11,8 @@ The weights may be held in bf16 (the default) without changing a number:
 every use of a weight in the JAX model casts the float32 master to the bf16
 stream first (``blocks.py`` projections, ``mlp.py``, the embedding take and
 the logits head in ``transformer.py``, the norm gains in ``layers.py``), so
-bf16 weights here give the products JAX computes.
+bf16 weights here give the products JAX computes. A training state keeps
+float32 masters (:func:`train_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -50,3 +52,21 @@ def params_from_numpy(cfg, tree: dict, *, device=None,
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [layer(i, stacked) for i in range(n)]
     return out
+
+
+def train_state_from_numpy(cfg, state, *, device=None):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``: float32 params, ``opt.step``, ``opt.m``, ``opt.v``) -> the
+    port's ``repro_torch.launch.steps.TrainState`` on ``device``, every
+    tensor float32 but the int32 step."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim import OptState
+
+    def tree(t):
+        return params_from_numpy(cfg, t, device=device, dtype=torch.float32)
+
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(params=tree(state.params),
+                      opt=OptState(step=step, m=tree(state.opt.m),
+                                   v=tree(state.opt.v)))

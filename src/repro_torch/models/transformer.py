@@ -4,19 +4,22 @@
 Parameters are a plain dict of tensors: ``embed`` (V, d), ``ln_f`` (d,),
 ``lm_head`` (d, V) and ``layers``, a list of one dict per layer (JAX
 stacks the layers along a leading axis for ``lax.scan``; the port loops).
-The other families raise until their ROADMAP item brings them, and
-``loss_fn`` comes with training.
+The other families raise until their ROADMAP item brings them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import registry
 from repro_torch.models.blocks import dense_block, init_dense_block, paged_rows
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
                                       rope_tables)
+from repro_torch.tree import leaves
 
 #: where each unported family comes from (ROADMAP, queue 1)
 _LATER = {
@@ -54,19 +57,8 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
     return params
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(params) -> int:
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in leaves(params))
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -83,22 +75,53 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
-def forward(params, cfg, batch: dict, *, last_only: bool = False):
+def _block(lp, x, cfg, pos_info):
+    return dense_block(lp, x, cfg, pos_info=pos_info)[0]
+
+
+def forward(params, cfg, batch: dict, *, last_only: bool = False,
+            remat: bool = False):
     """Teacher-forced forward: batch["tokens"] (B, S) -> (logits (B,S,V)
     bf16, aux 0). ``last_only`` projects the final position only (the
-    prefill path). Attention dispatches the registry op
-    ``flash_attention``."""
+    prefill path). Attention runs ``flash_attention`` (its autograd
+    Function when grad is on). ``remat`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward, the counterpart of JAX's
+    ``jax.checkpoint(nothing_saveable)`` around each scanned layer. The
+    recompute runs under the registry policy of the forward."""
     require_dense(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens)
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     pos_info = dict(rope=rope_tables(pos, cfg.head_dim, cfg.rope_theta))
+    policy = registry.policy()
+
+    def contexts():
+        return contextlib.nullcontext(), registry.use(policy)
+
     for lp in params["layers"]:
-        x, _ = dense_block(lp, x, cfg, pos_info=pos_info)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, lp, x, cfg, pos_info, use_reentrant=False,
+                           context_fn=contexts)
+        else:
+            x = _block(lp, x, cfg, pos_info)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params, cfg, batch: dict, *, remat: bool = False,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross entropy of batch["tokens"] against batch["labels"]
+    (B, S), the counterpart of ``repro.models.transformer.loss_fn``: the
+    bf16 logits upcast to float32, logsumexp minus the gold logit, the mean
+    over tokens, plus ``aux_weight`` times the aux loss (0 for dense)."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (logz - gold).mean() + aux_weight * aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -155,5 +178,5 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
     return logits, cache
 
 
-__all__ = ["init_params", "param_count", "forward", "init_cache",
+__all__ = ["init_params", "param_count", "forward", "loss_fn", "init_cache",
            "decode_step", "require_dense"]

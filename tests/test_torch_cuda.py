@@ -1,8 +1,10 @@
-"""The port's CUDA kernels, solvers and serving path on an NVIDIA Hopper
-card: each kernel against its plain PyTorch version, one draw's Gram bits
-independent of the batch, CA == classical through the kernels, and at the
-smoke config the engine's k-invariance and teacher-forced decode against
-the forward. Every test here needs the card and skips without one.
+"""The port's CUDA kernels, solvers, serving and training paths on an NVIDIA
+Hopper card: each kernel against its plain PyTorch version, one draw's Gram
+bits independent of the batch, the attention backward's bits independent of
+the launch and the batch, CA == classical through the kernels, and at the
+smoke config the engine's k-invariance, teacher-forced decode against the
+forward and the train step through the backward kernels. Every test here
+needs the card and skips without one.
 
 This file imports neither JAX nor ``repro``, so it also runs where only the
 port is installed:
@@ -22,6 +24,7 @@ from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
 from repro_torch.kernels.prox_step.ops import prox_scalars
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import decode_step, forward, init_params
 from repro_torch.serve import Engine, PagedCachePool, Request
 
@@ -161,6 +164,130 @@ def test_flash_attention_cuda_takes_strided_views(cuda):
                                   v.contiguous(), causal=True)
     torch.cuda.synchronize()
     assert _normwise(got.float(), want.float()) <= 8e-3
+
+
+def _bwd_case(device, B, Hq, Hkv, Sq, Skv, D, dtype, seed=0):
+    """q, k, v, do, and the plain forward's o, lse and delta."""
+    q = _normal((B, Sq, Hq, D), seed + 1, device, dtype)
+    k = _normal((B, Skv, Hkv, D), seed + 2, device, dtype)
+    v = _normal((B, Skv, Hkv, D), seed + 3, device, dtype)
+    do = _normal((B, Sq, Hq, D), seed + 4, device, dtype)
+    return q, k, v, do
+
+
+BWD_CASES = [
+    (8, 16, 8, 1024, 1024, 128, True, torch.bfloat16),   # the training step's
+    (2, 16, 8, 1000, 1000, 128, True, torch.bfloat16),   # ragged
+    (2, 16, 8, 64, 1000, 128, True, torch.bfloat16),     # right-aligned
+    (2, 16, 8, 37, 300, 128, False, torch.bfloat16),     # not causal
+    (2, 16, 8, 257, 257, 128, True, torch.float32),
+    (2, 4, 2, 12, 12, 16, True, torch.bfloat16),         # smoke config
+    (1, 6, 2, 50, 70, 64, True, torch.float32),
+    (1, 4, 4, 90, 40, 32, True, torch.float32),          # rows seeing no key
+]
+BWD_IDS = ["train", "ragged", "right_aligned", "noncausal", "f32", "smoke",
+           "d64", "sq_gt_skv"]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,dtype", BWD_CASES,
+                         ids=BWD_IDS)
+def test_flash_lse_dq_dkv_cuda_match_plain(cuda, B, Hq, Hkv, Sq, Skv, D,
+                                           causal, dtype):
+    """The lse forward (o and lse), dq and dk/dv against their plain
+    versions on the same inputs, normwise at the kernels' tolerance; a row
+    that sees no key has lse -inf in both, output 0 and zero grads."""
+    q, k, v, do = _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, dtype)
+    o, lse = fa_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                         return_lse=True)
+    wo, wlse = fa_ref.flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    assert _normwise(o.float(), wo.float()) <= ATTN_RTOL[dtype]
+    seen = torch.isfinite(wlse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert float((lse[seen] - wlse[seen]).abs().max()) <= 1e-4
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa_ops.flash_dq_cuda(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa_ops.flash_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    wdq = fa_ref.flash_dq(q, k, v, do, lse, delta, causal=causal)
+    wdk, wdv = fa_ref.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    for got, want in ((dq, wdq), (dk, wdk), (dv, wdv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _normwise(got.float(), want.float()) <= ATTN_RTOL[dtype]
+    if Sq > Skv and causal:
+        blind = Sq - Skv
+        assert float(o[:, :blind].abs().max()) == 0.0
+        assert float(dq[:, :blind].abs().max()) == 0.0
+
+
+def test_flash_backward_cuda_is_deterministic_and_batch_free(cuda):
+    """Two launches give the same bits, and a row's grads are the same
+    bits alone as in its batch: both kernels sum in one fixed order."""
+    q, k, v, do = _bwd_case(cuda, 3, 16, 8, 300, 300, 128, torch.bfloat16)
+    o, lse = fa_ops.flash_attention_cuda(q, k, v, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dq1, (dk1, dv1) = fa_ops.flash_dq_cuda(*args), fa_ops.flash_dkv_cuda(*args)
+    dq2, (dk2, dv2) = fa_ops.flash_dq_cuda(*args), fa_ops.flash_dkv_cuda(*args)
+    one = [t[1:2].contiguous() for t in args]
+    dq3, (dk3, dv3) = fa_ops.flash_dq_cuda(*one), fa_ops.flash_dkv_cuda(*one)
+    torch.cuda.synchronize()
+    for a, b, c in ((dq1, dq2, dq3), (dk1, dk2, dk3), (dv1, dv2, dv3)):
+        assert torch.equal(a, b)
+        assert torch.equal(a[1:2], c)
+
+
+def test_flash_backward_cuda_takes_strided_views(cuda):
+    """q, k, v as views of one projection and do as a view: strides are
+    read, nothing is copied."""
+    qkv = _normal((2, 40, 16 + 2 * 8, 64), 4, cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    do = _normal((2, 40, 32, 64), 5, cuda, torch.bfloat16)[:, :, ::2]
+    o, lse = fa_ops.flash_attention_cuda(q, k, v, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    c = [t.contiguous() for t in (q, k, v, do)]
+    got = (fa_ops.flash_dq_cuda(q, k, v, do, lse, delta),
+           *fa_ops.flash_dkv_cuda(q, k, v, do, lse, delta))
+    want = (fa_ref.flash_dq(*c, lse, delta), *fa_ref.flash_dkv(*c, lse,
+                                                               delta))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _normwise(g.float(), w.float()) <= 8e-3
+
+
+def test_attention_autograd_through_the_kernels(cuda):
+    """The model's attention under autograd launches the lse forward, dq
+    and dk/dv once each, and its grads match the plain Function's."""
+    q, k, v, do = _bwd_case(cuda, 2, 8, 4, 200, 200, 64, torch.float32)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        with registry.use(backend):
+            o = fa_ops.flash_attention(*leaves, causal=True)
+        o.backward(do)
+        grads[backend] = [t.grad for t in leaves]
+        launches = kernels.launch_counts()
+        n = 1 if backend == "cuda" else 0
+        assert (launches["flash_attention"], launches["flash_dq"],
+                launches["flash_dkv"]) == (n, n, n)
+    for a, b in zip(grads["cuda"], grads["torch"]):
+        assert _normwise(a, b) <= 1e-5
+
+
+def test_backward_wrappers_reject_bad_operands(cuda):
+    q, k, v, do = _bwd_case(cuda, 1, 4, 2, 8, 8, 64, torch.bfloat16)
+    lse = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="lse must be contiguous"):
+        fa_ops.flash_dq_cuda(q, k, v, do, lse[:, :2], lse)
+    with pytest.raises(ValueError, match="delta"):
+        fa_ops.flash_dkv_cuda(q, k, v, do, lse, lse.bfloat16())
+    with pytest.raises(ValueError, match="share a dtype"):
+        fa_ops.flash_dq_cuda(q, k, v, do.float(), lse, lse)
+    with pytest.raises(ValueError, match="do"):
+        fa_ops.flash_dkv_cuda(q, k, v, do[:, :4], lse, lse)
 
 
 def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0):
@@ -325,3 +452,31 @@ def test_engine_streams_do_not_depend_on_k(cuda, mode):
         assert launches["flash_attention"] == 0
         streams[k] = {r.id: r.tokens for r in out}
     assert streams[1] == streams[4]
+
+
+def test_train_step_through_the_backward_kernels(cuda):
+    """Smoke config, CA k=2 with remat: every layer's attention runs the lse
+    forward twice (forward, recompute) and dq, dk/dv once per microbatch;
+    the step's loss and grad norm match the plain versions' step."""
+    metrics = {}
+    for backend in ("cuda", "torch"):
+        state = init_train_state(CFG, torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, CFG.vocab, (8, 17),
+                                             dtype=np.int32)).to(cuda)
+        batch = dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+        with registry.use(backend):
+            step = make_train_step(CFG, ca_k=2, remat=True, warmup=1)
+        kernels.reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        n = CFG.n_layers * 2 if backend == "cuda" else 0
+        assert launches["flash_dq"] == launches["flash_dkv"] == n
+        assert launches["flash_attention"] == 2 * n
+        metrics[backend] = {k: float(v) for k, v in m.items()}
+    assert np.isfinite(metrics["cuda"]["loss"])
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(metrics["cuda"][name],
+                                   metrics["torch"][name], rtol=5e-3)

@@ -3,6 +3,7 @@
 against the JAX ref, on the same numpy inputs; and the CUDA wrappers' checks
 and chunking. The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,9 @@ import torch
 
 from repro.kernels.gram import ops as jgram_ops, ref as jgram_ref
 from repro.kernels.prox_step import ops as jprox_ops, ref as jprox_ref
+from repro.kernels import registry as jregistry
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
+from repro.models.attention import attention as j_attention
 from repro_torch.kernels import launch_counts, registry, reset_launch_counts
 from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
@@ -140,12 +143,17 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     registry.dispatch("flash_attention", q, q, q, causal=True)
     (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
     registry.dispatch("paged_attention", pq, kp, vp, t, n)
+    lse = torch.zeros(1, 2, 4)
+    registry.dispatch("flash_dq", q, q, q, q, lse, lse)
+    registry.dispatch("flash_dkv", q, q, q, q, lse, lse)
     assert registry.dispatch_counts() == {
         ("gram", "torch"): 1, ("prox_step", "torch"): 1,
         ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
-        ("paged_attention", "torch"): 1}
+        ("paged_attention", "torch"): 1, ("flash_dq", "torch"): 1,
+        ("flash_dkv", "torch"): 1}
     assert launch_counts() == {"gram": 0, "prox_step": 0, "prox_loop": 0,
-                               "flash_attention": 0, "paged_decode": 0}
+                               "flash_attention": 0, "paged_decode": 0,
+                               "flash_dq": 0, "flash_dkv": 0}
 
 
 # ------------------------------------------------------------- attention ---
@@ -276,5 +284,192 @@ def test_attention_cuda_wrappers_reject_cpu_tensors():
     (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
     with pytest.raises(ValueError, match="CUDA device"):
         fa_ops.paged_decode_cuda(pq, kp, vp, t, n)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.flash_dq_cuda(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_ops.flash_dkv_cuda(q, q, q, q, lse, lse)
     assert fa_ops.flash_attention_cuda.launches == 0
     assert fa_ops.paged_decode_cuda.launches == 0
+    assert fa_ops.flash_dq_cuda.launches == 0
+    assert fa_ops.flash_dkv_cuda.launches == 0
+
+
+# ------------------------------------------------- attention's backward ---
+#: the JAX package's own grad tolerances for flash attention
+#: (tests/test_kernels.py, _GRAD_TOL["flash_attention"]): float32, and bf16
+#: cotangents compounding the forward's rounding
+GRAD_TOL = {"float32": dict(atol=5e-4), "bfloat16": dict(atol=0.5,
+                                                         rtol=5e-2)}
+BWD_CASES = [
+    (1, 4, 2, 13, 13, 16, True),      # GQA group 2, odd S
+    (1, 4, 2, 7, 20, 16, True),       # Sq < Skv, right-aligned
+    (2, 6, 2, 9, 17, 32, False),      # group 3, not causal
+]
+
+
+def _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=0):
+    """q, k, v, do (model layout, numpy float32)."""
+    return [_xs((B, S, H, D), seed + i) for i, (S, H) in enumerate(
+        ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq)))]
+
+
+def _plain_fwd_bwd(q, k, v, do, causal):
+    """The port's plain versions end to end: (o, lse, dq, dk, dv)."""
+    o, lse = fa_ref.flash_attention_lse(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa_ref.flash_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa_ref.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", BWD_CASES)
+def test_flash_backward_ref_matches_pallas(B, Hq, Hkv, Sq, Skv, D, causal,
+                                           dtype):
+    """The plain lse forward, dq and dk/dv against the JAX package's
+    custom-VJP pair ``flash_attention_fwd``/``flash_attention_bwd`` (Pallas
+    in interpret mode) on the same numpy inputs: o and lse at the forward's
+    tolerance (float32), the grads at the JAX package's grad tolerance."""
+    arrs = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(_bhsd(a)).astype(jdt) for a in arrs)
+    with jregistry.use("pallas"):
+        jo, res = jfa_ops.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                              interpret=True)
+        jgrads = jfa_ops.flash_attention_bwd(res, jdo, causal=causal,
+                                             interpret=True)
+    q, k, v, do = (torch.from_numpy(a).to(tdt) for a in arrs)
+    o, lse, *grads = _plain_fwd_bwd(q, k, v, do, causal)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    f32 = dict(ATTN_TOL if dtype == "float32" else BF16_TOL)
+    np.testing.assert_allclose(_bhsd(o.float().numpy()),
+                               np.asarray(jo, np.float32), **f32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(res[4])[..., 0],
+                               **ATTN_TOL)
+    for name, got, want, t in zip(("dq", "dk", "dv"), grads, jgrads,
+                                  (q, k, v)):
+        assert got.dtype == t.dtype and got.shape == t.shape, name
+        np.testing.assert_allclose(_bhsd(got.float().numpy()),
+                                   np.asarray(want, np.float32),
+                                   **GRAD_TOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", BWD_CASES)
+def test_flash_attention_grad_matches_jax_xla_grad(B, Hq, Hkv, Sq, Skv, D,
+                                                   causal, dtype):
+    """Grads through the port's attention (the autograd Function over the
+    plain versions) against ``jax.grad`` through the JAX model's attention
+    with the XLA backend, at the JAX package's grad tolerances."""
+    arrs = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=5)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in arrs)
+
+    def jloss(q, k, v):
+        o = j_attention(q, k, v, causal=causal)
+        return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    with jregistry.use("xla"):
+        want = jax.grad(jloss, (0, 1, 2))(jq, jk, jv)
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               .requires_grad_() for a in arrs[:3])
+    do = torch.from_numpy(arrs[3]).to(q.dtype)
+    registry.reset_dispatch_counts()
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    (o.float() * do.float()).sum().backward()
+    assert registry.dispatch_counts() == {
+        ("flash_attention", "torch"): 1, ("flash_dq", "torch"): 1,
+        ("flash_dkv", "torch"): 1}
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        assert t.grad.dtype == t.dtype, name
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   **GRAD_TOL[dtype], err_msg=name)
+
+
+def _autograd_attention(q, k, v, causal):
+    """Attention as plain differentiable float64 PyTorch, for autograd."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k) * D ** -0.5
+    s = s.masked_fill(~fa_ref._visible(Sq, Skv, causal, q.device),
+                      float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v).reshape(B, Sq, Hq, D)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal",
+                         BWD_CASES + [(1, 4, 2, 12, 5, 16, True)])
+def test_flash_attention_function_matches_torch_autograd(B, Hq, Hkv, Sq,
+                                                         Skv, D, causal):
+    """The autograd Function (torch backend: the plain lse forward, dq,
+    dk/dv) against torch autograd of plain attention on the same float32
+    inputs; the last case has rows that see no key (Sq > Skv, causal):
+    output 0 and finite, zero grads there. Float32 sums in another order:
+    the forward's tolerance, 2e-5."""
+    arrs = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=9)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
+    do = torch.from_numpy(arrs[3])
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    gq, gk, gv = torch.autograd.grad(got, (q, k, v), do)
+    q64, k64, v64 = (torch.from_numpy(a).double().requires_grad_()
+                     for a in arrs[:3])
+    want = _autograd_attention(q64, k64, v64, causal)
+    wq, wk, wv = torch.autograd.grad(want, (q64, k64, v64), do.double())
+    for g, w in ((got, want), (gq, wq), (gk, wk), (gv, wv)):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.detach().numpy(),
+                                   w.detach().float().numpy(), **ATTN_TOL)
+    if Sq > Skv and causal:
+        blind = Sq - Skv                 # rows that see no key
+        assert float(got.detach()[:, :blind].abs().max()) == 0.0
+        assert float(gq[:, :blind].abs().max()) == 0.0
+
+
+def test_flash_attention_without_grad_launches_the_plain_op():
+    """No grad (inference): the op as it is, no lse, no Function."""
+    q = torch.from_numpy(_xs((1, 6, 4, 16))).requires_grad_()
+    registry.reset_dispatch_counts()
+    with torch.no_grad():
+        o = fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    assert o.grad_fn is None
+    o = fa_ops.flash_attention(q.detach(), q.detach()[:, :, :2],
+                               q.detach()[:, :, :2])
+    assert o.grad_fn is None
+    assert registry.dispatch_counts() == {("flash_attention", "torch"): 2}
+
+
+# ------------------------------------------------------------ gram's VJP ---
+#: the JAX package's own grad tolerance for gram, float32
+#: (tests/test_kernels.py, _GRAD_TOL["gram"])
+GRAM_GRAD_TOL = dict(atol=1e-2, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(8, 129), (3, 18, 200)])
+def test_gram_vjp_matches_jax_grad_through_pallas(shape):
+    """dXs = (dG + dG^T) Xs of the port's gram Function (torch backend)
+    against ``jax.grad`` through the JAX registry's Pallas gram (interpret
+    mode on the CPU) and its custom VJP, for a loss that is not symmetric
+    in G."""
+    Xs = _xs(shape, seed=11)
+    W = _xs(shape[-2:-1] * 2, seed=12)
+
+    def jloss(X):
+        if X.ndim == 2:
+            return jnp.sum(jregistry.dispatch("gram", X) * W)
+        return sum(jnp.sum(jregistry.dispatch("gram", X[j]) * W)
+                   for j in range(X.shape[0]))
+
+    with jregistry.use("pallas"):
+        want = jax.grad(jloss)(jnp.asarray(Xs))
+    X = torch.from_numpy(Xs).requires_grad_()
+    registry.reset_dispatch_counts()
+    G = gram_ops.gram(X)
+    (G * torch.from_numpy(W)).sum().backward()
+    assert registry.dispatch_counts() == {("gram", "torch"): 1}
+    assert X.grad.dtype == torch.float32
+    np.testing.assert_allclose(X.grad.numpy(), np.asarray(want),
+                               **GRAM_GRAD_TOL)

@@ -19,8 +19,9 @@ def clean_policy(monkeypatch):
 
 
 def test_ops_table():
-    assert registry.ops() == ["flash_attention", "gram", "paged_attention",
-                              "prox_loop", "prox_step"]
+    assert registry.ops() == ["flash_attention", "flash_dkv", "flash_dq",
+                              "gram", "paged_attention", "prox_loop",
+                              "prox_step"]
 
 
 def test_policy_precedence(monkeypatch):

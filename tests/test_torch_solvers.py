@@ -248,7 +248,8 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     assert 0.0 <= run.rel_err < 1.0
     # the CPU run takes the plain versions: no kernel is launched
     assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0,
-                            "flash_attention": 0, "paged_decode": 0}
+                            "flash_attention": 0, "paged_decode": 0,
+                            "flash_dq": 0, "flash_dkv": 0}
 
 
 def test_lasso_solve_tol_stops_early():
@@ -258,7 +259,7 @@ def test_lasso_solve_tol_stops_early():
     assert run.iters < 256 and run.rel_err <= 0.5
 
 
-def test_port_imports_no_jax_and_nothing_of_repro():
+def test_port_imports_no_jax_and_nothing_of_repro(tmp_path):
     code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -266,12 +267,17 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 from repro_torch.launch import lasso_solve
 import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
+import repro_torch.launch.train
 run = lasso_solve.main(["--device", "cpu", "--scale", "0.01", "--T", "16",
                         "--k", "4", "--algorithm", "ca_spnm"])
 out = repro_torch.launch.serve.main(["--device", "cpu", "--preset", "tiny",
                                      "--page-size", "5", "--requests", "2",
                                      "--new-tokens", "3"])
 assert len(out) == 2
+trained = repro_torch.launch.train.main(["--device", "cpu", "--preset",
+                                         "tiny", "--steps", "2",
+                                         "--ckpt-dir", sys.argv[1]])
+assert len(trained.metrics_log) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -279,7 +285,7 @@ assert not bad, bad
 print("ISOLATED", run.rel_err)
 """
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "ISOLATED" in out.stdout

@@ -4,9 +4,11 @@ Hopper card: the quickest proof that the port builds and runs on the GPU.
 
   python3 chip_smoke.py
 
-It drives three paths of the port: the paper's Lasso solvers (phases 4-6),
-serving internlm2-1.8b at full width through the paged engine (phases 7-9)
-and training it at full width through the CA train step (phases 10-11).
+It drives four paths of the port: the paper's Lasso solvers (phases 4-6),
+serving internlm2-1.8b at full width through the paged engine (phases 7-9),
+training it at full width through the CA train step (phases 10-11), and
+mamba2-780m's forward and training at full width through the SSD kernels
+(phases 12-14).
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -102,8 +104,40 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``repro_torch.launch.train --preset tiny --steps 12 --ckpt-every 4
    --fail-at 6``: one restart, and the final loss bit-equal to a run with
    no failure;
-12. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+12. SSD kernel phase: ``ssd`` (y, the final state and the per-chunk
+   states) and ``ssd_bwd`` (dxdt, da, dB and dC per head) at the training
+   shape (Bt=8, S=1024, H=48, P=64, N=128, chunk 64, bf16 x), the forward's
+   (Bt=2, S=512), ragged (S=1000), shorter than a chunk (S=37), chunk 32
+   and float32 x, two of them with mamba2's decay (A = -(1..16)), where exp
+   overflows above the diagonal. Each against its plain version (which
+   sums in float64), normwise: float32 outputs 1e-5, y in bf16 8e-3, da
+   1e-4 (its reverse cumsum subtracts large terms); two launches of each
+   bit-equal; kernel and plain version timed with CUDA events beside their
+   bounds, which count the L x L products over the pairs t >= s only (no
+   PyTorch call computes the scan, so no library yardstick);
+13. mamba2 model phase: first the JAX package's own check
+   (tests/test_models.py) at the smoke config: ``forward`` (ssd) against
+   the same 64 tokens one at a time through ``decode_step`` (the plain
+   recurrence), atol = rtol = 0.05. Then full width, bf16 weights (A_log
+   and dt_bias float32): ``forward`` on (2, 512) numpy-seeded tokens
+   launches ssd 48 times, every call held to its plain version on its own
+   inputs (y 8e-3, the final state 1e-5), and the 512 positions through
+   ``decode_step``, the decode-vs-forward logits margin printed, not gated;
+14. mamba2 train phase, full width, as phase 11: float32 masters,
+   ``make_train_step(ca_k=4, remat=True)`` on ``TokenStream(32, 1024,
+   seed 0)``, a warm-up step and three timed ones with loss and grad norm
+   finite, ssd launched 3 * 48 * ca_k times a step (forward, remat
+   recompute and the backward's states sweep) and ssd_bwd 48 * ca_k; for
+   one microbatch every ssd and ssd_bwd call held to its plain version on
+   its own inputs (as in phase 12); ms/step, tokens/s, the FLOP share (the
+   SSD's own FLOPs in place of attention's), peak memory and one profiled
+   step; the JAX package's training checks at the mamba2 smoke config; and
+   the CLI, ``--arch mamba2-780m --preset tiny --steps 12 --ckpt-every 4
+   --fail-at 6``, one restart, final loss bit-equal to a clean run;
+15. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
+
+Each phase prints its wall time.
 
 With no card, or run from a directory that holds nothing else of the
 repository, it exits with an error before printing any result.
@@ -144,6 +178,14 @@ LSE_ATOL = 1e-4
 #: teacher-forced decode vs forward logits (tests/test_models.py)
 LOGIT_TOL = 0.05
 ARCH = "internlm2-1.8b"
+SSM_ARCH = "mamba2-780m"
+#: SSD kernels vs plain, normwise, by output dtype: the kernels' float32
+#: sums against the plain versions' float64 sums, rounded once; y in bf16
+#: is one rounding at the top of the range
+SSD_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+#: da against its plain version, normwise: its reverse cumsum subtracts
+#: large terms
+SSD_DA_RTOL = 1e-4
 T, K, B, Q = 256, 32, 0.1, 5
 VARIANTS = ("l1", "elastic_net", "box", "none")
 SCAL = (0.05, 0.02, 0.3, -0.1, 0.2)     # [t, lam, mu, lo, hi]
@@ -251,11 +293,14 @@ def _ptxas_report(log: str):
     import re
     out, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?_cu_\w{8}(\d+)(\w*)'",
-                      line)
+        # _ZN <len><anonymous namespace> <len><kernel> I<template args>EE...
+        m = re.search(r"Compiling entry function '_ZN(\d+)(\w*)'", line)
         if m:
-            n = int(m.group(1))
-            ident, rest = m.group(2)[:n], m.group(2)[n:]
+            sym = m.group(2)[int(m.group(1)):]
+            k = re.match(r"(\d+)", sym)
+            n = int(k.group(1)) if k else 0
+            ident, rest = sym[k.end():k.end() + n] if k else sym, \
+                sym[k.end() + n:] if k else ""
             args = re.match(r"I(.*?)EE", rest)
             name = ident
             if args:
@@ -455,38 +500,55 @@ def _lse_err_dev(got, want):
     return torch.where(mismatch, torch.full_like(err, math.inf), err)
 
 
+#: each held op's outputs, named; a call that returns fewer (the forward
+#: without its lse or its states) fills the first names
+HELD_OUTS = {"flash_attention": ("o", "lse"), "paged_attention": ("o_paged",),
+             "flash_dq": ("dq",), "flash_dkv": ("dk", "dv"),
+             "ssd": ("y", "h_final", "states"),
+             "ssd_bwd": ("dxdt", "da", "dB", "dC")}
+#: each named output's limit: normwise, the lse's absolute; attention and
+#: y in the bf16 stream, the SSD's float32 outputs at the float32 limit
+HELD_TOL = dict(o=ATTN_RTOL["bfloat16"], o_paged=ATTN_RTOL["bfloat16"],
+                dq=ATTN_RTOL["bfloat16"], dk=ATTN_RTOL["bfloat16"],
+                dv=ATTN_RTOL["bfloat16"], lse=LSE_ATOL,
+                y=SSD_RTOL["bfloat16"], h_final=SSD_RTOL["float32"],
+                states=SSD_RTOL["float32"], dxdt=SSD_RTOL["float32"],
+                da=SSD_DA_RTOL, dB=SSD_RTOL["float32"],
+                dC=SSD_RTOL["float32"])
+
+
 @contextlib.contextmanager
 def _held_to_plain(errs: dict):
-    """Hold every attention dispatch of the block (``flash_attention``,
-    with or without its lse, ``flash_dq``, ``flash_dkv``,
-    ``paged_attention``) against its plain version on the same inputs,
-    right after the kernel and before the next layer writes the pool:
-    ``errs[op]`` collects each call's normwise error, max |kernel - plain|
-    / max |plain| over every output but the lse, as a device scalar, and
-    ``errs["lse"]`` each lse's absolute error (``_lse_err_dev``). The plain
-    calls go straight to ``ref.py``, so the launch counts still see the
-    kernels only."""
+    """Hold every kernel dispatch of the block (the ops of ``HELD_OUTS``)
+    against its plain version on the same inputs, right after the kernel
+    and before the next layer writes the pool: ``errs[output]`` collects
+    each call's error on that output as a device scalar, max |kernel -
+    plain| / max |plain| (``_normwise_dev``), and for the lse its absolute
+    error (``_lse_err_dev``). The plain calls go straight to the ``ref.py``
+    modules, so the launch counts still see the kernels only."""
     import torch
     from repro_torch.kernels import registry
-    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention import ref as attn
+    from repro_torch.kernels.ssd import ref as ssd
 
-    plain = {"flash_attention": ref.flash_attention,
-             "paged_attention": ref.paged_decode,
-             "flash_dq": ref.flash_dq, "flash_dkv": ref.flash_dkv}
-    for name in (*plain, "lse"):
-        errs[name] = []
+    plain = {"flash_attention": attn.flash_attention,
+             "paged_attention": attn.paged_decode,
+             "flash_dq": attn.flash_dq, "flash_dkv": attn.flash_dkv,
+             "ssd": ssd.ssd_chunked, "ssd_bwd": ssd.ssd_bwd}
+    for names in HELD_OUTS.values():
+        for n in names:
+            errs[n] = []
     dispatch = registry.dispatch
 
     def held(name, *args, **kw):
         out = dispatch(name, *args, **kw)
         if name in plain:
             want = plain[name](*args, **kw)
-            pairs = list(zip(out, want)) if isinstance(out, tuple) else \
+            pairs = zip(out, want) if isinstance(out, tuple) else \
                 [(out, want)]
-            if name == "flash_attention" and kw.get("return_lse"):
-                errs["lse"].append(_lse_err_dev(*pairs.pop()))
-            errs[name].append(torch.stack(
-                [_normwise_dev(g, w) for g, w in pairs]).max())
+            for n, (g, w) in zip(HELD_OUTS[name], pairs):
+                errs[n].append((_lse_err_dev if n == "lse" else
+                                _normwise_dev)(g, w))
         return out
 
     registry.dispatch = held
@@ -496,6 +558,20 @@ def _held_to_plain(errs: dict):
         registry.dispatch = dispatch
     for name, e in errs.items():
         errs[name] = torch.stack(e) if e else torch.zeros(0)
+
+
+def _check_held(errs: dict, counts: dict, where: str) -> None:
+    """Print and gate ``_held_to_plain``'s errors: ``counts[output]`` calls
+    each, within ``HELD_TOL``."""
+    for name, want in counts.items():
+        e, tol = errs[name], HELD_TOL[name]
+        emax = float(e.max()) if e.numel() else math.nan
+        kind = "max abs" if name == "lse" else "normwise max"
+        print(f"  {where}: every {name} held to its plain version: "
+              f"{e.numel()} calls, {kind} {emax:.3e} (limit {tol})")
+        check(e.numel() == want and emax <= tol,
+              f"{where}: {name} vs plain on the main path {emax:.3e} (limit "
+              f"{tol}) over {e.numel()} calls, want {want}")
 
 
 def _allclose_margin(got, ref):
@@ -617,31 +693,17 @@ def model_phase(dev, cfg, params):
     print(f"  forward again: {(time.perf_counter() - t0) * 1e3:.2f} ms")
 
     # the kernels on the main path's own inputs, call by call
-    tol = ATTN_RTOL["bfloat16"]
     errs = {}
     with _held_to_plain(errs):
         held, _ = forward(params, cfg, {"tokens": toks})
-    fe = errs["flash_attention"]
-    fmax = float(fe.max()) if fe.numel() else math.nan
-    print(f"  forward, every flash_attention call held to its plain "
-          f"version: {fe.numel()} calls, normwise max {fmax:.3e} "
-          f"(limit {tol})")
-    check(fe.numel() == cfg.n_layers and fmax <= tol,
-          f"forward: flash_attention vs plain on the main path {fmax:.3e} "
-          f"(limit {tol}) over {fe.numel()} calls")
+    _check_held(errs, {"o": cfg.n_layers}, "forward, flash_attention")
     del held
     errs = {}
     with _held_to_plain(errs):
         dec, tf_s, launches = _teacher_forcing(dev, cfg, params, toks)
-    pe = errs["paged_attention"]
-    pmax = float(pe.max()) if pe.numel() else math.nan
-    print(f"  teacher-forced decode_step x{S} (paged, bf16, page 16), "
-          f"every paged_decode call held to its plain version: "
-          f"{pe.numel()} calls, normwise max {pmax:.3e} (limit {tol}); "
+    print(f"  teacher-forced decode_step x{S} (paged, bf16, page 16): "
           f"{tf_s:.3f}s with the plain calls; launches={launches}")
-    check(pe.numel() == S * cfg.n_layers and pmax <= tol,
-          f"decode: paged_decode vs plain on the main path {pmax:.3e} "
-          f"(limit {tol}) over {pe.numel()} calls")
+    _check_held(errs, {"o_paged": S * cfg.n_layers}, "decode, paged_decode")
     check(launches["paged_decode"] == S * cfg.n_layers,
           f"decode launched paged_decode {launches['paged_decode']} times")
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
@@ -940,21 +1002,263 @@ def backward_kernel_phase(dev):
     return entries, lse_times
 
 
-def _model_flops(cfg, n_params, B, S) -> float:
+#: phase 12's shapes (Bt, S, H, P, N, chunk, x dtype, decay): the train
+#: step's first; "model" is mamba2's A = -(1..16) with dt up to ~2, where
+#: exp overflows above the diagonal
+SSD_SHAPES = ((8, 1024, 48, 64, 128, 64, "bfloat16", "test"),
+              (2, 512, 48, 64, 128, 64, "bfloat16", "model"),  # the forward
+              (2, 1000, 48, 64, 128, 64, "bfloat16", "test"),  # ragged
+              (2, 37, 48, 64, 128, 64, "bfloat16", "test"),    # S < chunk
+              (2, 512, 48, 64, 128, 32, "bfloat16", "test"),   # chunk 32
+              (2, 512, 48, 64, 128, 64, "float32", "model"))
+
+
+def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay):
+    """x as a strided view of a wider projection (as the model hands it),
+    dt, A, B, C float32, and dy, dh_final for the backward, from numpy.
+    "test" draws as the JAX tests do (dt = softplus(normal) / 2, A =
+    -exp(normal / 2))."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    x = t(rng.standard_normal((Bt, S, H * P + 2 * N)), dtype)[
+        ..., :H * P].reshape(Bt, S, H, P)
+    dt = np.logaddexp(rng.standard_normal((Bt, S, H)), 0.0)
+    if decay == "model":
+        A = -np.linspace(1.0, 16.0, H)
+    else:
+        dt, A = dt * 0.5, -np.exp(rng.standard_normal(H) * 0.5)
+    B, C = (rng.standard_normal((Bt, S, N)) for _ in range(2))
+    dy = t(rng.standard_normal((Bt, S, H, P)), dtype)
+    dh = t(rng.standard_normal((Bt, H, P, N)))
+    return (x, t(dt), t(A), t(B), t(C)), dy, dh
+
+
+def _ssd_work(Bt, S, H, P, N, L, esz, states=False):
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of one
+    launch: each input read once, each output written once. Per chunk of
+    l rows and head-row, the L x L-shaped products are counted over the
+    l (l + 1) / 2 pairs t >= s that the causal decay leaves (the rest is
+    masked to zero): the forward's C B^T and its product with xdt, the
+    backward's C B^T, dy xdt^T, (decay C B)^T dy, DD B and DD^T C; the
+    state products run over all l rows: the forward's C h^T and the state
+    update (4 l P N), the backward's B dh^T, C h_in^T, dy h_in, (w xdt) dh
+    and (e dy)^T C (10 l P N). Elementwise work is not counted."""
+    nc = -(-S // L)
+    lens = [L] * (S // L) + ([S % L] if S % L else [])
+    rows, state = Bt * S * H, Bt * H * P * N
+    fwd_flops = Bt * H * sum(l * (l + 1.0) * (N + P) + 4.0 * l * P * N
+                             for l in lens)
+    bwd_flops = Bt * H * sum(l * (l + 1.0) * (3 * N + 2 * P)
+                             + 10.0 * l * P * N for l in lens)
+    common = rows * P * esz + rows * 4 + H * 4 + 2 * Bt * S * N * 4
+    fwd_bytes = common + rows * P * esz + state * 4 + (
+        nc * state * 4 if states else 0)
+    bwd_bytes = (common + rows * P * esz + nc * state * 4 + state * 4
+                 + rows * P * 4 + rows * 4 + 2 * rows * N * 4)
+    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+
+
+def ssd_kernel_phase(dev):
+    """Phase 12: ssd and ssd_bwd against their plain versions, bit-equal
+    across launches, timed beside their bounds. Returns their JSON entries
+    at the training shape."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    entries = {}
+    f32 = SSD_RTOL["float32"]
+    print("SSD kernel phase: ssd, ssd_bwd")
+    for i, (Bt, S, H, P, N, L, tname, decay) in enumerate(SSD_SHAPES):
+        dtype = getattr(torch, tname)
+        args, dy, dh = _ssd_inputs(dev, Bt, S, H, P, N, dtype, i, decay)
+        shape = (Bt, S, H, P, N, f"chunk {L}", tname, decay)
+        y, h, st = ssd_ops.ssd_cuda(*args, chunk=L, return_states=True)
+        wy, wh, ws = ssd_ref.ssd_chunked(*args, chunk=L, return_states=True)
+        errs = [_normwise("ssd: y", shape, y, wy, SSD_RTOL[tname]),
+                _normwise("ssd: h_final", shape, h, wh, f32)]
+        if S > L:
+            errs.append(_normwise("ssd: states", shape, st, ws, f32))
+        del wy, wh, ws
+        got = ssd_ops.ssd_bwd_cuda(*args, dy, st, dh, chunk=L)
+        want = ssd_ref.ssd_bwd(*args, dy, st, dh, chunk=L)
+        berrs = [_normwise(f"ssd_bwd: {n}", shape, g, w,
+                           SSD_DA_RTOL if n == "da" else f32)
+                 for n, g, w in zip(("dxdt", "da", "dB", "dC"), got, want)]
+        del want
+        same = (all(torch.equal(a, b) for a, b in zip(
+            (y, h, st), ssd_ops.ssd_cuda(*args, chunk=L, return_states=True)))
+            and all(torch.equal(a, b) for a, b in zip(
+                got, ssd_ops.ssd_bwd_cuda(*args, dy, st, dh, chunk=L))))
+        print(f"  two launches of each SSD kernel bit-equal: {same}")
+        check(same, f"ssd{shape}: two launches differ")
+        if i > 0:
+            del args, dy, dh, y, h, st, got
+            continue
+
+        # times at the training shape: the forward as the model runs it,
+        # with the states (the backward's sweep), and the reverse scan
+        t = dict(
+            fwd=_event_ms(lambda: ssd_ops.ssd_cuda(*args, chunk=L), 10),
+            states=_event_ms(lambda: ssd_ops.ssd_cuda(
+                *args, chunk=L, return_states=True), 10),
+            bwd=_event_ms(lambda: ssd_ops.ssd_bwd_cuda(
+                *args, dy, st, dh, chunk=L), 5),
+            fwd_plain=_event_ms(lambda: ssd_ref.ssd_chunked(
+                *args, chunk=L), 3),
+            bwd_plain=_event_ms(lambda: ssd_ref.ssd_bwd(
+                *args, dy, st, dh, chunk=L), 2))
+        fb, ff, bb, bf = _ssd_work(Bt, S, H, P, N, L, y.element_size())
+        fbs, _, _, _ = _ssd_work(Bt, S, H, P, N, L, y.element_size(), True)
+        b_fwd, b_sts, b_bwd = (bound_ms(fb, ff), bound_ms(fbs, ff),
+                               bound_ms(bb, bf))
+        tf32 = 495e12
+        for name, (bms, by), ms, plain, flops, nbytes in (
+                ("ssd", b_fwd, t["fwd"], t["fwd_plain"], ff, fb),
+                ("ssd+states", b_sts, t["states"], t["fwd_plain"], ff, fbs),
+                ("ssd_bwd", b_bwd, t["bwd"], t["bwd_plain"], bf, bb)):
+            print(f"  time {name:10s} {str(shape):44s} kernel={ms:.4f}ms "
+                  f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}, float32 "
+                  f"CUDA cores; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+                  f"MB) TF32-tensor-core bound="
+                  f"{max(nbytes / HBM_BYTES_PER_S, flops / tf32) * 1e3:.5f}"
+                  f"ms, {100 * bms / ms:.1f}% of the float32 bound")
+        for name, (bms, by), ms, plain, err in (
+                ("ssd", b_fwd, t["fwd"], t["fwd_plain"], max(errs)),
+                ("ssd_bwd", b_bwd, t["bwd"], t["bwd_plain"], max(berrs))):
+            entries[name] = dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/ssd.cu",
+                replaces=("src/repro/kernels/ssd/kernel.py:120"
+                          if name == "ssd" else
+                          "src/repro/kernels/ssd/backward.py:123"),
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=None)
+        del args, dy, dh, y, h, st, got
+    return entries
+
+
+def _ssm_teacher_forcing(dev, cfg, params, toks):
+    """decode_step one token at a time through the recurrent cache: returns
+    (logits (B, S, V), seconds, launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step, init_cache
+
+    Bm, S = toks.shape
+    cache = init_cache(cfg, Bm, S, device=dev)
+    out = torch.empty(Bm, S, cfg.vocab, dtype=torch.bfloat16, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg, cache = decode_step(params, cfg, cache, toks[:, t:t + 1])
+        out[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def mamba2_model_phase(dev, cfg, params):
+    """Phase 13: the JAX package's teacher-forcing check at the smoke config
+    (gated), then full width: the forward through ssd, every call held to
+    its plain version, and the 512 positions through decode_step (the
+    margin printed). Returns ssd's launches in the forward."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import forward, init_params
+
+    small = smoke_config(cfg)
+    sp = init_params(small, torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.bfloat16, device=dev)
+    stoks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, small.vocab, size=(2, 64)).astype(np.int32)).to(dev)
+    kernels.reset_launch_counts()
+    sref, _ = forward(sp, small, {"tokens": stoks})
+    check(kernels.launch_counts()["ssd"] == small.n_layers,
+          "smoke config: ssd launches")
+    sdec, _, launches = _ssm_teacher_forcing(dev, small, sp, stoks)
+    worst, excess = _allclose_margin(sdec, sref)
+    print(f"mamba2 model phase: smoke config ({small.n_layers} layers, "
+          f"d_model {small.d_model}), 64 positions: max |decode - forward| "
+          f"= {worst:.4e}, allclose atol=rtol={LOGIT_TOL} worst margin "
+          f"{excess:+.4e}")
+    check(excess <= 0.0, f"smoke config: decode logits exceed atol=rtol="
+          f"{LOGIT_TOL} of forward's (max |d| {worst:.4e})")
+    check(launches["ssd"] == 0, "decode launched ssd")
+    del sp, sref, sdec
+
+    Bm, S = 2, 512
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(Bm, S)).astype(np.int32)).to(dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"mamba2 model phase: {cfg.name} forward (B={Bm}, S={S}) "
+          f"{fwd_s:.3f}s (first call) logits {tuple(logits.shape)} "
+          f"{logits.dtype} launches={launches}")
+    check(tuple(logits.shape) == (Bm, S, cfg.vocab), "forward logits shape")
+    check(bool(torch.isfinite(logits).all()), "forward logits not finite")
+    check(launches["ssd"] == cfg.n_layers, f"forward launched ssd "
+          f"{launches['ssd']} times, want {cfg.n_layers}")
+    ssd_launches = launches["ssd"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    print(f"  forward again: {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    errs = {}
+    with _held_to_plain(errs):
+        forward(params, cfg, {"tokens": toks})
+    _check_held(errs, {"y": cfg.n_layers, "h_final": cfg.n_layers},
+                "forward, ssd")
+    dec, tf_s, launches = _ssm_teacher_forcing(dev, cfg, params, toks)
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    worst, excess = _allclose_margin(dec, logits)
+    w0, e0 = _allclose_margin(dec[:, 0], logits[:, 0])
+    print(f"  decode_step x{S} (recurrent cache) {tf_s:.3f}s, launches="
+          f"{launches}; decode vs forward over all {S} positions: max |d| "
+          f"{worst:.4e}, allclose atol=rtol={LOGIT_TOL} margin {excess:+.4e} "
+          f"({'met' if excess <= 0 else 'not met'}; printed, not gated); "
+          f"position 0 {w0:.4e}, {e0:+.4e}")
+    return ssd_launches
+
+
+def _model_flops(cfg, n_params, B, S, chunk=64) -> float:
     """A training step's model FLOPs (no recompute): 6 per non-embedding
     parameter per token, plus attention's visible (query, key) pairs, 2 D
-    FLOP per product, 2 products forward and 4 backward."""
+    FLOP per product, 2 products forward and 4 backward; for the ssm family
+    the SSD's instead: per token and head (L + 1) (N + P) for the
+    intra-chunk products over their visible pairs (L (L + 1) / 2 a chunk,
+    as ``_ssd_work`` counts them) and 4 P N for the state's carry in and
+    out, times 3 for forward and backward."""
     n = n_params - cfg.vocab * cfg.d_model
+    if cfg.family == "ssm":
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        H = cfg.ssm_expand * cfg.d_model // P
+        per = (chunk + 1.0) * (N + P) + 4.0 * P * N
+        return 6.0 * n * B * S + 3.0 * cfg.n_layers * B * S * H * per
     pairs = S * (S + 1) // 2
     return (6.0 * n * B * S
             + 12.0 * cfg.n_layers * B * cfg.n_heads * pairs * cfg.head_dim)
 
 
 def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
-    """Phase 11: the CA train step at full width (``make_train_step(ca_k)``
-    on ``TokenStream(B, S)``: a warm-up step, ``steps`` timed ones), the
-    JAX package's own training checks at the smoke config, and the CLI
-    with a failure. Returns the kernel launches of the timed steps."""
+    """Phases 11 and 14: the CA train step at full width
+    (``make_train_step(ca_k)`` on ``TokenStream(B, S)``: a warm-up step,
+    ``steps`` timed ones), its kernels held to their plain versions over
+    one microbatch (attention for the dense family, the SSD scans for the
+    ssm family), the JAX package's own training checks at the smoke config,
+    and the CLI with a failure. Returns the kernel launches of the timed
+    steps."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1000,13 +1304,25 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
                 lg["grad_norm"]), f"train step {i + 1}: loss or grad norm "
                 f"not finite: {lg}")
         want = cfg.n_layers * ca_k * steps
-        print(f"  launches over {steps} steps: {launches} (want flash_dq = "
-              f"flash_dkv = {want}, flash_attention = {2 * want})")
-        check(launches["flash_dq"] == want and launches["flash_dkv"] == want,
-              f"backward kernels launched {launches}, want {want} each")
-        check(launches["flash_attention"] == 2 * want,
-              f"lse forward launched {launches['flash_attention']}, want "
-              f"{2 * want} (forward and recompute)")
+        if cfg.family == "ssm":
+            print(f"  launches over {steps} steps: {launches} (want ssd = "
+                  f"{3 * want}: forward, recompute and states sweep; "
+                  f"ssd_bwd = {want})")
+            check(launches["ssd"] == 3 * want and
+                  launches["ssd_bwd"] == want,
+                  f"SSD kernels launched {launches}, want {3 * want} and "
+                  f"{want}")
+            check(launches["flash_attention"] == 0, "attention launched")
+        else:
+            print(f"  launches over {steps} steps: {launches} (want "
+                  f"flash_dq = flash_dkv = {want}, flash_attention = "
+                  f"{2 * want})")
+            check(launches["flash_dq"] == want and
+                  launches["flash_dkv"] == want,
+                  f"backward kernels launched {launches}, want {want} each")
+            check(launches["flash_attention"] == 2 * want,
+                  f"lse forward launched {launches['flash_attention']}, "
+                  f"want {2 * want} (forward and recompute)")
         ms = sorted(walls)[1] * 1e3
         flops = _model_flops(cfg, param_count(state.params), B, S)
         print(f"  median {ms:.1f} ms/step, {B * S / ms * 1e3:.0f} tokens/s, "
@@ -1015,34 +1331,19 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
               f"989 TFLOP/s; peak memory {peak / 2 ** 30:.2f} GiB "
               f"(max_memory_allocated)")
 
-        # every attention call of one microbatch against its plain version
+        # every kernel call of one microbatch against its plain version
         mb = {k: v[:B // ca_k] for k, v in batch.items()}
         params = tree_map(lambda t: t.detach().to(torch.bfloat16)
                           .requires_grad_(), state.params)
         p_comp = leaves(params)
-        errs = {}
+        errs, n = {}, cfg.n_layers
         with _held_to_plain(errs):
             loss = loss_fn(params, cfg, mb, remat=True)
             torch.autograd.grad(loss, p_comp)
-        tol = ATTN_RTOL["bfloat16"]
-        for name in ("flash_attention", "flash_dq", "flash_dkv"):
-            e = errs[name]
-            emax = float(e.max()) if e.numel() else math.nan
-            n = cfg.n_layers * (2 if name == "flash_attention" else 1)
-            print(f"  one microbatch, every {name} call held to its plain "
-                  f"version: {e.numel()} calls, normwise max {emax:.3e} "
-                  f"(limit {tol})")
-            check(e.numel() == n and emax <= tol,
-                  f"train: {name} vs plain on the main path {emax:.3e} "
-                  f"(limit {tol}) over {e.numel()} calls, want {n}")
-        e, n = errs["lse"], 2 * cfg.n_layers
-        emax = float(e.max()) if e.numel() else math.nan
-        print(f"  one microbatch, every lse of the flash_attention calls "
-              f"held to its plain version: {e.numel()} calls, max abs "
-              f"{emax:.3e} (limit {LSE_ATOL})")
-        check(e.numel() == n and emax <= LSE_ATOL,
-              f"train: lse vs plain on the main path {emax:.3e} (limit "
-              f"{LSE_ATOL}) over {e.numel()} calls, want {n}")
+        _check_held(errs, dict(
+            y=3 * n, h_final=3 * n, states=n, dxdt=n, da=n, dB=n, dC=n)
+            if cfg.family == "ssm" else
+            dict(o=2 * n, lse=2 * n, dq=n, dk=n, dv=n), "one microbatch")
         del p_comp, params, errs, loss
 
         # where the time goes: one profiled step
@@ -1453,7 +1754,34 @@ def main() -> int:
     entries["flash_attention"]["launches"] += launches["flash_attention"]
     for name in ("flash_dq", "flash_dkv"):
         entries[name]["launches"] = launches[name]
-    for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv"):
+    torch.cuda.empty_cache()
+
+    # 12-14. mamba2-780m at full width: the SSD kernels, the forward and
+    # decode, training
+    t_phase = time.perf_counter()
+    entries.update(ssd_kernel_phase(dev))
+    print(f"SSD kernel phase: {time.perf_counter() - t_phase:.1f}s")
+    mcfg = get_arch(SSM_ARCH)
+    t_phase = time.perf_counter()
+    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.bfloat16, device=dev)
+    print(f"{mcfg.name}: {param_count(mparams)} parameters (bf16, A_log and "
+          f"dt_bias float32), {mcfg.n_layers} layers, d_model "
+          f"{mcfg.d_model}, {mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim}"
+          f" SSD heads of P={mcfg.ssm_head_dim}, N={mcfg.ssm_state}")
+    entries["ssd"]["launches"] = mamba2_model_phase(dev, mcfg, mparams)
+    print(f"mamba2 model phase: {time.perf_counter() - t_phase:.1f}s")
+    del mparams
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mlaunches = train_phase(dev, mcfg)
+    print(f"mamba2 train phase: {time.perf_counter() - t_phase:.1f}s")
+    print(f"ssd launches: {entries['ssd']['launches']} in the forward, "
+          f"{mlaunches['ssd']} in the train phase's timed steps")
+    entries["ssd"]["launches"] += mlaunches["ssd"]
+    entries["ssd_bwd"]["launches"] = mlaunches["ssd_bwd"]
+    for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv",
+                 "ssd", "ssd_bwd"):
         check(entries[name]["launches"] > 0,
               f"{name} was not launched on the main path")
     print(f"total: {time.perf_counter() - T_START:.1f}s")

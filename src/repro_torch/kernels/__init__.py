@@ -7,6 +7,7 @@
   flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
                     ``flash_dq``, ``flash_dkv``,
                     ``paged_attention`` (kernel ``paged_decode``)
+  ssd/              ``ssd``, ``ssd_bwd``          csrc/ssd.cu
 
   registry.py  the op table, backend policy and dispatch counts
   _build.py    nvcc at first use into ``build/repro_torch/``, ctypes binding
@@ -24,12 +25,14 @@ def _cuda_wrappers():
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     return {"gram": gram_ops.gram_cuda, "prox_step": prox_ops.prox_step_cuda,
             "prox_loop": prox_ops.prox_loop_cuda,
             "flash_attention": fa_ops.flash_attention_cuda,
             "paged_decode": fa_ops.paged_decode_cuda,
             "flash_dq": fa_ops.flash_dq_cuda,
-            "flash_dkv": fa_ops.flash_dkv_cuda}
+            "flash_dkv": fa_ops.flash_dkv_cuda, "ssd": ssd_ops.ssd_cuda,
+            "ssd_bwd": ssd_ops.ssd_bwd_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

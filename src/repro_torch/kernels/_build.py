@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
-SOURCES = ("gram", "prox_step", "flash_attention")
+SOURCES = ("gram", "prox_step", "flash_attention", "ssd")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,7 +10,11 @@ runs. Each op registers two implementations:
   each kv head's GQA group (``models.attention`` reaches all three through
   the autograd Function of ``kernels.flash_attention.ops``);
 * ``paged_attention`` — single-query decode attention through a page table
-  (its CUDA kernel is ``paged_decode``).
+  (its CUDA kernel is ``paged_decode``);
+* ``ssd`` — the Mamba-2 chunked SSD scan, (Bt, S, H, P), with the
+  per-chunk incoming states on request (``return_states=True``), and
+  ``ssd_bwd``, its reverse scan (``models.ssm`` reaches both through the
+  autograd Function of ``kernels.ssd.ops``).
 
 The two implementations of each:
 
@@ -55,6 +59,7 @@ _IMPL_MODULES = (
     "repro_torch.kernels.prox_step.ops",  # registers "prox_step", "prox_loop"
     # registers "flash_attention", "flash_dq", "flash_dkv", "paged_attention"
     "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.ssd.ops",        # registers "ssd", "ssd_bwd"
 )
 
 

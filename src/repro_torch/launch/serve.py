@@ -32,7 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import init_cache, init_params
-from repro_torch.models.transformer import require_dense
+from repro_torch.serve.cache import require_servable
 from repro_torch.serve import Engine, Request
 
 
@@ -166,7 +166,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
-    require_dense(arch)
+    require_servable(arch)
     cfg = smoke_config(arch) if args.preset == "tiny" else arch
     if args.engine == "on":
         return serve_engine(cfg, args, device)

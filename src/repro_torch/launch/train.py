@@ -9,10 +9,10 @@ of ``repro.launch.train``, without its mesh).
 The run resumes from the newest checkpoint in ``--ckpt-dir`` (default
 ``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty directory.
 
-Flags as in JAX: ``--arch`` (dense archs), ``--preset`` (tiny: the smoke
-config at batch 8, seq 64; 100m: 6 layers of width 1024 at batch
-max(ca_k, 8), seq 512; full: the published widths at batch 8 * ca_k, seq
-1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
+Flags as in JAX: ``--arch`` (the dense archs and mamba2-780m),
+``--preset`` (tiny: the smoke config at batch 8, seq 64; 100m: 6 layers of
+width 1024 at batch max(ca_k, 8), seq 512; full: the published widths at
+batch 8 * ca_k, seq 1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
 ``--fail-at``, ``--log-every``, plus ``--device`` (default ``cuda``,
 raising on a host with no card). Weights are float32 masters from a seeded
 ``torch.Generator``. Autotune and the obs flags come with their ROADMAP
@@ -32,7 +32,7 @@ from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import TokenStream
 from repro_torch.dist import FailureSource, TrainingRunner
 from repro_torch.launch.steps import init_train_state, make_train_step
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.transformer import require_supported
 
 
 def build(args):
@@ -74,7 +74,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg, batch, seq = build(args)
-    require_dense(cfg)
+    require_supported(cfg)
 
     step = make_train_step(cfg, ca_k=args.ca_k, peak_lr=args.lr, warmup=10,
                            total_steps=args.steps, remat=True)

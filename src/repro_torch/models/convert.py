@@ -5,21 +5,28 @@ port's layout.
 are stacked along a leading ``n_layers`` axis (``_stack_init``, for
 ``lax.scan``). :func:`params_from_numpy` takes that tree with every leaf a
 numpy array (``jax.tree.map(np.asarray, params)``) and returns the port's
-dict with ``layers`` a list of per-layer dicts.
+dict with ``layers`` a list of per-layer dicts, nested dicts (a dense
+layer's ``attn`` and ``mlp``, an ssm layer's ``mamba``) carried as they
+are.
 
-The weights may be held in bf16 (the default) without changing a number:
-every use of a weight in the JAX model casts the float32 master to the bf16
-stream first (``blocks.py`` projections, ``mlp.py``, the embedding take and
-the logits head in ``transformer.py``, the norm gains in ``layers.py``), so
-bf16 weights here give the products JAX computes. A training state keeps
-float32 masters (:func:`train_state_from_numpy`).
+The weights may be held in bf16 (the default) without changing a number
+where the JAX model casts the float32 master to the bf16 stream before
+every use: the dense family's projections, the embedding take, the logits
+head and the norm gains, and mamba2's projections, convolution, D and norm.
+mamba2 reads ``A_log`` and ``dt_bias`` in float32 (``repro/models/
+ssm.py:78-80``), where a bf16 copy would round the decay of every step, so
+those leaves (``models.ssm.FLOAT32_LEAVES``) stay float32 whatever
+``dtype``. A training state keeps float32 masters
+(:func:`train_state_from_numpy`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.ssm import FLOAT32_LEAVES
+from repro_torch.models.transformer import require_supported
+from repro_torch.tree import leaves
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -29,28 +36,25 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 def params_from_numpy(cfg, tree: dict, *, device=None,
                       dtype=torch.bfloat16) -> dict:
-    """The JAX dense parameter tree (numpy leaves, layers stacked) -> the
-    port's parameter dict on ``device`` in ``dtype``."""
-    require_dense(cfg)
+    """The JAX parameter tree of a family the port runs (numpy leaves,
+    layers stacked) -> the port's parameter dict on ``device`` in
+    ``dtype`` (``FLOAT32_LEAVES`` in float32)."""
+    require_supported(cfg)
 
-    def conv(sub):
+    def conv(sub, pick=lambda a: a, name=None):
         if isinstance(sub, dict):
-            return {k: conv(v) for k, v in sub.items()}
-        return _tensor(sub, dtype, device)
+            return {k: conv(v, pick, k) for k, v in sub.items()}
+        keep = torch.float32 if name in FLOAT32_LEAVES else dtype
+        return _tensor(pick(np.asarray(sub)), keep, device)
 
     stacked = tree["layers"]
-    n = np.asarray(stacked["ln1"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, {cfg.name} has "
+    n = {np.asarray(a).shape[0] for a in leaves(stacked)}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"tree has {sorted(n)} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
-
-    def layer(i, sub):
-        if isinstance(sub, dict):
-            return {k: layer(i, v) for k, v in sub.items()}
-        return _tensor(np.asarray(sub)[i], dtype, device)
-
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [layer(i, stacked) for i in range(n)]
+    out["layers"] = [conv(stacked, lambda a, i=i: a[i])
+                     for i in range(cfg.n_layers)]
     return out
 
 

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import init_cache
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.transformer import require_supported
 
 _NO_BATCH = -1
 
@@ -38,6 +38,19 @@ class SlotError(RuntimeError):
     """Invalid slot transition (double allocate/free)."""
 
 
+def require_servable(cfg) -> None:
+    """Raise for a family the engine's pools do not hold yet: they hold
+    attention K/V (the dense family); the ssm family's recurrent leaves
+    come with the rest of serving."""
+    require_supported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: serving family {cfg.family!r} through the engine "
+            f"is not ported yet; it comes with ROADMAP queue 1 item 8 (a "
+            f"slot pool with the recurrent conv and ssm leaves, zeroed at "
+            f"admission)")
+
+
 class CachePool:
     """Bookkeeping + slot ops for a ``num_slots``-row decode cache on
     ``device`` (``cuda`` unless the caller names another; raises without a
@@ -45,7 +58,7 @@ class CachePool:
 
     def __init__(self, cfg, num_slots: int, max_len: int, *,
                  device=None):
-        require_dense(cfg)
+        require_servable(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cfg = cfg

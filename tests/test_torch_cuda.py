@@ -1,9 +1,10 @@
 """The port's CUDA kernels, solvers, serving and training paths on an NVIDIA
 Hopper card: each kernel against its plain PyTorch version, one draw's Gram
-bits independent of the batch, the attention backward's bits independent of
-the launch and the batch, CA == classical through the kernels, and at the
-smoke config the engine's k-invariance, teacher-forced decode against the
-forward and the train step through the backward kernels. Every test here
+bits independent of the batch, the attention backward's and the SSD
+scans' bits independent of the launch and the batch, CA == classical
+through the kernels, and at the smoke configs the engine's k-invariance,
+teacher-forced decode against the forward and the train step through the
+backward kernels (internlm2) and through the SSD kernels (mamba2). Every test here
 needs the card and skips without one.
 
 This file imports neither JAX nor ``repro``, so it also runs where only the
@@ -24,8 +25,9 @@ from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
 from repro_torch.kernels.prox_step.ops import prox_scalars
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.launch.steps import init_train_state, make_train_step
-from repro_torch.models import decode_step, forward, init_params
+from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.serve import Engine, PagedCachePool, Request
 
 pytestmark = pytest.mark.cuda
@@ -475,6 +477,191 @@ def test_train_step_through_the_backward_kernels(cuda):
         n = CFG.n_layers * 2 if backend == "cuda" else 0
         assert launches["flash_dq"] == launches["flash_dkv"] == n
         assert launches["flash_attention"] == 2 * n
+        metrics[backend] = {k: float(v) for k, v in m.items()}
+    assert np.isfinite(metrics["cuda"]["loss"])
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(metrics["cuda"][name],
+                                   metrics["torch"][name], rtol=5e-3)
+
+
+# ------------------------------------------------------------------- ssd --
+#: SSD kernels vs plain, normwise: float32 outputs 1e-5 (the kernels'
+#: float32 sums against the plain versions' float64 sums), y in bf16 8e-3
+#: (one rounding at the top of the range), da 1e-4 (its reverse cumsum
+#: subtracts large terms)
+SSD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+SSD_DA_RTOL = 1e-4
+
+
+def _ssd_case(device, Bt, S, H, P, N, dtype, seed=0, decay="test"):
+    """x as a strided view of a wider projection (as the model hands it),
+    dt, A, B, C float32, dy and dh for the backward. ``decay="model"``
+    takes mamba2's A = -(1..16) with dt up to ~2, so that exp overflows
+    above the diagonal."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.standard_normal(
+        (Bt, S, H * P + 2 * N)).astype(np.float32)).to(device, dtype)
+    x = wide[..., :H * P].reshape(Bt, S, H, P)
+    dt = np.logaddexp(rng.standard_normal((Bt, S, H)), 0.0)
+    if decay == "model":
+        A = -np.linspace(1.0, 16.0, H)
+    else:
+        dt, A = dt * 0.5, -np.exp(rng.standard_normal(H) * 0.5)
+    f32 = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+           for a in (dt, A, rng.standard_normal((Bt, S, N)),
+                     rng.standard_normal((Bt, S, N)),
+                     rng.standard_normal((Bt, H, P, N)))]
+    dy = _normal((Bt, S, H, P), seed + 1, device, dtype)
+    dt, A, B, C, dh = f32
+    return (x, dt, A, B, C), dy, dh
+
+
+SSD_CASES = [  # (Bt, S, H, P, N, chunk, dtype, decay)
+    (8, 1024, 48, 64, 128, 64, torch.bfloat16, "test"),    # the train step
+    (2, 512, 48, 64, 128, 64, torch.bfloat16, "model"),    # the forward
+    (2, 1000, 48, 64, 128, 64, torch.bfloat16, "test"),    # ragged
+    (2, 37, 48, 64, 128, 64, torch.bfloat16, "test"),      # S < chunk
+    (2, 512, 48, 64, 128, 32, torch.bfloat16, "test"),     # chunk 32
+    (2, 512, 48, 64, 128, 64, torch.float32, "model"),
+    (2, 70, 8, 16, 16, 64, torch.float32, "test"),         # smoke config
+    (2, 70, 8, 16, 16, 32, torch.bfloat16, "model")]
+SSD_IDS = ["train", "forward", "ragged", "short", "chunk32", "f32", "smoke",
+           "smoke32"]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk,dtype,decay", SSD_CASES,
+                         ids=SSD_IDS)
+def test_ssd_cuda_kernels_match_plain(cuda, Bt, S, H, P, N, chunk, dtype,
+                                      decay):
+    """ssd (y, h_final, the per-chunk states) and ssd_bwd (dxdt, da, dB,
+    dC per head) against their plain versions on the same operands; two
+    launches of each give the same bits."""
+    args, dy, dh = _ssd_case(cuda, Bt, S, H, P, N, dtype, decay=decay)
+    y, h, states = ssd_ops.ssd_cuda(*args, chunk=chunk, return_states=True)
+    wy, wh, ws = ssd_ref.ssd_chunked(*args, chunk=chunk, return_states=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert _normwise(y.float(), wy.float()) <= SSD_RTOL[dtype]
+    assert _normwise(h, wh) <= SSD_RTOL[torch.float32]
+    if S > chunk:
+        assert _normwise(states, ws) <= SSD_RTOL[torch.float32]
+    got = ssd_ops.ssd_bwd_cuda(*args, dy, states, dh, chunk=chunk)
+    want = ssd_ref.ssd_bwd(*args, dy, states, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dxdt", "da", "dB", "dC"), got, want):
+        assert torch.isfinite(g).all(), name
+        rtol = SSD_DA_RTOL if name == "da" else SSD_RTOL[torch.float32]
+        assert _normwise(g, w) <= rtol, name
+    again = ssd_ops.ssd_cuda(*args, chunk=chunk, return_states=True)
+    assert all(torch.equal(a, b) for a, b in zip((y, h, states), again))
+    again = ssd_ops.ssd_bwd_cuda(*args, dy, states, dh, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_cuda_rows_do_not_depend_on_the_batch(cuda):
+    """A batch row's outputs have the same bits alone and in its batch, and
+    a null dh_final is zeros."""
+    args, dy, dh = _ssd_case(cuda, 3, 200, 4, 64, 128, torch.bfloat16)
+    y, h, st = ssd_ops.ssd_cuda(*args, return_states=True)
+    bwd = ssd_ops.ssd_bwd_cuda(*args, dy, st, None)
+    zero = ssd_ops.ssd_bwd_cuda(*args, dy, st, torch.zeros_like(dh))
+    assert all(torch.equal(a, b) for a, b in zip(bwd, zero))
+    one = [a[1:2] for a in args[:2]] + [args[2]] + [a[1:2] for a in args[3:]]
+    y1, h1, st1 = ssd_ops.ssd_cuda(*one, return_states=True)
+    assert torch.equal(y1, y[1:2]) and torch.equal(h1, h[1:2])
+    b1 = ssd_ops.ssd_bwd_cuda(*one, dy[1:2], st1, None)
+    assert all(torch.equal(a, b[1:2]) for a, b in zip(b1, bwd))
+
+
+def test_ssd_wrappers_reject_bad_operands(cuda):
+    args, dy, dh = _ssd_case(cuda, 1, 64, 2, 64, 128, torch.float32)
+    x, dt, A, B, C = args
+    with pytest.raises(ValueError, match="zero state"):
+        ssd_ops.ssd_cuda(*args, h0=dh)
+    with pytest.raises(ValueError, match="not among the built"):
+        ssd_ops.ssd_cuda(*args, chunk=128)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_cuda(x, dt, A, B.bfloat16(), C)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd_ops.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, B, C)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_ops.ssd_cuda(x.cpu(), dt, A, B, C)
+    _, _, st = ssd_ops.ssd_cuda(*args, return_states=True)
+    with pytest.raises(ValueError, match="states"):
+        ssd_ops.ssd_bwd_cuda(*args, dy, st[:, :, :0], None)
+    with registry.use("cuda"):
+        with pytest.raises(RuntimeError, match="zero state"):
+            registry.select("ssd", *args, chunk=64, h0=dh)
+
+
+def test_ssd_autograd_through_the_kernels(cuda):
+    """``ssd`` under autograd launches the forward, the states sweep and
+    the reverse scan, and its grads equal the plain backend's to 1e-5
+    normwise (bf16 dx 8e-3)."""
+    args, _, _ = _ssd_case(cuda, 2, 300, 4, 64, 128, torch.bfloat16)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves_ = [a.detach().clone().requires_grad_() for a in args]
+        kernels.reset_launch_counts()
+        with registry.use(backend):
+            y, h = ssd_ops.ssd(*leaves_)
+            loss = (y.float() ** 2).sum() + (h ** 2).sum()
+            grads[backend] = torch.autograd.grad(loss, leaves_)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = (2, 1) if backend == "cuda" else (0, 0)
+        assert (launches["ssd"], launches["ssd_bwd"]) == want
+    for i, (g, w) in enumerate(zip(grads["cuda"], grads["torch"])):
+        tol = SSD_RTOL[g.dtype] if g.dtype == torch.bfloat16 else 1e-4
+        assert g.dtype == args[i].dtype and _normwise(g.float(),
+                                                      w.float()) <= tol, i
+
+
+MCFG = smoke_config(get_arch("mamba2-780m"))
+
+
+def test_mamba2_teacher_forced_decode_matches_forward(cuda):
+    """The JAX package's check (tests/test_models.py) on the card: the
+    forward through the ssd kernel against the same tokens one at a time
+    through decode_step, atol = rtol = 0.05."""
+    params = init_params(MCFG, torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.bfloat16, device=cuda)
+    B, S = 2, 70
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, MCFG.vocab, (B, S)).astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    logits, _ = forward(params, MCFG, {"tokens": toks})
+    assert kernels.launch_counts()["ssd"] == MCFG.n_layers
+    cache = init_cache(MCFG, B, S, device=cuda)
+    outs = []
+    for t in range(S):
+        lg, cache = decode_step(params, MCFG, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1).float(), logits.float(),
+                               atol=0.05, rtol=0.05)
+
+
+def test_mamba2_train_step_through_the_ssd_kernels(cuda):
+    """Smoke config, CA k=2 with remat: every layer runs ssd three times a
+    microbatch (forward, recompute, states sweep) and ssd_bwd once; the
+    step's loss and grad norm match the plain versions' step."""
+    metrics = {}
+    for backend in ("cuda", "torch"):
+        state = init_train_state(MCFG, torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, MCFG.vocab, (8, 71),
+                                             dtype=np.int32)).to(cuda)
+        batch = dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+        with registry.use(backend):
+            step = make_train_step(MCFG, ca_k=2, remat=True, warmup=1)
+        kernels.reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        n = MCFG.n_layers * 2 if backend == "cuda" else 0
+        assert launches["ssd_bwd"] == n and launches["ssd"] == 3 * n
         metrics[backend] = {k: float(v) for k, v in m.items()}
     assert np.isfinite(metrics["cuda"]["loss"])
     for name in ("loss", "grad_norm"):

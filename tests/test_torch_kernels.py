@@ -146,14 +146,21 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     lse = torch.zeros(1, 2, 4)
     registry.dispatch("flash_dq", q, q, q, q, lse, lse)
     registry.dispatch("flash_dkv", q, q, q, q, lse, lse)
+    x, dt = torch.ones(1, 5, 2, 4), torch.full((1, 5, 2), 0.1)
+    A, B = -torch.ones(2), torch.ones(1, 5, 3)
+    _, _, states = registry.dispatch("ssd", x, dt, A, B, B, chunk=4,
+                                     return_states=True)
+    registry.dispatch("ssd_bwd", x, dt, A, B, B, x, states, None, chunk=4)
     assert registry.dispatch_counts() == {
         ("gram", "torch"): 1, ("prox_step", "torch"): 1,
         ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
         ("paged_attention", "torch"): 1, ("flash_dq", "torch"): 1,
-        ("flash_dkv", "torch"): 1}
+        ("flash_dkv", "torch"): 1, ("ssd", "torch"): 1,
+        ("ssd_bwd", "torch"): 1}
     assert launch_counts() == {"gram": 0, "prox_step": 0, "prox_loop": 0,
                                "flash_attention": 0, "paged_decode": 0,
-                               "flash_dq": 0, "flash_dkv": 0}
+                               "flash_dq": 0, "flash_dkv": 0, "ssd": 0,
+                               "ssd_bwd": 0}
 
 
 # ------------------------------------------------------------- attention ---

@@ -1,8 +1,9 @@
-"""The port's dense model against the JAX package's, on the same weights
-(carried across by ``params_from_numpy``) and the same numpy inputs: the
-configs, the layers, ``quantize_kv``, ``chunked_attention``, ``forward``
-and ``decode_step`` over the slot, paged and int8 paged caches. JAX runs on
-the CPU with its XLA backend, as its own tests run these checks."""
+"""The port's dense and ssm models against the JAX package's, on the same
+weights (carried across by ``params_from_numpy``) and the same numpy
+inputs: the configs, the layers, ``quantize_kv``, ``chunked_attention``,
+``forward`` and ``decode_step`` over the slot, paged and int8 paged caches,
+and mamba2's block, forward and recurrent decode. JAX runs on the CPU with
+its XLA backend, as its own tests run these checks."""
 import dataclasses
 import functools
 
@@ -21,6 +22,7 @@ from repro.models.attention import (chunked_attention as j_chunked,
                                     quantize_kv as j_quantize_kv)
 from repro.models.layers import apply_rope as j_rope, rms_norm as j_rms
 from repro.models.mlp import swiglu as j_swiglu
+from repro.models.ssm import _causal_conv as j_causal_conv
 from repro.models.transformer import forward as j_forward
 from repro.serve import PagedCachePool as JPagedCachePool
 import repro_torch.configs as tconfigs
@@ -30,6 +32,7 @@ from repro_torch.models import (decode_step, forward, init_cache, init_params,
 from repro_torch.models.attention import attention, chunked_attention, quantize_kv
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.mlp import swiglu
+from repro_torch.models.ssm import _causal_conv, _softplus
 from repro_torch.serve import PagedCachePool
 
 from _torch_port import to_torch_config_arch, to_torch_params
@@ -279,10 +282,123 @@ def test_decode_step_matches_jax(arch, layout):
 
 
 def test_unported_families_raise():
-    for name in ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-2.7b",
+    for name in ("granite-moe-1b-a400m", "zamba2-2.7b",
                  "whisper-medium", "qwen2-vl-2b"):
         cfg = tconfigs.smoke_config(tconfigs.get_arch(name))
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             init_params(cfg, torch.Generator().manual_seed(0))
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             init_cache(cfg, 1, 8)
+
+
+# ----------------------------------------------------------------- mamba2 --
+MAMBA = "mamba2-780m"
+
+
+def test_causal_conv_and_softplus_match_jax():
+    """The convolution's taps in the bf16 stream with JAX's rounding points
+    (a rounded product and a rounded add per tap), its window for decode,
+    and softplus as ``logaddexp(x, 0)``."""
+    xbc, w, b = _np(0, (2, 9, 48)), 0.5 * _np(1, (4, 48)), 0.1 * _np(2, (48,))
+    hist = _np(3, (2, 3, 48))
+    for state in (None, hist):
+        jargs = [jnp.asarray(a).astype(jnp.bfloat16) for a in (xbc, w, b)]
+        want, wwin = j_causal_conv(
+            *jargs, None if state is None else jnp.asarray(state))
+        got, gwin = _causal_conv(
+            *(torch.from_numpy(a).bfloat16() for a in (xbc, w, b)),
+            None if state is None else torch.from_numpy(state))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_t(got), _f32(want), **BF16_TOL)
+        np.testing.assert_array_equal(_t(gwin), _f32(wwin))
+    v = 8 * _np(4, (1000,))
+    np.testing.assert_allclose(_softplus(torch.from_numpy(v)).numpy(),
+                               _f32(jax.nn.softplus(jnp.asarray(v))),
+                               rtol=1e-6, atol=0)
+
+
+def test_mamba2_params_carry_across_in_bf16_with_float32_decay():
+    """``params_from_numpy`` walks the nested ``mamba`` dicts, counts the
+    layers from any stacked leaf, and keeps ``A_log`` and ``dt_bias`` in
+    float32 (JAX reads them in float32) when the rest goes to bf16."""
+    cfg, tcfg, jp, tp = _model(MAMBA)
+    assert param_count(tp) == j_param_count(jp)
+    assert len(tp["layers"]) == cfg.n_layers
+    m = tp["layers"][1]["mamba"]
+    assert m["A_log"].dtype == m["dt_bias"].dtype == torch.float32
+    assert m["in_proj"].dtype == m["D"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        m["dt_bias"].numpy(), _f32(jp["layers"]["mamba"]["dt_bias"][1]))
+    np.testing.assert_array_equal(
+        _t(tp["layers"][0]["ln"]), _f32(jp["layers"]["ln"][0]))
+
+
+def test_mamba2_init_params_shapes_and_seed():
+    cfg, tcfg, jp, _ = _model(MAMBA)
+    a = init_params(tcfg, torch.Generator().manual_seed(0))
+    b = init_params(tcfg, torch.Generator().manual_seed(0),
+                    dtype=torch.bfloat16)
+    assert param_count(a) == j_param_count(jp)
+    for k, v in a["layers"][0]["mamba"].items():
+        assert v.shape == jp["layers"]["mamba"][k].shape[1:], k
+    # linspace and log in float32: the two libraries' last bits
+    np.testing.assert_allclose(
+        a["layers"][0]["mamba"]["A_log"].numpy(),
+        _f32(jp["layers"]["mamba"]["A_log"][0]), rtol=1e-6, atol=0)
+    assert b["layers"][0]["mamba"]["dt_bias"].dtype == torch.float32
+    assert torch.equal(a["layers"][0]["mamba"]["dt_bias"],
+                       b["layers"][0]["mamba"]["dt_bias"])
+    dt = torch.nn.functional.softplus(a["layers"][0]["mamba"]["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * 0.999 and float(dt.max()) <= 0.1 * 1.001
+
+
+@pytest.mark.parametrize("last_only", [False, True])
+def test_mamba2_forward_matches_jax(last_only):
+    """The forward (the scan through ``ssd``'s plain version) from the JAX
+    weights carried across in bf16, the default, against JAX's forward,
+    at the JAX package's logits tolerance; a length that is not a chunk
+    multiple."""
+    cfg, tcfg, jp, tp = _model(MAMBA)
+    toks = _tokens(cfg, 2, 70)
+    with jregistry.use("xla"):
+        want, _ = jax.jit(lambda p, t: j_forward(
+            p, cfg, {"tokens": t}, last_only=last_only))(jp, jnp.asarray(toks))
+    registry.reset_dispatch_counts()
+    got, aux = forward(tp, tcfg, {"tokens": torch.from_numpy(toks)},
+                       last_only=last_only)
+    assert registry.dispatch_counts() == {("ssd", "torch"): cfg.n_layers}
+    assert got.dtype == torch.bfloat16 and float(aux) == 0.0
+    np.testing.assert_allclose(_t(got), _f32(want), **LOGIT_TOL)
+
+
+def test_mamba2_decode_matches_jax_and_forward():
+    """The JAX package's teacher-forcing check
+    (tests/test_models.py::test_decode_matches_teacher_forcing) on the
+    port: token-at-a-time ``decode_step`` through the recurrent cache
+    against JAX's decode and against the port's own forward."""
+    cfg, tcfg, jp, tp = _model(MAMBA)
+    B, S = 2, 9
+    toks = _tokens(cfg, B, S, seed=1)
+    jc, tc = j_init_cache(cfg, B, 16), init_cache(tcfg, B, 16)
+    assert {k: tuple(v.shape) for k, v in tc["layers"].items()} == \
+        {k: tuple(v.shape) for k, v in jc["layers"].items()}
+    step = jax.jit(lambda p, c, tok: j_decode_step(p, cfg, c, tok))
+    outs_j, outs_t = [], []
+    for t in range(S):
+        with jregistry.use("xla"):
+            lj, jc = step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+        lt, tc = decode_step(tp, tcfg, tc, torch.from_numpy(toks[:, t:t + 1]))
+        outs_j.append(_f32(lj[:, 0]))
+        outs_t.append(_t(lt[:, 0]))
+    np.testing.assert_allclose(np.stack(outs_t, 1), np.stack(outs_j, 1),
+                               **LOGIT_TOL)
+    np.testing.assert_allclose(tc["layers"]["ssm"].numpy(),
+                               _f32(jc["layers"]["ssm"]), atol=0.05,
+                               rtol=0.05)
+    tf, _ = forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(np.stack(outs_t, 1), _t(tf), **LOGIT_TOL)
+    assert int(tc["pos"]) == S
+    with pytest.raises(NotImplementedError, match="pageless"):
+        decode_step(tp, tcfg, tc, torch.from_numpy(toks[:, :1]),
+                    positions=torch.zeros(B, dtype=torch.int32),
+                    page_table=torch.zeros(B, 2, dtype=torch.int32))

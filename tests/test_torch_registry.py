@@ -21,7 +21,7 @@ def clean_policy(monkeypatch):
 def test_ops_table():
     assert registry.ops() == ["flash_attention", "flash_dkv", "flash_dq",
                               "gram", "paged_attention", "prox_loop",
-                              "prox_step"]
+                              "prox_step", "ssd", "ssd_bwd"]
 
 
 def test_policy_precedence(monkeypatch):
@@ -109,5 +109,5 @@ def test_dispatch_counts_by_op_and_backend():
 
 def test_unknown_op():
     with pytest.raises(KeyError, match="unknown op"):
-        registry.dispatch("ssd", torch.ones(2))
+        registry.dispatch("no_such_op", torch.ones(2))
 

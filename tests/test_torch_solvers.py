@@ -249,7 +249,8 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     # the CPU run takes the plain versions: no kernel is launched
     assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0,
                             "flash_attention": 0, "paged_decode": 0,
-                            "flash_dq": 0, "flash_dkv": 0}
+                            "flash_dq": 0, "flash_dkv": 0, "ssd": 0,
+                            "ssd_bwd": 0}
 
 
 def test_lasso_solve_tol_stops_early():
@@ -278,6 +279,11 @@ trained = repro_torch.launch.train.main(["--device", "cpu", "--preset",
                                          "tiny", "--steps", "2",
                                          "--ckpt-dir", sys.argv[1]])
 assert len(trained.metrics_log) == 2
+ssm = repro_torch.launch.train.main(["--device", "cpu", "--arch",
+                                     "mamba2-780m", "--preset", "tiny",
+                                     "--steps", "2", "--ckpt-dir",
+                                     sys.argv[1] + "/ssm"])
+assert len(ssm.metrics_log) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -1,8 +1,9 @@
 """The port's training path against the JAX package's, at the smoke config
 on the CPU: ``loss_fn`` and its grads from one set of weights, AdamW and
 the cosine schedule, one and three CA (k=2) and classical train steps from
-one state, the token stream's bits and its restart, a checkpoint round
-trip, the fault-tolerant runner and the train CLI. JAX runs with its XLA
+one state (internlm2, and mamba2 through ``SSDFn``), the token stream's
+bits and its restart, a checkpoint round trip, the fault-tolerant runner
+and the train CLI. JAX runs with its XLA
 backend, as its own training tests do; inputs come from numpy or from the
 JAX package's own draws, carried across."""
 import os
@@ -433,3 +434,125 @@ def test_train_cli_defaults_to_the_card():
         pytest.skip("this host has a card: the default runs on it")
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main(["--preset", "tiny", "--steps", "1"])
+
+
+# -------------------------------------------------------------- mamba2 ---
+MCFG = jconfigs.smoke_config(jconfigs.get_arch("mamba2-780m"))
+TMCFG = to_torch_config_arch(MCFG)
+
+
+def _mamba_leaves(jax_tree):
+    return leaves(params_from_numpy(TMCFG, _np_tree(jax_tree),
+                                    dtype=torch.float32))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_mamba2_loss_fn_and_grads_match_jax(remat):
+    """mamba2's loss and grads (the scan's backward through ``SSDFn``: the
+    states sweep and the plain reverse scan) against ``jax.value_and_grad``
+    of the JAX loss on the same float32 weights, at the JAX package's grad
+    tolerance."""
+    jp = j_init_params(MCFG, jax.random.PRNGKey(0))
+    batch = _jax_batch(1, seq=70)              # not a chunk multiple
+    with jregistry.use("xla"):
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda p: j_loss_fn(p, MCFG, batch, remat=remat)))(jp)
+    params = params_from_numpy(TMCFG, _np_tree(jp), dtype=torch.float32)
+    ps = [t.requires_grad_() for t in leaves(params)]
+    loss = loss_fn(params, TMCFG, _to_port(batch), remat=remat)
+    grads = torch.autograd.grad(loss, ps)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=SCALAR_RTOL)
+    assert all(g.dtype == torch.float32 for g in grads)
+    _close(grads, _mamba_leaves(jg), "grad", **GRAD_TOL)
+
+
+def test_mamba2_remat_recomputes_the_scan():
+    """Per-layer remat changes no number, and it runs ``ssd`` three times a
+    layer (the forward, its recompute and the backward's states sweep)
+    and ``ssd_bwd`` once; without remat the scan runs twice."""
+    weights = _np_tree(j_init_params(MCFG, jax.random.PRNGKey(0)))
+    batch = _to_port(_jax_batch(2))
+    out = {}
+    for remat in (False, True):
+        p = params_from_numpy(TMCFG, weights, dtype=torch.float32)
+        ps = [t.requires_grad_() for t in leaves(p)]
+        registry.reset_dispatch_counts()
+        loss = loss_fn(p, TMCFG, batch, remat=remat)
+        out[remat] = (loss, torch.autograd.grad(loss, ps),
+                      registry.dispatch_counts())
+    assert torch.equal(out[False][0], out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        assert torch.equal(a, b)
+    n = MCFG.n_layers
+    assert out[False][2] == {("ssd", "torch"): 2 * n,
+                             ("ssd_bwd", "torch"): n}
+    assert out[True][2] == {("ssd", "torch"): 3 * n,
+                            ("ssd_bwd", "torch"): n}
+
+
+@pytest.mark.parametrize("classical", [False, True], ids=["ca2", "classical"])
+def test_mamba2_train_steps_match_jax(classical):
+    """One and three steps of the port's ``make_train_step`` (remat on, as
+    the launcher runs it) against the JAX package's from the same state on
+    the same batches: loss, grad norm, lr, the first moment and each
+    leaf's update, held as ``test_train_steps_match_jax`` holds them. The
+    CA step's bf16 compute copy rounds A_log and dt_bias as JAX's does."""
+    kw = dict(ca_k=2, peak_lr=1e-3, warmup=0, total_steps=10)
+    jstate = j_init_train_state(MCFG, jax.random.PRNGKey(0))
+    state = train_state_from_numpy(TMCFG, _np_tree(jstate))
+    params0 = [t.clone() for t in leaves(state.params)]
+    with jregistry.use("xla"):
+        jstep = jax.jit(j_make_train_step(
+            MCFG, None, remat=False, sync_every_microbatch=classical, **kw))
+    step = make_train_step(TMCFG, remat=True,
+                           sync_every_microbatch=classical, **kw)
+    m_tol = dict(atol=(1 - ADAM_B1) * GRAD_TOL["atol"],
+                 rtol=GRAD_TOL["rtol"])
+    for i in range(3):
+        batch = _jax_batch(10 + i)
+        jstate, jm = jstep(jstate, batch)
+        state, m = step(state, _to_port(batch))
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+        for name in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[name]), float(jm[name]),
+                                       rtol=SCALAR_RTOL, err_msg=name)
+        if i in (0, 2):
+            _close(leaves(state.opt.m), _mamba_leaves(jstate.opt.m), "m",
+                   **m_tol)
+            rel = []
+            for p, p0, w in zip(leaves(state.params), params0,
+                                _mamba_leaves(jstate.params)):
+                got, want = (p - p0).double(), (w - p0).double()
+                rel.append(float((got - want).norm()
+                                 / want.norm().clamp_min(1e-30)))
+            assert max(rel) <= UPDATE_RTOL, (
+                f"step {i + 1}: leaf {int(np.argmax(rel))} update off JAX's "
+                f"by {max(rel):.3f} normwise (limit {UPDATE_RTOL})")
+
+
+def test_mamba2_train_cli_restarts_once_and_matches_a_clean_run(tmp_path,
+                                                                 capsys):
+    """``--arch mamba2-780m --preset tiny --steps 12 --ckpt-every 4
+    --fail-at 6`` on the CPU: one restart, and the metrics of every step
+    bit-equal to a run with no failure."""
+    runs = {}
+    for label, extra in (("fail", ["--fail-at", "6"]), ("clean", [])):
+        runs[label] = train_cli.main(
+            ["--device", "cpu", "--arch", "mamba2-780m", "--preset", "tiny",
+             "--steps", "12", "--ckpt-every", "4", "--ckpt-dir",
+             str(tmp_path / label)] + extra)
+    out = capsys.readouterr().out
+    assert "restarts=1" in out and "restarts=0" in out
+    assert runs["fail"].restarts == 1 and runs["clean"].restarts == 0
+    assert len(runs["fail"].metrics_log) == 12
+    assert runs["fail"].metrics_log == runs["clean"].metrics_log
+    assert all(np.isfinite(m["loss"]) for m in runs["fail"].metrics_log)
+
+
+def test_mamba2_train_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default runs on it")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cli.main(["--arch", "mamba2-780m", "--preset", "tiny",
+                        "--steps", "1"])

@@ -42,8 +42,13 @@ What it does, in order; any failure raises and the exit code is not 0:
    device's busy share of the wall time;
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
-   (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300)
-   and in float32; ``paged_decode`` at the engine's shape (B=8, Hq=16,
+   (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
+   at D=64 and in float32 (the bf16 timings also print the achieved
+   TFLOP/s, model FLOPs over kernel time, and the share of the bf16 bound;
+   the JSON entry names the tensor-core route, ``wgmma+tma``; at each bf16
+   shape the share of outputs that differ from the float32-p plain
+   version's must stay under 2%, where p rounded once to bf16 exceeds it);
+   ``paged_decode`` at the engine's shape (B=8, Hq=16,
    Hkv=8, D=128, page size 16, 64 pages a slot, valid 1..1024, table
    entries past valid at page 0) with bf16, int8 (with scales) and float32
    pools, and with page size 5. Each against its plain version,
@@ -51,7 +56,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    outputs (float32 sums in another order) and 8e-3 for bf16 outputs (one
    bf16 rounding at the top of the range, 2^-7). Times: kernel and plain
    version with CUDA events after warm-up (paged decode with the L2 cache
-   flushed before each launch, as 24 layers' pools find it), and the
+   flushed before each launch, as 24 layers' pools find it; flash_attention
+   and its SDPA yardstick also, as a diagnostic, with the card asleep while
+   the host enqueues the timed span, so a wrapper's host time does not
+   hide the kernel's), and the
    library yardstick ``scaled_dot_product_attention``, timed alone on the
    same q/k/v (KV heads repeated beforehand; for paged decode on the
    gathered dense K/V with a length mask). The port never calls it;
@@ -85,7 +93,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512), each
    against its plain version, normwise as in phase 7 (lse absolute, 1e-4);
    two launches of each backward kernel bit-equal; kernel and plain
-   version timed with CUDA events, beside their bounds and the library
+   version timed with CUDA events (the lse forward's achieved TFLOP/s and
+   share of the bf16 bound beside them), beside their bounds and the library
    yardstick, the backward of ``scaled_dot_product_attention`` (KV heads
    repeated, its backward timed alone);
 11. train phase, full width: internlm2-1.8b with float32 masters from a
@@ -175,6 +184,11 @@ ATTN_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
 #: an lse output against its plain version: absolute, over the rows that
 #: see a key (a 1e-4 error in lse is a 1e-4 relative error in every p)
 LSE_ATOL = 1e-4
+#: share of the bf16 flash forward's outputs that may differ from the
+#: float32-p plain version's: float32 sums in another order move a few in a
+#: thousand across a bf16 rounding boundary, p rounded once to bf16 more
+#: than a third (tests/test_torch_kernels.py, on the CPU)
+P_FLIP_LIMIT = 0.02
 #: teacher-forced decode vs forward logits (tests/test_models.py)
 LOGIT_TOL = 0.05
 ARCH = "internlm2-1.8b"
@@ -224,10 +238,13 @@ def _self_device_us(ev) -> float:
     return 0.0
 
 
-def _event_ms(fn, iters: int, flush=None) -> float:
+def _event_ms(fn, iters: int, flush=None, queued=False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches after 3 warm-up
     calls, by CUDA events. With ``flush`` (a large device buffer) the L2
-    cache is overwritten before each launch, outside the timed span."""
+    cache is overwritten before each launch, outside the timed span. With
+    ``queued`` the card sleeps while the host enqueues the whole span, so
+    a wrapper whose host time exceeds its kernel's leaves no gap inside it
+    (without it, back-to-back launches time the slower of the two)."""
     import torch
     for _ in range(3):
         fn()
@@ -235,6 +252,8 @@ def _event_ms(fn, iters: int, flush=None) -> float:
     if flush is None:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(400_000 * iters)   # ~0.2 ms a launch
         a.record()
         for _ in range(iters):
             fn()
@@ -326,6 +345,17 @@ def _rate(dtype) -> float:
             torch.int8: INT8_OP_PER_S}[dtype]
 
 
+#: how the bf16 flash forward reaches the tensor cores and loads its tiles
+FLASH_FWD_ROUTE = "wgmma+tma"
+
+
+def _tensor_core_line(flops: float, ms: float, bms: float) -> str:
+    """The bf16 forward's achieved rate (model FLOPs over kernel time) and
+    its share of the bound, for a timing line."""
+    return (f" achieved={flops / ms / 1e9:.1f}TFLOP/s "
+            f"({100 * bms / ms:.1f}% of the bf16 bound; {FLASH_FWD_ROUTE})")
+
+
 def attention_kernel_phase(dev):
     """Phase 7: flash_attention and paged_decode against their plain
     versions, timed beside their bounds and the SDPA yardstick. Returns the
@@ -351,6 +381,7 @@ def attention_kernel_phase(dev):
             (2, 16, 8, 1000, 1000, 128, True, bf16),    # ragged
             (2, 16, 8, 64, 1000, 128, True, bf16),      # right-aligned
             (2, 16, 8, 37, 300, 128, False, bf16),      # not causal
+            (2, 16, 8, 512, 512, 64, True, bf16),       # D=64
             (2, 16, 8, 512, 512, 128, True, f32)):
         q = normal((Bq, Sq, Hq, D), dtype)
         k = normal((Bq, Skv, Hkv, D), dtype)
@@ -361,10 +392,27 @@ def attention_kernel_phase(dev):
         want = fa_ref.flash_attention(q, k, v, causal=causal)
         err = _normwise("flash_attention", shape, got, want,
                         ATTN_RTOL[shape[-1]])
+        if dtype == bf16:
+            # p kept at float32 accuracy through its hi/lo split: the
+            # normwise limit cannot tell it from p rounded once to bf16
+            once = fa_ref.flash_attention_p_rounded(q, k, v, causal=causal)
+            flips, flips_once = (float((x != want).float().mean())
+                                 for x in (got, once))
+            print(f"  p split         {str(shape):44s} outputs off the "
+                  f"float32-p version's bf16: {100 * flips:.3f}% (p rounded "
+                  f"once: {100 * flips_once:.3f}%; limit "
+                  f"{100 * P_FLIP_LIMIT:g}%)")
+            check(flips <= P_FLIP_LIMIT < flips_once,
+                  f"flash_attention{shape}: {flips:.4f} of the outputs off "
+                  f"the float32-p version (p rounded once: {flips_once:.4f},"
+                  f" limit {P_FLIP_LIMIT})")
+            del once
         if Sq != Skv:
             continue
         ms = _event_ms(lambda: fa_ops.flash_attention_cuda(
             q, k, v, causal=causal), 20)
+        queued = _event_ms(lambda: fa_ops.flash_attention_cuda(
+            q, k, v, causal=causal), 20, queued=True)
         plain = _event_ms(lambda: fa_ref.flash_attention(
             q, k, v, causal=causal), 5)
         # the yardstick: SDPA on the same q/k/v, KV heads repeated and the
@@ -374,6 +422,8 @@ def attention_kernel_phase(dev):
         vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).contiguous()
         lib = _event_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), 20)
+        lib_queued = _event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 20, queued=True)
         del qt, kt, vt
         host = _host_us(lambda: fa_ops.flash_attention_cuda(
             q, k, v, causal=causal), 50)
@@ -388,14 +438,19 @@ def attention_kernel_phase(dev):
         print(f"  time flash_attention {str(shape):44s} kernel={ms:.4f}ms "
               f"plain={plain:.4f}ms sdpa={lib:.4f}ms bound={bms:.5f}ms "
               f"({by}, {str(dtype).split('.')[1]} peak) float32-CUDA-core "
-              f"bound={cuda_core_ms:.5f}ms host={host:.1f}us/call")
-        if Sq == 512 and dtype == bf16:
+              f"bound={cuda_core_ms:.5f}ms host={host:.1f}us/call"
+              + (_tensor_core_line(flops, ms, bms) if dtype == bf16 else ""))
+        # diagnostic only: device time with the host's enqueueing hidden
+        print(f"  queued flash_attention {str(shape):42s} kernel="
+              f"{queued:.4f}ms sdpa={lib_queued:.4f}ms")
+        if Sq == 512 and D == 128 and dtype == bf16:
             entries["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:250",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+                bound_ms=bms, bound_by=by, library_ms=lib,
+                tensor_core_route=FLASH_FWD_ROUTE)
         del q, k, v, got, want
 
     print("kernel phase: paged_decode")
@@ -981,7 +1036,10 @@ def backward_kernel_phase(dev):
             print(f"  time {name:11s} {str(shape):44s} kernel={ms:.4f}ms "
                   f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}, "
                   f"{tname} peak) float32-CUDA-core bound="
-                  f"{bms * _rate(dtype) / F32_FLOP_PER_S:.5f}ms")
+                  f"{bms * _rate(dtype) / F32_FLOP_PER_S:.5f}ms"
+                  + (_tensor_core_line(2 * pf, ms, bms)
+                     if name == "lse forward" and tname == "bfloat16"
+                     else ""))
         print(f"  time sdpa {str(shape):44s} forward={t['sdpa_fwd']:.4f}ms "
               f"backward={t['sdpa_bwd']:.4f}ms (dq, dk and dv together)")
         for name, (bms, by), ms, plain, err in (
@@ -997,7 +1055,8 @@ def backward_kernel_phase(dev):
                 bound_ms=bms, bound_by=by, library_ms=t["sdpa_bwd"])
         lse_times = dict(ms=t["lse"], plain_ms=t["lse_plain"],
                          bound_ms=b_lse[0], library_ms=t["sdpa_fwd"],
-                         max_abs_err=max(err_o, err_l))
+                         max_abs_err=max(err_o, err_l),
+                         tflops=2 * pf / t["lse"] / 1e9)
         del q, k, v, do, o, lse, delta, dq, dk, dv, args
     return entries, lse_times
 
@@ -1259,6 +1318,8 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
     ssm family), the JAX package's own training checks at the smoke config,
     and the CLI with a failure. Returns the kernel launches of the timed
     steps."""
+    import re
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1365,6 +1426,13 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
               f"busy), {sum(r[2] for r in rows)} kernel launches")
         for key, us, count in rows[:12]:
             print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+        # the port's own kernels, each with its share of the step
+        for key, us, count in rows:
+            name = re.search(r"(flash_\w+|ssd_\w+)", key)
+            if name:
+                print(f"  kernel {name.group(1)}: {us / 1e3:.3f} ms "
+                      f"x{count}, {100 * us / 1e6 / wall:.1f}% of the "
+                      f"profiled step")
     finally:
         stream.close()
     del state

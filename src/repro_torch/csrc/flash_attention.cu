@@ -1,28 +1,53 @@
 // GQA attention for the model's forward, its backward and paged decode,
-// float32 math.
+// float32 accumulation.
 //
 // 1. flash_attention_fwd replaces the Pallas kernel `flash_attention`
 //    (src/repro/kernels/flash_attention/kernel.py:219, body `_flash_kernel`
 //    at :83), which the teacher-forced `forward` runs in every layer.
 //    q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), any strides with a unit last one (the
-//    model's layout, so the wrapper passes the projections as they are).
-//    One CTA per (q tile of 64 rows, q head, batch row): the Q tile stays in
-//    shared memory, K/V tiles of 64 rows stream through shared memory in the
-//    input's own type, and the online softmax keeps m, l and the 64 x D
-//    output accumulator in registers, all float32. GQA by index: q head h
-//    reads kv head h / (Hq / Hkv), no K/V copy. Causal rows are
-//    right-aligned (q_offset = Skv - Sq) and the kv tiles past the tile's
-//    last visible key are never loaded. Ragged Sq and Skv are masked here,
-//    with no pad pass; a row that sees no key gives 0.
-//    What bounds it on an H100: at the forward's shape (B=2, Hq=16,
-//    S=1024, D=128, causal, bf16) the work is 4.3 GFLOP of QK^T and as much
-//    of PV against 16.8 MB moved: bound by operations (4.4 us at 989
-//    TFLOP/s on bf16 tensor cores, 64 us at 67 TFLOP/s on float32 CUDA
-//    cores). Both products run here on the CUDA cores in float32, so the
-//    second is the floor this kernel as written can reach: QK^T of bf16
-//    inputs would be exact on the tensor cores (mma.sync, later work), but
-//    PV must stay float32 to keep the Pallas kernel's numbers, since p
-//    rounded to bf16 would not match them.
+//    model's layout, so the wrapper passes the projections as they are),
+//    base and strides 16-byte aligned (TMA's rule).
+//    GQA by index: q head h reads kv head h / (Hq / Hkv), no K/V copy.
+//    Causal rows are right-aligned (q_offset = Skv - Sq) and the kv tiles
+//    past a tile's last visible key are never loaded. Ragged Sq and Skv are
+//    masked here, with no pad pass; a row that sees no key gives 0.
+//    What bounds it on an H100: at the training shape (B=8, Hq=16, S=1024,
+//    D=128, causal, bf16) the work is 17.2 GFLOP of QK^T and as much of PV
+//    over the visible pairs against ~101 MB moved (30 us at 3.35 TB/s):
+//    bound by operations, 34.8 us on the bf16 tensor cores at 989 TFLOP/s
+//    (at (B=2, S=1024): 8.6 GFLOP, 8.7 us).
+//    bf16 (`flash_fwd_bf16_kernel`, the only bf16 body): both products on
+//    the tensor cores (wgmma), the K/V tiles through an asynchronous ring.
+//    One CTA per (128 query rows, q head, batch row): a producer warpgroup
+//    whose one thread keeps TMA loads of 64-row K/V tiles in flight through
+//    a 2-slot ring in shared memory (mbarriers mark full and empty slots),
+//    and two consumer warpgroups of 64 query rows each. TMA reads the
+//    strided (B, S, H, D) view through a 4-D tensor map and writes each
+//    tile in the swizzle the wgmma descriptors name (128-byte rows of 64
+//    columns; 64- and 32-byte rows at D = 32 and 16), zero-filling rows
+//    past the end. S = Q K^T is one m64n64k16 wgmma per 16 columns of D,
+//    both operands K-major in shared memory: products of bf16 are exact
+//    and sums float32, as before. The online softmax runs in the
+//    accumulator's registers (row max and sum over the four threads of a
+//    row; masking only on the diagonal tile and the ragged last tile; exp2
+//    of the select only, so a masked entry is exactly 0 and a row that sees
+//    nothing stays 0). p never leaves the registers: it is split into hi =
+//    bf16(p) and lo = bf16(p - hi), which carry p to about 2^-16 relative,
+//    and O += hi V + lo V runs as two register-A wgmmas against V's tile in
+//    shared memory (MN-major, the descriptor's transpose bit), so PV keeps
+//    the float32 kernel's numbers where a single bf16 p would cost another
+//    rounding; l sums the float32 p. Registers are rebalanced with
+//    setmaxnreg (producer 40, consumers 232); under causal the heaviest q
+//    tiles launch first. No atomics, no split along the keys, one fixed
+//    summation order per row: two launches give the same bits and a row's
+//    result never depends on the batch.
+//    float32 (`flash_fwd_f32_kernel`) keeps the CUDA-core body: no tensor-
+//    core type gives float32's numbers without a three-way split, and no
+//    path on the card runs attention in float32 (the model computes in a
+//    bf16 copy when serving and when training); it checks the algorithm
+//    at 1e-5. One CTA per (64 query rows, q head, batch row), K/V tiles of
+//    64 rows through shared memory, m, l and the 64 x D accumulator in
+//    registers, both products as float32 fmaf (67 TFLOP/s peak).
 //    With a non-null `lse` it also writes each row's float32 logsumexp of
 //    the scaled, masked scores, lse = m + log(max(l, 1e-30)), (B, Hq, Sq)
 //    contiguous: the residual the backward recomputes p = exp(s - lse)
@@ -92,12 +117,14 @@
 //    these kernels run every product.
 //
 // Every C entry returns cudaGetLastError() after its launch.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -171,15 +198,17 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+// the float32 forward; see the file's note 1
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Hq,
-                 int Hkv, int Sq, int Skv, int64_t qsb, int64_t qss,
-                 int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-                 int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
-                 int64_t oss, int64_t osh, int causal, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Hq,
+                     int Hkv, int Sq, int Skv, int64_t qsb, int64_t qss,
+                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+                     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
+                     int64_t oss, int64_t osh, int causal, float scale) {
+  using T = float;
   constexpr int S = TileStride<T, D>::value;
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -308,6 +337,378 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // that sees no key
     if (lse != nullptr && tx == 0)
       lse[((int64_t)b * Hq + h) * Sq + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// ------------------------------------------- flash attention forward, bf16
+// (see the file's note 1)
+constexpr int FH_BM = 128;       // query rows per CTA: two consumer warpgroups
+constexpr int FH_BN = 64;        // key rows per ring slot
+constexpr int FH_STAGES = 2;     // ring slots
+constexpr int FH_THREADS = 384;  // producer warpgroup + two consumers
+
+// Shared-memory plan of the bf16 forward at head dim D. A 64-row tile is
+// NBOX boxes of 64 rows x BOX columns (one TMA load each), each row ROW
+// bytes, in the swizzle of that row width: the Q tiles of the two consumer
+// warpgroups, then the ring's K and V slots, then the mbarriers.
+template <int D>
+struct FwdPlan {
+  static constexpr int BOX = D < 64 ? D : 64;
+  static constexpr int NBOX = D / BOX;
+  static constexpr int ROW = 2 * BOX;
+  // wgmma descriptor layout code of that swizzle: 128 B, 64 B, 32 B
+  static constexpr uint64_t SWIZZLE = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  static constexpr uint32_t BOX_BYTES = FH_BN * ROW;
+  static constexpr uint32_t TILE = FH_BN * D * 2;
+  static constexpr uint32_t Q_OFF = 0;
+  static constexpr uint32_t K_OFF = 2 * TILE;
+  static constexpr uint32_t V_OFF = K_OFF + FH_STAGES * TILE;
+  static constexpr uint32_t BAR_OFF = V_OFF + FH_STAGES * TILE;
+  // + 1024: the base is rounded up to the swizzle pattern's period
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * FH_STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete a transaction on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout code in bits 62-63
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous span
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A wgmma's float32 accumulator as asm operands, "+f"(d[i]) ..., and their
+// names in the instruction, "%0, %1, ...": both written once, in blocks of 8
+#define FH_ACC8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FH_ACC16(d, i) FH_ACC8(d, i), FH_ACC8(d, i + 8)
+#define FH_ACC32(d, i) FH_ACC16(d, i), FH_ACC16(d, i + 16)
+#define FH_ACC64(d, i) FH_ACC32(d, i), FH_ACC32(d, i + 32)
+#define FH_NAMES8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define FH_NAMES16 FH_NAMES8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define FH_NAMES32                                                        \
+  FH_NAMES16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "  \
+             "%27, %28, %29, %30, %31"
+#define FH_NAMES64                                                        \
+  FH_NAMES32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+             "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+             "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 64, float32) (+)= A (64 x 16) B^T, A and B K-major bf16 tiles in
+// shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" FH_NAMES32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FH_ACC32(d, 0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, float32) += A (64 x 16, bf16 pairs in registers) B (16 x N),
+// B MN-major in shared memory (the transpose bit set); N = 16, 32, 64, 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+// ACC, NAMES: the N / 2 accumulators; A0..A3, B, P: the numbers of the
+// operands after them (A's four registers, B's descriptor, the predicate)
+#define FH_WGMMA_RS(N, ACC, NAMES, A0, A1, A2, A3, B, P)                   \
+  template <>                                                             \
+  __device__ __forceinline__ void wgmma_rs<N>(float (&d)[N / 2],          \
+                                              const uint32_t (&a)[4],     \
+                                              uint64_t db) {              \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k16.f32.bf16.bf16 {" NAMES "}, {%" #A0 ", %" #A1         \
+                 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"       \
+                 : ACC(d, 0)                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
+                   "r"(1));                                               \
+  }
+FH_WGMMA_RS(16, FH_ACC8, FH_NAMES8, 8, 9, 10, 11, 12, 13)
+FH_WGMMA_RS(32, FH_ACC16, FH_NAMES16, 16, 17, 18, 19, 20, 21)
+FH_WGMMA_RS(64, FH_ACC32, FH_NAMES32, 32, 33, 34, 35, 36, 37)
+FH_WGMMA_RS(128, FH_ACC64, FH_NAMES64, 64, 65, 66, 67, 68, 69)
+#undef FH_WGMMA_RS
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int Hq, int Hkv, int Sq, int Skv, int64_t osb,
+                      int64_t oss, int64_t osh, int causal,
+                      float scale_log2) {
+  using P = FwdPlan<D>;
+  extern __shared__ unsigned char fh_smem[];
+  const uint32_t base = (smem_addr(fh_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base + P::Q_OFF;
+  const uint32_t k_s = base + P::K_OFF;
+  const uint32_t v_s = base + P::V_OFF;
+  const uint32_t bar_q = base + P::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;                  // + 8 * slot
+  const uint32_t bar_empty = bar_full + 8 * FH_STAGES;  // + 8 * slot
+
+  // under causal the last q tiles see the most keys: launch them first
+  const int tile = causal ? (int)(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = tile * FH_BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q_offset = Skv - Sq;
+  // keys [0, kv_end) can be visible to some row of this CTA
+  const int kv_end = causal ? min(Skv, q_offset + q0 + FH_BM) : Skv;
+  const int n_tiles = kv_end > 0 ? (kv_end + FH_BN - 1) / FH_BN : 0;
+  const int q_tiles = q0 + 64 < Sq ? 2 : 1;  // 64-row Q tiles with a row
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < FH_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, q_tiles * P::TILE);
+      for (int w = 0; w < q_tiles; ++w)
+        for (int x = 0; x < P::NBOX; ++x)
+          tma_load(q_s + w * P::TILE + x * P::BOX_BYTES, &tm_q, bar_q,
+                   x * P::BOX, q0 + 64 * w, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FH_STAGES;
+        // the slot's previous tile has been read by both consumers
+        if (i >= FH_STAGES)
+          mbar_wait(bar_empty + 8 * s, (i / FH_STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * P::TILE);
+        for (int x = 0; x < P::NBOX; ++x) {
+          tma_load(k_s + s * P::TILE + x * P::BOX_BYTES, &tm_k, full,
+                   x * P::BOX, i * FH_BN, hk, b);
+          tma_load(v_s + s * P::TILE + x * P::BOX_BYTES, &tm_v, full,
+                   x * P::BOX, i * FH_BN, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows [row0, row0 + 64); this thread holds
+  // rows r_lo and r_lo + 8, columns 8 j + 2 t + {0, 1} of each accumulator
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * w;
+  const int r_lo = row0 + 16 * warp + g;
+  int wg_end = 0;  // keys [0, wg_end) can be visible to one of its rows
+  if (row0 < Sq) wg_end = causal ? min(Skv, q_offset + row0 + 64) : Skv;
+  const uint32_t q_tile = q_s + w * P::TILE;
+  constexpr uint32_t SBO = 8 * P::ROW;  // the next 8 rows (K-major) or keys
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  if (n_tiles > 0 && wg_end > 0) mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % FH_STAGES;
+    mbar_wait(bar_full + 8 * s, (i / FH_STAGES) & 1);
+    const int k0 = i * FH_BN;
+    if (k0 < wg_end) {
+      // S = Q K^T, 16 columns of D a step (the first overwrites sc)
+      float sc[32];
+      const uint32_t k_tile = k_s + s * P::TILE;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // 32 bytes of D a step: box kk * 32 / ROW, at kk * 32 % ROW in it
+        const uint32_t off =
+            (kk * 32 / P::ROW) * P::BOX_BYTES + kk * 32 % P::ROW;
+        wgmma_ss_n64(sc, gmma_desc(q_tile + off, 16, SBO, P::SWIZZLE),
+                     gmma_desc(k_tile + off, 16, SBO, P::SWIZZLE), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax in base 2 on the accumulator: sc[4 j + 2 r + e] is
+      // row r_lo + 8 r, key k0 + 8 j + 2 t + e
+      const bool masked = k0 + FH_BN > Skv ||
+                          (causal && k0 + FH_BN - 1 > q_offset + row0);
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int r = (j / 2) % 2;
+        float x = sc[j] * scale_log2;
+        if (masked) {
+          const int kpos = k0 + 8 * (j / 4) + 2 * t + j % 2;
+          const int qpos = q_offset + r_lo + 8 * r;
+          if (kpos >= Skv || (causal && kpos > qpos)) x = -CUDART_INF_F;
+        }
+        sc[j] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // a row with no visible key yet keeps m = -inf: exponents against
+        // 0 there, so every p and alpha is exp2(-inf) = 0, never NaN
+        mu[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - mu[r]);
+        m[r] = m_new;
+      }
+
+      // p in float32, split into the A fragments hi = bf16(p) and lo =
+      // bf16(p - hi): pair c = 2 j + r is register c % 4 of k-step c / 4
+      uint32_t hi[16], lo[16];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int r = c % 2;
+        const float p0 = exp2f(sc[2 * c] - mu[r]);
+        const float p1 = exp2f(sc[2 * c + 1] - mu[r]);
+        rs[r] += p0 + p1;
+        const __nv_bfloat162 ph = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(ph);
+        hi[c] = bf16x2_bits(ph);
+        lo[c] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
+
+      // O += hi V + lo V, 16 keys a step
+      const uint32_t v_tile = v_s + s * P::TILE;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FH_BN / 16; ++kk) {
+        const uint32_t a[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                               hi[4 * kk + 3]};
+        wgmma_rs<D>(acc, a, gmma_desc(v_tile + kk * 16 * P::ROW,
+                                      P::BOX_BYTES, SBO, P::SWIZZLE));
+      }
+#pragma unroll
+      for (int kk = 0; kk < FH_BN / 16; ++kk) {
+        const uint32_t a[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                               lo[4 * kk + 3]};
+        wgmma_rs<D>(acc, a, gmma_desc(v_tile + kk * 16 * P::ROW,
+                                      P::BOX_BYTES, SBO, P::SWIZZLE));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty + 8 * s);  // this warpgroup is done with the slot
+  }
+
+  // the row sums over the four threads of a row, then the output
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = ob + (int64_t)row * oss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
+    // natural log: m is in base 2; -inf for a row that sees no key
+    if (lse != nullptr && t == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] =
+          m[r] * 0.69314718055994531f + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
@@ -619,21 +1020,100 @@ cudaError_t smem_opt_in(K* kernel, size_t smem, std::atomic<bool>* set) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int Hq, int Hkv, int Sq,
-                         int Skv, const int64_t* st, int causal, float scale,
-                         cudaStream_t stream) {
-  const size_t smem = fa_smem_bytes<T, D>();
+// st: (batch, seq, head) strides of q, k, v, o
+template <int D>
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int Hq, int Hkv,
+                             int Sq, int Skv, const int64_t* st, int causal,
+                             float scale, cudaStream_t stream) {
+  const size_t smem = fa_smem_bytes<float, D>();
   static std::atomic<bool> smem_set[FA_MAX_DEVICES];
-  cudaError_t err = smem_opt_in(flash_fwd_kernel<T, D>, smem, smem_set);
+  cudaError_t err = smem_opt_in(flash_fwd_f32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], causal, scale);
+  flash_fwd_f32_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
+      Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], causal, scale);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A 4-D tensor map (D, S, H, B innermost first) over a strided bf16 view
+// with (batch, seq, head) element strides st, in boxes of 64 rows x BOX
+// columns with the plan's swizzle; rows past S read as zeros. A dimension
+// of size 1 is never stepped, so its stride is replaced by a legal one.
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* p, int B, int S, int H,
+                     const int64_t* st) {
+  using P = FwdPlan<D>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const int sizes[3] = {S, H, B};
+  const int64_t elems[3] = {st[1], st[2], st[0]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = sizes[i] > 1 ? (cuuint64_t)elems[i] * 2 : (cuuint64_t)D * 2;
+  const cuuint32_t box[4] = {(cuuint32_t)P::BOX, (cuuint32_t)FH_BN, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      P::ROW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : P::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// st: (batch, seq, head) strides of q, k, v, o
+template <int D>
+cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int Hq, int Hkv,
+                              int Sq, int Skv, const int64_t* st, int causal,
+                              float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = make_map<D>(&tm_q, q, B, Sq, Hq, st);
+  if (err == cudaSuccess) err = make_map<D>(&tm_k, k, B, Skv, Hkv, st + 3);
+  if (err == cudaSuccess) err = make_map<D>(&tm_v, v, B, Skv, Hkv, st + 6);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
+  err = smem_opt_in(flash_fwd_bf16_kernel<D>, FwdPlan<D>::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + FH_BM - 1) / FH_BM, Hq, B);
+  flash_fwd_bf16_kernel<D><<<grid, FH_THREADS, FwdPlan<D>::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq,
+      Skv, st[9], st[10], st[11], causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -704,9 +1184,14 @@ template <typename T, int D>
 cudaError_t launch_kind(int kind, const FlashArgs& a, cudaStream_t s) {
   switch (kind) {
     case 0:
-      return launch_flash<T, D>(a.q, a.k, a.v, const_cast<void*>(a.x), a.lse,
-                                a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st, a.causal,
-                                a.scale, s);
+      if constexpr (std::is_same<T, float>::value)
+        return launch_flash_f32<D>(a.q, a.k, a.v, const_cast<void*>(a.x),
+                                   a.lse, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
+                                   a.causal, a.scale, s);
+      else
+        return launch_flash_bf16<D>(a.q, a.k, a.v, const_cast<void*>(a.x),
+                                    a.lse, a.B, a.Hq, a.Hkv, a.Sq, a.Skv,
+                                    a.st, a.causal, a.scale, s);
     case 1:
       return launch_bwd_dq<T, D>(a.q, a.k, a.v, a.x, a.lse, a.delta, a.out0,
                                  a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,

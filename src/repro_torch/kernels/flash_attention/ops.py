@@ -66,9 +66,11 @@ def _gqa(Hq: int, Hkv: int, what: str) -> None:
                          f"Hq={Hq} Hkv={Hkv}")
 
 
-def _check_qkv(q, k, v, what: str, extra=()):
+def _check_qkv(q, k, v, what: str, extra=(), align: int = 4):
     """Validate the flash kernels' strided operands: q-shaped ``extra``
-    tensors (do) beside q, k and v. Returns (B, Sq, Hq, Hkv, Skv, D)."""
+    tensors (do) beside q, k and v, base and strides ``align``-byte aligned
+    (the stride of a dim of size 1 is never stepped). Returns (B, Sq, Hq,
+    Hkv, Skv, D)."""
     dtypes = (torch.float32, torch.bfloat16)
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _check(t, name, what, 4, dtypes)
@@ -79,8 +81,11 @@ def _check_qkv(q, k, v, what: str, extra=()):
             raise ValueError(f"{what}: {name} needs a unit stride on its "
                              f"last dim, got strides {t.stride()}")
         esz = t.element_size()
-        if t.data_ptr() % 4 or any(s * esz % 4 for s in t.stride()[:3]):
-            raise ValueError(f"{what}: {name} rows must be 4-byte aligned")
+        if t.data_ptr() % align or any(
+                s * esz % align for s, n in zip(t.stride()[:3], t.shape)
+                if n > 1):
+            raise ValueError(f"{what}: {name} rows must be {align}-byte "
+                             f"aligned (base and strides)")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
@@ -117,13 +122,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None,
                          return_lse: bool = False):
     """GQA attention by the Hopper kernel. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D),
-    float32 or bf16 (all three alike), unit stride on D and 4-byte aligned
-    rows -> (B,Sq,Hq,D) in q's dtype; with ``return_lse`` also lse
-    (B,Hq,Sq) float32, the row logsumexp of the scaled scores (-inf for a
-    row that sees no key). Causal rows are right-aligned (query i sees keys
-    [0, Skv - Sq + i])."""
+    float32 or bf16 (all three alike), unit stride on D, base and strides
+    16-byte aligned (the bf16 kernel reads them by TMA) -> (B,Sq,Hq,D) in
+    q's dtype; with ``return_lse`` also lse (B,Hq,Sq) float32, the row
+    logsumexp of the scaled scores (-inf for a row that sees no key).
+    Causal rows are right-aligned (query i sees keys [0, Skv - Sq + i])."""
     what = "flash_attention"
-    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what)
+    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, align=16)
     scale = D ** -0.5 if scale is None else float(scale)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)

@@ -19,13 +19,17 @@ from typing import Optional
 import torch
 
 
-def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor,
+                round_p: bool = False) -> torch.Tensor:
     """softmax(s) @ v over the last axis of s, in float32, with -inf entries
-    at exactly 0 weight and all-masked rows giving 0."""
+    at exactly 0 weight and all-masked rows giving 0. With ``round_p`` p is
+    rounded once to bf16 before the product; l still sums the float32 p."""
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.bfloat16().float()
     return (p @ v) / l.clamp_min(1e-30)
 
 
@@ -69,6 +73,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s, _ = _scores(q, k, causal, scale)                   # (B,Hkv,G,Sq,Skv)
     vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
     return _heads_last(_softmax_pv(s, vf)).to(q.dtype)
+
+
+def flash_attention_p_rounded(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` with p rounded once to bf16 before PV (l
+    sums the float32 p): what a tensor-core PV without the bf16 forward's
+    hi/lo split of p would compute. No path of the port runs it; the card
+    checks set the bf16 kernel's outputs against it and against
+    :func:`flash_attention`, to show that p keeps float32 accuracy there."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, _ = _scores(q, k, causal, scale)
+    vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
+    return _heads_last(_softmax_pv(s, vf, round_p=True)).to(q.dtype)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

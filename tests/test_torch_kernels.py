@@ -3,6 +3,8 @@
 against the JAX ref, on the same numpy inputs; and the CUDA wrappers' checks
 and chunking. The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_cuda.py."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -210,6 +212,130 @@ def test_flash_attention_ref_matches_pallas_bf16():
     got = fa_ref.flash_attention(*tb, causal=True)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_bhsd(got.float().numpy()), want, **BF16_TOL)
+
+
+#: the split's own bound: bf16 keeps 8 significant bits, so hi = bf16(p) is
+#: within 2^-8 |p| of p and lo = bf16(p - hi) within 2^-8 of that
+#: remainder: hi + lo is within 2^-16 |p|
+SPLIT_REL = 2.0 ** -16
+#: PV from the two halves against the float32 PV, normwise: what the float32
+#: CUDA-core kernel's own summation order costs (near 1e-7)
+SPLIT_PV_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (2, 4, 2, 12, 12, 16, True),
+    (1, 4, 2, 37, 300, 64, True),
+    (2, 6, 3, 50, 50, 32, False),
+    (1, 8, 8, 129, 129, 128, True),
+])
+def test_p_split_into_two_bf16_halves_keeps_float32_pv(B, Hq, Hkv, Sq, Skv,
+                                                       D, causal):
+    """The bf16 flash forward's numerical premise. It runs PV on the
+    tensor cores, whose A operand is bf16, with p in float32 split into hi =
+    bf16(p) and lo = bf16(p - hi). hi + lo carries p to 2^-16 relative, and
+    hi V + lo V against bf16 V, summed in float32, stays within 1e-5
+    normwise of the float32 PV; p rounded once to bf16 does not (each p
+    moves by up to 2^-8 of itself, ~1.4e-3 normwise here), which is the
+    reason for the split. The scores are this file's attention inputs in bf16,
+    and the split's output matches the JAX package's float32 oracle at the
+    attention tolerance."""
+    q, k, v = (torch.from_numpy(_xs((B, S, H, D), seed)).bfloat16().float()
+               for seed, S, H in ((1, Sq, Hq), (2, Skv, Hkv), (3, Skv, Hkv)))
+    g = Hq // Hkv
+    kh = k.repeat_interleave(g, dim=2).transpose(1, 2)     # (B, Hq, Skv, D)
+    vh = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    s = q.transpose(1, 2) @ kh.transpose(-1, -2) * D ** -0.5
+    if causal:
+        rows = torch.arange(Sq)[:, None] + (Skv - Sq)
+        s = s.masked_fill(torch.arange(Skv)[None, :] > rows, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))           # float32
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    assert bool(((hi.float() + lo.float() - p).abs()
+                 <= SPLIT_REL * p.abs()).all())
+    want = p @ vh                                          # float32 PV
+    split = hi.float() @ vh + lo.float() @ vh
+    once = hi.float() @ vh
+
+    def normwise(a):
+        return float((a - want).abs().max() / want.abs().max())
+
+    assert normwise(split) <= SPLIT_PV_RTOL
+    assert normwise(once) > SPLIT_PV_RTOL
+    out = (split / p.sum(-1, keepdim=True)).transpose(1, 2)
+    oracle = jfa_ref.attention(*(jnp.asarray(_bhsd(a.numpy()))
+                                 for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_bhsd(out.numpy()), np.asarray(oracle),
+                               **ATTN_TOL)
+
+
+#: the share of bf16 outputs of the bf16 flash forward that may differ from
+#: the float32-p plain version's, held on the card: float32 sums in another
+#: order move an output across a bf16 rounding boundary a few times in a
+#: thousand; p rounded once to bf16 moves more than a third of them
+P_FLIP_LIMIT = 0.02
+
+
+def _split_in_tiles(q, k, v, causal, tile=64):
+    """The bf16 forward's arithmetic in float32 on the CPU: keys in tiles of
+    ``tile``, the online softmax in base 2, PV as hi V + lo V with p split
+    into hi = bf16(p) and lo = bf16(p - hi), l summing the float32 p."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qh = q.float().transpose(1, 2)
+    kh = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vh = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    s = qh @ kh.transpose(-1, -2) * (D ** -0.5 * math.log2(math.e))
+    if causal:
+        rows = torch.arange(Sq)[:, None] + (Skv - Sq)
+        s = s.masked_fill(torch.arange(Skv)[None, :] > rows, -math.inf)
+    m = torch.full((B, Hq, Sq, 1), -math.inf)
+    l = torch.zeros(B, Hq, Sq, 1)
+    acc = torch.zeros(B, Hq, Sq, D)
+    for j in range(0, Skv, tile):
+        t = s[..., j:j + tile]
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        m0 = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        alpha = torch.exp2(m - m0)
+        p = torch.exp2(t - m0)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        vt = vh[..., j:j + tile, :]
+        acc = acc * alpha + hi @ vt + lo @ vt
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (1, 8, 4, 256, 256, 128, True),
+    (2, 4, 2, 64, 333, 64, True),
+    (1, 4, 2, 100, 300, 16, False),
+])
+def test_p_rounded_once_flips_bf16_outputs_the_split_keeps(B, Hq, Hkv, Sq,
+                                                           Skv, D, causal):
+    """The premise of the card check that the bf16 forward keeps p at
+    float32 accuracy. On bf16 inputs, the share of bf16 outputs that differ
+    from the float32-p plain version's (``flash_attention``) stays under
+    ``P_FLIP_LIMIT`` for the kernel's arithmetic (tiles, base-2 online
+    softmax, hi/lo split), and p rounded once (``flash_attention_p_rounded``)
+    exceeds it: a kernel that dropped the lo products, or read V wrongly in
+    them, fails the limit although its normwise error would pass 8e-3."""
+    q, k, v = (torch.from_numpy(_xs((B, S, H, D), seed)).bfloat16()
+               for seed, S, H in ((1, Sq, Hq), (2, Skv, Hkv), (3, Skv, Hkv)))
+    want = fa_ref.flash_attention(q, k, v, causal=causal)
+    once = fa_ref.flash_attention_p_rounded(q, k, v, causal=causal)
+    split = _split_in_tiles(q, k, v, causal)
+
+    def flips(got):
+        return float((got != want).float().mean())
+
+    assert flips(split) <= P_FLIP_LIMIT < flips(once)
+    # the once-rounded version is the float32-p one but for that rounding
+    np.testing.assert_allclose(once.float().numpy(), want.float().numpy(),
+                               rtol=2 ** -7, atol=2 ** -7)
 
 
 def _paged_inputs(B, Hq, Hkv, D, P, npages, kv, seed=0):

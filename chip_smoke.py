@@ -43,21 +43,23 @@ What it does, in order; any failure raises and the exit code is not 0:
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
-   at D=64 and in float32 (the bf16 timings also print the achieved
-   TFLOP/s, model FLOPs over kernel time, and the share of the bf16 bound;
+   at D=64, at zamba2's D=80 (32 heads, zero-padded to 128) and in
+   float32 (the bf16 timings also print the achieved TFLOP/s, model FLOPs
+   over kernel time, and the share of the bf16 bound;
    the JSON entry names the tensor-core route, ``wgmma+tma``; at each bf16
    shape the share of outputs that differ from the float32-p plain
    version's must stay under 2%, where p rounded once to bf16 exceeds it);
    ``paged_decode`` at the engine's shape (B=8, Hq=16,
    Hkv=8, D=128, page size 16, 64 pages a slot, valid 1..1024, table
    entries past valid at page 0) with bf16, int8 (with scales) and float32
-   pools, and with page size 5. Each against its plain version,
-   normwise (max |kernel - plain| / max |plain|): at most 1e-5 for float32
-   outputs (float32 sums in another order) and 8e-3 for bf16 outputs (one
-   bf16 rounding at the top of the range, 2^-7). Times: kernel and plain
-   version with CUDA events after warm-up (paged decode with the L2 cache
-   flushed before each launch, as 24 layers' pools find it; flash_attention
-   and its SDPA yardstick also, as a diagnostic, with the card asleep while
+   pools, with page size 5, and at D=80 (32 heads). Each against its plain
+   version, normwise (max |kernel - plain| / max |plain|): at most 1e-5
+   for float32 outputs (float32 sums in another order) and 8e-3 for bf16
+   outputs (one bf16 rounding at the top of the range, 2^-7). Times:
+   kernel and plain version with CUDA events after warm-up (paged decode
+   with the L2 cache flushed before each launch, as 24 layers' pools find
+   it; flash_attention and its SDPA yardstick also, as a diagnostic, with
+   the card asleep while
    the host enqueues the timed span, so a wrapper's host time does not
    hide the kernel's), and the
    library yardstick ``scaled_dot_product_attention``, timed alone on the
@@ -89,14 +91,20 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``--preset full --page-size 16``;
 10. backward kernel phase: the lse forward (o and lse), ``flash_dq`` and
    ``flash_dkv`` at the training shape (B=8, Hq=16, Hkv=8, S=1024, D=128,
-   causal, bf16) and at phase 7's shapes (ragged S=1000, right-aligned
-   Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512), each
-   against its plain version, normwise as in phase 7 (lse absolute, 1e-4);
-   two launches of each backward kernel bit-equal; kernel and plain
-   version timed with CUDA events (the lse forward's achieved TFLOP/s and
-   share of the bf16 bound beside them), beside their bounds and the library
-   yardstick, the backward of ``scaled_dot_product_attention`` (KV heads
-   repeated, its backward timed alone);
+   causal, bf16), at phase 7's shapes (ragged S=1000, right-aligned
+   Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512) and at
+   zamba2's D=80, each against its plain version, normwise as in phase 7
+   (lse absolute, 1e-4); at each bf16 shape the share of dq, dk and dv
+   outputs that differ from the float32 plain version's must stay under 2%,
+   where p and ds rounded once to bf16 (``ref.flash_dq_rounded``,
+   ``flash_dkv_rounded``) exceed it; two launches of each backward kernel
+   bit-equal; kernel and plain version timed with CUDA events (each bf16
+   kernel's achieved TFLOP/s, of model work and of the work its tensor
+   cores run with the hi/lo split, and its share of the bf16 bound beside
+   them; the JSON entries name the tensor-core route, ``wgmma+tma``),
+   beside their bounds and the library yardstick, the backward of
+   ``scaled_dot_product_attention`` (KV heads repeated, its backward timed
+   alone);
 11. train phase, full width: internlm2-1.8b with float32 masters from a
    seeded ``torch.Generator``, ``make_train_step(ca_k=4, remat=True)`` on
    ``TokenStream(32, 1024, seed 0)``: one warm-up step, then three steps
@@ -104,9 +112,12 @@ What it does, in order; any failure raises and the exit code is not 0:
    24 * ca_k times a step and the lse forward twice that (forward and
    recompute); for one microbatch every attention call of the forward and
    the backward held to its plain version on that call's own inputs
-   (normwise 8e-3 for o, dq, dk and dv; each lse absolute, 1e-4); ms/step, tokens/s, the share of 989 TFLOP/s the model's FLOPs
-   reach, peak memory and one profiled step. Then the JAX package's own
-   training checks (tests/test_train.py) on the card at the smoke config:
+   (normwise 8e-3 for o, dq, dk and dv; each lse absolute, 1e-4);
+   ms/step, tokens/s, the share of 989 TFLOP/s the model's FLOPs reach,
+   peak memory and one profiled step (each port kernel's device time and
+   share of the step, and the backward pair's together). Then the JAX
+   package's own training checks (tests/test_train.py) on the card at the
+   smoke config:
    30 steps on one batch at lr 1e-2 bring the loss below 0.7 of the first,
    the CA-accumulated grad equals the full-batch grad (atol 5e-3, rtol
    5e-2), CA k=2 and the classical schedule both run; and once the CLI,
@@ -116,9 +127,9 @@ What it does, in order; any failure raises and the exit code is not 0:
 12. SSD kernel phase: ``ssd`` (y, the final state and the per-chunk
    states) and ``ssd_bwd`` (dxdt, da, dB and dC per head) at the training
    shape (Bt=8, S=1024, H=48, P=64, N=128, chunk 64, bf16 x), the forward's
-   (Bt=2, S=512), ragged (S=1000), shorter than a chunk (S=37), chunk 32
-   and float32 x, two of them with mamba2's decay (A = -(1..16)), where exp
-   overflows above the diagonal. Each against its plain version (which
+   (Bt=2, S=512), ragged (S=1000), shorter than a chunk (S=37), chunk 32,
+   float32 x and zamba2's heads (H=80, N=64), three of them with mamba2's
+   decay (A = -(1..16)), where exp overflows above the diagonal. Each against its plain version (which
    sums in float64), normwise: float32 outputs 1e-5, y in bf16 8e-3, da
    1e-4 (its reverse cumsum subtracts large terms); two launches of each
    bit-equal; kernel and plain version timed with CUDA events beside their
@@ -345,15 +356,21 @@ def _rate(dtype) -> float:
             torch.int8: INT8_OP_PER_S}[dtype]
 
 
-#: how the bf16 flash forward reaches the tensor cores and loads its tiles
-FLASH_FWD_ROUTE = "wgmma+tma"
+#: how the bf16 flash kernels (the forward, flash_dq and flash_dkv) reach
+#: the tensor cores and load their tiles
+FLASH_ROUTE = "wgmma+tma"
 
 
-def _tensor_core_line(flops: float, ms: float, bms: float) -> str:
-    """The bf16 forward's achieved rate (model FLOPs over kernel time) and
-    its share of the bound, for a timing line."""
-    return (f" achieved={flops / ms / 1e9:.1f}TFLOP/s "
-            f"({100 * bms / ms:.1f}% of the bf16 bound; {FLASH_FWD_ROUTE})")
+def _tensor_core_line(flops: float, ms: float, bms: float,
+                      split_flops: float = 0.0) -> str:
+    """A bf16 flash kernel's achieved rate (model FLOPs over kernel time;
+    with ``split_flops``, also the FLOPs its tensor cores run with p, or p
+    and ds, split into two bf16 halves) and its share of the bound, for a
+    timing line."""
+    split = (f", {split_flops / ms / 1e9:.1f}TFLOP/s with the split"
+             if split_flops else "")
+    return (f" achieved={flops / ms / 1e9:.1f}TFLOP/s{split} "
+            f"({100 * bms / ms:.1f}% of the bf16 bound; {FLASH_ROUTE})")
 
 
 def attention_kernel_phase(dev):
@@ -382,6 +399,7 @@ def attention_kernel_phase(dev):
             (2, 16, 8, 64, 1000, 128, True, bf16),      # right-aligned
             (2, 16, 8, 37, 300, 128, False, bf16),      # not causal
             (2, 16, 8, 512, 512, 64, True, bf16),       # D=64
+            (2, 32, 32, 512, 512, 80, True, bf16),      # zamba2's D=80
             (2, 16, 8, 512, 512, 128, True, f32)):
         q = normal((Bq, Sq, Hq, D), dtype)
         k = normal((Bq, Skv, Hkv, D), dtype)
@@ -450,15 +468,17 @@ def attention_kernel_phase(dev):
                 replaces="src/repro/kernels/flash_attention/kernel.py:250",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=lib,
-                tensor_core_route=FLASH_FWD_ROUTE)
+                tensor_core_route=FLASH_ROUTE)
         del q, k, v, got, want
 
     print("kernel phase: paged_decode")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for kv, P, npages in (("bf16", 16, 64), ("int8", 16, 64),
-                          ("f32", 16, 64), ("bf16", 5, 205),
-                          ("int8", 5, 205)):
-        Bq, Hq, Hkv, D = 8, 16, 8, 128
+    for kv, P, npages, Hq, Hkv, D in (
+            ("bf16", 16, 64, 16, 8, 128), ("int8", 16, 64, 16, 8, 128),
+            ("f32", 16, 64, 16, 8, 128), ("bf16", 5, 205, 16, 8, 128),
+            ("int8", 5, 205, 16, 8, 128),
+            ("bf16", 16, 64, 32, 32, 80)):           # zamba2's heads
+        Bq = 8
         num_pages = 1 + Bq * npages
         valid = np.linspace(1, min(npages * P, 1024), Bq).astype(np.int32)
         perm = rng.permutation(np.arange(1, num_pages)).reshape(Bq, npages)
@@ -521,7 +541,7 @@ def attention_kernel_phase(dev):
               f"(L2 flushed; {warm:.4f}ms back to back) plain={plain:.4f}ms "
               f"sdpa={lib:.4f}ms bound={bms:.5f}ms ({by}) valid "
               f"tokens={int(tokens)} host={host:.1f}us/call")
-        if kv == "bf16" and P == 16:
+        if kv == "bf16" and P == 16 and D == 128:
             entries["paged_decode"] = dict(
                 name="paged_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -924,12 +944,14 @@ def serve_phase(dev, cfg, params):
 
 
 #: phase 10's shapes (B, Hq, Hkv, Sq, Skv, D, causal, dtype name): the train
-#: step's first, then phase 7's
+#: step's first, then phase 7's, then zamba2's attention (32 heads of 80,
+#: run zero-padded to 128)
 BWD_SHAPES = ((8, 16, 8, 1024, 1024, 128, True, "bfloat16"),
               (2, 16, 8, 1000, 1000, 128, True, "bfloat16"),    # ragged
               (2, 16, 8, 64, 1000, 128, True, "bfloat16"),      # right-aligned
               (2, 16, 8, 37, 300, 128, False, "bfloat16"),      # not causal
-              (2, 16, 8, 512, 512, 128, True, "float32"))
+              (2, 16, 8, 512, 512, 128, True, "float32"),
+              (2, 32, 32, 512, 512, 80, True, "bfloat16"))      # D=80
 
 
 def backward_kernel_phase(dev):
@@ -981,6 +1003,25 @@ def backward_kernel_phase(dev):
         err_dq = _normwise("flash_dq", shape, dq, wdq, tol)
         err_dkv = max(_normwise("flash_dkv: dk", shape, dk, wdk, tol),
                       _normwise("flash_dkv: dv", shape, dv, wdv, tol))
+        if dtype == torch.bfloat16:
+            # p and ds kept at float32 accuracy through their hi/lo split:
+            # the normwise limit cannot tell it from rounding them once
+            once = (fa_ref.flash_dq_rounded(*args, causal=causal),
+                    *fa_ref.flash_dkv_rounded(*args, causal=causal))
+            for name, got, want, rnd in zip(("dq", "dk", "dv"),
+                                            (dq, dk, dv), (wdq, wdk, wdv),
+                                            once):
+                flips, flips_once = (float((x != want).float().mean())
+                                     for x in (got, rnd))
+                print(f"  p, ds split: {name} {str(shape):40s} outputs off "
+                      f"the float32 version's bf16: {100 * flips:.3f}% (p "
+                      f"and ds rounded once: {100 * flips_once:.3f}%; limit "
+                      f"{100 * P_FLIP_LIMIT:g}%)")
+                check(flips <= P_FLIP_LIMIT < flips_once,
+                      f"{name}{shape}: {flips:.4f} of the outputs off the "
+                      f"float32 version (rounded once: {flips_once:.4f}, "
+                      f"limit {P_FLIP_LIMIT})")
+            del once
         del wdq, wdk, wdv
         same = (torch.equal(dq, fa_ops.flash_dq_cuda(*args, causal=causal))
                 and all(torch.equal(a, b) for a, b in zip(
@@ -1029,19 +1070,24 @@ def backward_kernel_phase(dev):
         b_lse = bound_ms(2 * qb + 2 * kb + rows, 2 * pf, _rate(dtype))
         b_dq = bound_ms(3 * qb + 2 * kb + 2 * rows, 3 * pf, _rate(dtype))
         b_dkv = bound_ms(2 * qb + 4 * kb + 2 * rows, 4 * pf, _rate(dtype))
-        for name, (bms, by), ms, plain in (
-                ("lse forward", b_lse, t["lse"], t["lse_plain"]),
-                ("flash_dq", b_dq, t["dq"], t["dq_plain"]),
-                ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"])):
+        # (name, bound, kernel ms, plain ms, model products, products the
+        # tensor cores run with p (and ds) split in two halves)
+        for name, (bms, by), ms, plain, n_model, n_split in (
+                ("lse forward", b_lse, t["lse"], t["lse_plain"], 2, 3),
+                ("flash_dq", b_dq, t["dq"], t["dq_plain"], 3, 4),
+                ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"], 4, 6)):
             print(f"  time {name:11s} {str(shape):44s} kernel={ms:.4f}ms "
-                  f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}, "
+                  f"plain={plain:.4f}ms sdpa_backward={t['sdpa_bwd']:.4f}ms "
+                  f"bound={bms:.5f}ms ({by}, "
                   f"{tname} peak) float32-CUDA-core bound="
                   f"{bms * _rate(dtype) / F32_FLOP_PER_S:.5f}ms"
-                  + (_tensor_core_line(2 * pf, ms, bms)
-                     if name == "lse forward" and tname == "bfloat16"
-                     else ""))
+                  + (_tensor_core_line(n_model * pf, ms, bms,
+                                       n_split * pf)
+                     if tname == "bfloat16" else ""))
         print(f"  time sdpa {str(shape):44s} forward={t['sdpa_fwd']:.4f}ms "
-              f"backward={t['sdpa_bwd']:.4f}ms (dq, dk and dv together)")
+              f"backward={t['sdpa_bwd']:.4f}ms (dq, dk and dv together); "
+              f"flash_dq + flash_dkv {t['dq'] + t['dkv']:.4f}ms, "
+              f"{(t['dq'] + t['dkv']) / t['sdpa_bwd']:.2f}x")
         for name, (bms, by), ms, plain, err in (
                 ("flash_dq", b_dq, t["dq"], t["dq_plain"], err_dq),
                 ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"], err_dkv)):
@@ -1052,7 +1098,8 @@ def backward_kernel_phase(dev):
                           if name == "flash_dq" else
                           "src/repro/kernels/flash_attention/backward.py:178"),
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=t["sdpa_bwd"])
+                bound_ms=bms, bound_by=by, library_ms=t["sdpa_bwd"],
+                tensor_core_route=FLASH_ROUTE)
         lse_times = dict(ms=t["lse"], plain_ms=t["lse_plain"],
                          bound_ms=b_lse[0], library_ms=t["sdpa_fwd"],
                          max_abs_err=max(err_o, err_l),
@@ -1069,7 +1116,8 @@ SSD_SHAPES = ((8, 1024, 48, 64, 128, 64, "bfloat16", "test"),
               (2, 1000, 48, 64, 128, 64, "bfloat16", "test"),  # ragged
               (2, 37, 48, 64, 128, 64, "bfloat16", "test"),    # S < chunk
               (2, 512, 48, 64, 128, 32, "bfloat16", "test"),   # chunk 32
-              (2, 512, 48, 64, 128, 64, "float32", "model"))
+              (2, 512, 48, 64, 128, 64, "float32", "model"),
+              (2, 512, 80, 64, 64, 64, "bfloat16", "model"))   # zamba2
 
 
 def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay):
@@ -1426,13 +1474,20 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
               f"busy), {sum(r[2] for r in rows)} kernel launches")
         for key, us, count in rows[:12]:
             print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
-        # the port's own kernels, each with its share of the step
+        # the port's own kernels, each with its share of the step, and the
+        # attention backward's pair together
+        pair = 0.0
         for key, us, count in rows:
             name = re.search(r"(flash_\w+|ssd_\w+)", key)
             if name:
                 print(f"  kernel {name.group(1)}: {us / 1e3:.3f} ms "
                       f"x{count}, {100 * us / 1e6 / wall:.1f}% of the "
                       f"profiled step")
+                if name.group(1).startswith("flash_bwd"):
+                    pair += us
+        if cfg.family != "ssm":
+            print(f"  flash_dq + flash_dkv: {pair / 1e3:.3f} ms, "
+                  f"{100 * pair / 1e6 / wall:.1f}% of the profiled step")
     finally:
         stream.close()
     del state

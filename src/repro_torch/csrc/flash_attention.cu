@@ -86,35 +86,68 @@
 //
 // 3. flash_attention_bwd_dq replaces the Pallas kernel `flash_dq`
 //    (src/repro/kernels/flash_attention/backward.py:125, body `_dq_kernel`
-//    :50). One CTA per (q tile of 64 rows, q head, batch row), the same grid
-//    and causal block skip as the forward: the Q and dO tiles stay in
-//    shared memory, K/V tiles of 64 rows stream through it, and per tile
-//    the CTA recomputes s = q k^T and dp = do v^T (float32), p = exp(s*scale
-//    - lse) on visible entries and 0 elsewhere, ds = p (dp - delta), and
-//    adds ds k to a 64 x D float32 accumulator in registers; dq =
-//    scale * acc. delta = rowsum(do * o), (B, Hq, Sq) float32, comes from
-//    the caller.
+//    :50). Per tile of keys it recomputes s = q k^T and dp = do v^T, p =
+//    exp(s * scale - lse) on visible entries and 0 elsewhere, ds = p (dp -
+//    delta), and adds ds k to a float32 accumulator; dq = scale * acc.
+//    delta = rowsum(do * o), (B, Hq, Sq) float32, comes from the caller.
+//    bf16 (`flash_bwd_dq_bf16_kernel`, the only bf16 body): the forward's
+//    design with two score products. One CTA per (128 query rows, q head,
+//    batch row): a producer warpgroup whose one thread loads the Q and dO
+//    tiles once by TMA and keeps 64-row K/V tiles in flight through the
+//    2-slot ring, and two consumer warpgroups of 64 rows each. Per tile,
+//    S = Q K^T and dP = dO V^T run as wgmmas with both operands K-major in
+//    shared memory; p = exp2(s * scale * log2 e - lse * log2 e) (exp2 of
+//    the select only: masked entries are exactly 0) and ds = p (dp - delta)
+//    are formed in the accumulators' registers, with lse and delta of the
+//    thread's two rows read once. ds is split into hi = bf16(ds) and lo =
+//    bf16(ds - hi), as the forward splits p, and dQ += hi K + lo K runs as
+//    register-A wgmmas against the same K tile read MN-major, so ds reaches
+//    the tensor cores at about 2^-16 of itself, not at bf16's 2^-8. Under
+//    causal the heaviest q tiles launch first and kv tiles past the last
+//    visible key are never loaded.
+//    float32 (`flash_bwd_dq_f32_kernel`) keeps the CUDA-core body, for the
+//    forward's reasons (note 1): one CTA per (64 query rows, q head, batch
+//    row), Q and dO in shared memory, K/V tiles of 64 rows loaded in
+//    32-bit words between two barriers, s, dp and ds k as float32 fmaf.
 //
 // 4. flash_attention_bwd_dkv replaces the Pallas kernel `flash_dkv`
 //    (backward.py:157, body `_dkv_kernel` :84) together with the sum over
-//    the GQA group that the JAX wrapper does outside it (ops.py:108-111).
-//    One CTA per (kv tile of 64 rows, kv head, batch row): the K/V tile
-//    stays in shared memory and the CTA walks the group's query heads and,
-//    for each, the q tiles that can see the kv tile (the forward's causal
-//    skip, transposed), recomputing p and ds per tile and adding p^T do and
-//    ds^T q to two 64 x D float32 accumulators in registers; dk =
-//    scale * acc_k, dv = acc_v. So there is no (B, Hq, Skv, D) buffer and
-//    no atomics.
-//    Both backward kernels sum in one fixed order (kv tiles in order for
-//    dq; query heads, then q tiles, in order for dk/dv), so a launch gives
-//    the same bits every time, and a row's result never depends on the
-//    batch. Operands keep the model's strided (B, S, H, D) layout.
+//    the GQA group that the JAX wrapper does outside it (ops.py:108-111):
+//    dk = scale * sum ds^T q and dv = sum p^T do over the group's query
+//    heads and their visible queries, with no (B, Hq, Skv, D) buffer and no
+//    atomics.
+//    bf16 (`flash_bwd_dkv_bf16_kernel`, the only bf16 body): one CTA per
+//    (128 keys, kv head, batch row). TMA loads its K and V tiles once; the
+//    producer's thread 0 streams 64-row Q and dO tiles through a 2-slot
+//    ring and its second warp the tiles' lse (base 2) and delta rows,
+//    walking the group's query heads and, for each, the q tiles that can
+//    see the CTA's keys (the forward's causal skip, transposed), in one
+//    fixed order. Each consumer warpgroup owns 64 keys and computes the
+//    transposed scores directly, S^T = K Q^T and dP^T = V dO^T (wgmma,
+//    both K-major), so p^T and ds^T sit in the accumulator layout, which is
+//    the register-A fragment layout: dV += p^T dO and dK += ds^T Q run as
+//    register-A wgmmas against dO and Q read MN-major, each operand split
+//    hi + lo as in dq; lse and delta index the accumulator's columns. dK
+//    and dV stay in float32 registers over the whole walk (setmaxnreg 24
+//    for the producer, 240 for the consumers) and are written once in bf16.
+//    float32 (`flash_bwd_dkv_f32_kernel`) keeps the CUDA-core body: one CTA
+//    per (64 keys, kv head, batch row), p^T and ds^T through shared memory,
+//    p^T do and ds^T q as float32 fmaf.
+//    Masking in both bf16 kernels is with true -inf, only on the tiles that
+//    need it (the diagonal under causal, ragged edges); rows past Sq and
+//    keys past Skv arrive as TMA's zero fill. Both backward kernels sum in
+//    one fixed order (kv tiles in order, hi before lo, for dq; query heads,
+//    then q tiles, for dk/dv), so a launch gives the same bits every time
+//    and a row's result never depends on the batch. Operands keep the
+//    model's strided (B, S, H, D) layout; in bf16 their bases and strides
+//    are 16-byte aligned, TMA's rule.
 //    What bounds them on an H100: at the training shape (B=8, Hq=16,
 //    Hkv=8, S=1024, D=128, causal, bf16) dq does three products and dk/dv
 //    four over the 67 M visible (query, key) pairs (2 D FLOP each): 52 and
 //    69 GFLOP against ~135 MB moved, so operations: 52 and 70 us on the
-//    bf16 tensor cores, 0.77 and 1.03 ms on the float32 CUDA cores where
-//    these kernels run every product.
+//    bf16 tensor cores (0.77 and 1.03 ms on the float32 CUDA cores). The
+//    hi/lo split makes the tensor cores do 4 and 6 products, 69 and 103
+//    GFLOP; the bound counts the model's work.
 //
 // Every C entry returns cudaGetLastError() after its launch.
 #include <cuda.h>
@@ -147,9 +180,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // two consecutive elements (the first at an even index) as floats
 __device__ __forceinline__ float2 load2(const float* p) {
   return make_float2(p[0], p[1]);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // ---------------------------------------------------------- flash attention
@@ -503,6 +533,59 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// x0, x1 in float32 as one A-fragment register of each half: hi =
+// bf16(x), lo = bf16(x - hi), which carry x to about 2^-16 relative
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// d (64 x 64) = A B^T over the head dim, A and B 64-row tiles of the
+// plan's layout read K-major: one wgmma per 16 columns of D, not committed
+template <int D>
+__device__ __forceinline__ void wgmma_tiles_nt(float (&d)[32], uint32_t a,
+                                               uint32_t b) {
+  using P = FwdPlan<D>;
+  constexpr uint32_t SBO = 8 * P::ROW;  // the next 8 rows
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 32 bytes of D a step: box kk * 32 / ROW, at kk * 32 % ROW in it
+    const uint32_t off = (kk * 32 / P::ROW) * P::BOX_BYTES + kk * 32 % P::ROW;
+    wgmma_ss_n64(d, gmma_desc(a + off, 16, SBO, P::SWIZZLE),
+                 gmma_desc(b + off, 16, SBO, P::SWIZZLE), kk > 0);
+  }
+}
+
+// d (64 x D) += hi B + lo B: hi and lo the A fragments of a 64 x 64
+// operand (pair c = 2 j + r is register c % 4 of k-step c / 4), B a 64-row
+// tile of the plan's layout read MN-major (the transpose bit); hi's four
+// wgmmas, then lo's, not committed
+template <int D>
+__device__ __forceinline__ void wgmma_split_nn(float (&d)[D / 2],
+                                               const uint32_t (&hi)[16],
+                                               const uint32_t (&lo)[16],
+                                               uint32_t b) {
+  using P = FwdPlan<D>;
+  constexpr uint32_t SBO = 8 * P::ROW;  // the next 8 rows of B
+#pragma unroll
+  for (int kk = 0; kk < FH_BN / 16; ++kk) {
+    const uint32_t a[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                           hi[4 * kk + 3]};
+    wgmma_rs<D>(d, a, gmma_desc(b + kk * 16 * P::ROW, P::BOX_BYTES, SBO,
+                                P::SWIZZLE));
+  }
+#pragma unroll
+  for (int kk = 0; kk < FH_BN / 16; ++kk) {
+    const uint32_t a[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                           lo[4 * kk + 3]};
+    wgmma_rs<D>(d, a, gmma_desc(b + kk * 16 * P::ROW, P::BOX_BYTES, SBO,
+                                P::SWIZZLE));
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(FH_THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -581,7 +664,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   int wg_end = 0;  // keys [0, wg_end) can be visible to one of its rows
   if (row0 < Sq) wg_end = causal ? min(Skv, q_offset + row0 + 64) : Skv;
   const uint32_t q_tile = q_s + w * P::TILE;
-  constexpr uint32_t SBO = 8 * P::ROW;  // the next 8 rows (K-major) or keys
 
   float acc[D / 2];
 #pragma unroll
@@ -597,17 +679,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (k0 < wg_end) {
       // S = Q K^T, 16 columns of D a step (the first overwrites sc)
       float sc[32];
-      const uint32_t k_tile = k_s + s * P::TILE;
       fence_regs(sc);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // 32 bytes of D a step: box kk * 32 / ROW, at kk * 32 % ROW in it
-        const uint32_t off =
-            (kk * 32 / P::ROW) * P::BOX_BYTES + kk * 32 % P::ROW;
-        wgmma_ss_n64(sc, gmma_desc(q_tile + off, 16, SBO, P::SWIZZLE),
-                     gmma_desc(k_tile + off, 16, SBO, P::SWIZZLE), kk > 0);
-      }
+      wgmma_tiles_nt<D>(sc, q_tile, k_s + s * P::TILE);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -652,10 +726,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float p0 = exp2f(sc[2 * c] - mu[r]);
         const float p1 = exp2f(sc[2 * c + 1] - mu[r]);
         rs[r] += p0 + p1;
-        const __nv_bfloat162 ph = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(ph);
-        hi[c] = bf16x2_bits(ph);
-        lo[c] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+        split_pair(p0, p1, hi[c], lo[c]);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
@@ -663,23 +734,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
 
       // O += hi V + lo V, 16 keys a step
-      const uint32_t v_tile = v_s + s * P::TILE;
       fence_regs(acc);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < FH_BN / 16; ++kk) {
-        const uint32_t a[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
-                               hi[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, gmma_desc(v_tile + kk * 16 * P::ROW,
-                                      P::BOX_BYTES, SBO, P::SWIZZLE));
-      }
-#pragma unroll
-      for (int kk = 0; kk < FH_BN / 16; ++kk) {
-        const uint32_t a[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
-                               lo[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, gmma_desc(v_tile + kk * 16 * P::ROW,
-                                      P::BOX_BYTES, SBO, P::SWIZZLE));
-      }
+      wgmma_split_nn<D>(acc, hi, lo, v_s + s * P::TILE);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -712,22 +769,445 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Operands of the backward kernels: base pointers and (batch, seq, head)
-// strides in elements, the unit-stride head dim last.
-template <typename T>
+// ------------------------------------------ flash attention backward, bf16
+// (see the file's notes 3 and 4)
+constexpr float FH_LOG2E = 1.4426950408889634f;
+
+// Shared-memory plan of the bf16 dq kernel at head dim D, in the forward's
+// tile layout: the Q and dO tiles of the two consumer warpgroups, the
+// ring's K and V slots, then the mbarriers (Q/dO, full and empty a slot).
+template <int D>
+struct DqPlan {
+  static constexpr uint32_t TILE = FwdPlan<D>::TILE;
+  static constexpr uint32_t Q_OFF = 0;
+  static constexpr uint32_t DO_OFF = 2 * TILE;
+  static constexpr uint32_t K_OFF = 4 * TILE;
+  static constexpr uint32_t V_OFF = K_OFF + FH_STAGES * TILE;
+  static constexpr uint32_t BAR_OFF = V_OFF + FH_STAGES * TILE;
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * FH_STAGES) + 1024;
+};
+
+// ... of the bf16 dk/dv kernel: the K and V tiles of the two consumer
+// warpgroups, the ring's Q and dO slots, each slot's 64 lse (base 2) and
+// 64 delta values, then the mbarriers (K/V, full and empty a slot).
+template <int D>
+struct DkvPlan {
+  static constexpr uint32_t TILE = FwdPlan<D>::TILE;
+  static constexpr uint32_t K_OFF = 0;
+  static constexpr uint32_t V_OFF = 2 * TILE;
+  static constexpr uint32_t Q_OFF = 4 * TILE;
+  static constexpr uint32_t DO_OFF = Q_OFF + FH_STAGES * TILE;
+  static constexpr uint32_t ROWS_OFF = DO_OFF + FH_STAGES * TILE;
+  static constexpr uint32_t ROWS = 2 * FH_BN;  // floats a slot
+  static constexpr uint32_t BAR_OFF = ROWS_OFF + FH_STAGES * ROWS * 4;
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * FH_STAGES) + 1024;
+};
+
+// dq of one (128 query rows, q head, batch row); see the file's note 3
+template <int D>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int Hq, int Hkv,
+                         int Sq, int Skv, int64_t dsb, int64_t dss,
+                         int64_t dsh, int causal, float scale) {
+  using P = FwdPlan<D>;
+  using L = DqPlan<D>;
+  extern __shared__ unsigned char fh_smem[];
+  const uint32_t base = (smem_addr(fh_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base + L::Q_OFF;
+  const uint32_t do_s = base + L::DO_OFF;
+  const uint32_t k_s = base + L::K_OFF;
+  const uint32_t v_s = base + L::V_OFF;
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;                  // + 8 * slot
+  const uint32_t bar_empty = bar_full + 8 * FH_STAGES;  // + 8 * slot
+
+  // under causal the last q tiles see the most keys: launch them first
+  const int tile = causal ? (int)(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = tile * FH_BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q_offset = Skv - Sq;
+  // keys [0, kv_end) can be visible to some row of this CTA
+  const int kv_end = causal ? min(Skv, q_offset + q0 + FH_BM) : Skv;
+  const int n_tiles = kv_end > 0 ? (kv_end + FH_BN - 1) / FH_BN : 0;
+  const int q_tiles = q0 + 64 < Sq ? 2 : 1;  // 64-row Q tiles with a row
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < FH_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread loads Q and dO, then keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, 2 * q_tiles * P::TILE);
+      for (int w = 0; w < q_tiles; ++w)
+        for (int x = 0; x < P::NBOX; ++x) {
+          tma_load(q_s + w * P::TILE + x * P::BOX_BYTES, &tm_q, bar_q,
+                   x * P::BOX, q0 + 64 * w, h, b);
+          tma_load(do_s + w * P::TILE + x * P::BOX_BYTES, &tm_do, bar_q,
+                   x * P::BOX, q0 + 64 * w, h, b);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FH_STAGES;
+        // the slot's previous tile has been read by both consumers
+        if (i >= FH_STAGES)
+          mbar_wait(bar_empty + 8 * s, (i / FH_STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * P::TILE);
+        for (int x = 0; x < P::NBOX; ++x) {
+          tma_load(k_s + s * P::TILE + x * P::BOX_BYTES, &tm_k, full,
+                   x * P::BOX, i * FH_BN, hk, b);
+          tma_load(v_s + s * P::TILE + x * P::BOX_BYTES, &tm_v, full,
+                   x * P::BOX, i * FH_BN, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows [row0, row0 + 64); this thread holds
+  // rows r_lo and r_lo + 8, columns 8 j + 2 t + {0, 1} of each accumulator
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * w;
+  const int r_lo = row0 + 16 * warp + g;
+  int wg_end = 0;  // keys [0, wg_end) can be visible to one of its rows
+  if (row0 < Sq) wg_end = causal ? min(Skv, q_offset + row0 + 64) : Skv;
+  const uint32_t q_tile = q_s + w * P::TILE;
+  const uint32_t do_tile = do_s + w * P::TILE;
+  const float scale_log2 = scale * FH_LOG2E;
+
+  // the two rows' lse (base 2; -inf for a row that sees no key) and delta;
+  // 0 past Sq, where Q and dO read as zeros, so ds is 0 there
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    const int64_t at = ((int64_t)b * Hq + h) * Sq + row;
+    lse2[r] = row < Sq ? lse[at] * FH_LOG2E : 0.f;
+    dl[r] = row < Sq ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (n_tiles > 0 && wg_end > 0) mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % FH_STAGES;
+    mbar_wait(bar_full + 8 * s, (i / FH_STAGES) & 1);
+    const int k0 = i * FH_BN;
+    if (k0 < wg_end) {
+      // S = Q K^T and dP = dO V^T
+      float sc[32], dp[32];
+      const uint32_t k_tile = k_s + s * P::TILE;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      wgmma_tiles_nt<D>(sc, q_tile, k_tile);
+      wgmma_tiles_nt<D>(dp, do_tile, v_s + s * P::TILE);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p and ds on the accumulators: sc[4 j + 2 r + e] is row r_lo + 8 r,
+      // key k0 + 8 j + 2 t + e; ds split into the A fragments hi and lo,
+      // pair c = 2 j + r
+      const bool masked = k0 + FH_BN > Skv ||
+                          (causal && k0 + FH_BN - 1 > q_offset + row0);
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int r = c % 2;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 2 * c + e;
+          float x = sc[j] * scale_log2 - lse2[r];
+          if (masked) {
+            const int kpos = k0 + 8 * (c / 2) + 2 * t + e;
+            const int qpos = q_offset + r_lo + 8 * r;
+            if (kpos >= Skv || (causal && kpos > qpos)) x = -CUDART_INF_F;
+          }
+          ds[e] = exp2f(x) * (dp[j] - dl[r]);
+        }
+        split_pair(ds[0], ds[1], hi[c], lo[c]);
+      }
+
+      // dQ += hi K + lo K, 16 keys a step, K read MN-major
+      fence_regs(acc);
+      wgmma_fence();
+      wgmma_split_nn<D>(acc, hi, lo, k_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty + 8 * s);  // this warpgroup is done with the slot
+  }
+
+  __nv_bfloat16* out = dq + b * dsb + h * dsh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = out + (int64_t)row * dss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dk and dv of one (128 keys, kv head, batch row), summed over the GQA
+// group's query heads; see the file's note 4
+template <int D>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
+                          int Sq, int Skv, int64_t gsb, int64_t gss,
+                          int64_t gsh, int causal, float scale) {
+  using P = FwdPlan<D>;
+  using L = DkvPlan<D>;
+  extern __shared__ unsigned char fh_smem[];
+  const uint32_t base = (smem_addr(fh_smem) + 1023u) & ~1023u;
+  const uint32_t k_s = base + L::K_OFF;
+  const uint32_t v_s = base + L::V_OFF;
+  const uint32_t q_s = base + L::Q_OFF;
+  const uint32_t do_s = base + L::DO_OFF;
+  // each slot's lse and delta rows, written by the producer's second warp
+  float* const rows = reinterpret_cast<float*>(
+      fh_smem + (base - smem_addr(fh_smem)) + L::ROWS_OFF);
+  const uint32_t bar_kv = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_kv + 8;                 // + 8 * slot
+  const uint32_t bar_empty = bar_full + 8 * FH_STAGES;  // + 8 * slot
+
+  // the first key tiles are seen by the most queries: natural order
+  const int k0 = blockIdx.x * FH_BM;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int q_offset = Skv - Sq;
+  // q rows [q_first, Sq) can see some key of this CTA; q tiles start at
+  // multiples of 64, as in the forward and dq
+  const int q_first = causal ? max(0, k0 - q_offset) / FH_BN * FH_BN : 0;
+  const int nq = q_first < Sq ? (Sq - q_first + FH_BN - 1) / FH_BN : 0;
+  const int n_tiles = group * nq;  // query heads in order, then q tiles
+  const int kv_tiles = k0 + 64 < Skv ? 2 : 1;  // 64-key tiles with a key
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < FH_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1 + 32);    // TMA's thread, the row warp
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: thread 0 loads K and V, then keeps the ring's Q and dO
+    // tiles in flight; warp 1 stages each tile's lse and delta rows
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_kv, 2 * kv_tiles * P::TILE);
+      for (int w = 0; w < kv_tiles; ++w)
+        for (int x = 0; x < P::NBOX; ++x) {
+          tma_load(k_s + w * P::TILE + x * P::BOX_BYTES, &tm_k, bar_kv,
+                   x * P::BOX, k0 + 64 * w, hk, b);
+          tma_load(v_s + w * P::TILE + x * P::BOX_BYTES, &tm_v, bar_kv,
+                   x * P::BOX, k0 + 64 * w, hk, b);
+        }
+      // head h and q tile q0 of tile i, stepped rather than divided: this
+      // warpgroup runs on 24 registers
+      int h = hk * group, q0 = q_first;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FH_STAGES;
+        if (i >= FH_STAGES)
+          mbar_wait(bar_empty + 8 * s, (i / FH_STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * P::TILE);
+        for (int x = 0; x < P::NBOX; ++x) {
+          tma_load(q_s + s * P::TILE + x * P::BOX_BYTES, &tm_q, full,
+                   x * P::BOX, q0, h, b);
+          tma_load(do_s + s * P::TILE + x * P::BOX_BYTES, &tm_do, full,
+                   x * P::BOX, q0, h, b);
+        }
+        q0 += FH_BN;
+        if (q0 >= Sq) q0 = q_first, ++h;
+      }
+    } else if (threadIdx.x / 32 == 1 && n_tiles > 0) {
+      const int lane = threadIdx.x % 32;
+      const float* lse_h = lse + ((int64_t)b * Hq + hk * group) * Sq;
+      const float* dl_h = delta + ((int64_t)b * Hq + hk * group) * Sq;
+      int q0 = q_first;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FH_STAGES;
+        if (i >= FH_STAGES)
+          mbar_wait(bar_empty + 8 * s, (i / FH_STAGES - 1) & 1);
+        float* slot = rows + s * L::ROWS;
+        for (int c = lane; c < FH_BN; c += 32) {
+          const int row = q0 + c;  // past Sq: masked, any finite value
+          slot[c] = row < Sq ? lse_h[row] * FH_LOG2E : 0.f;
+          slot[FH_BN + c] = row < Sq ? dl_h[row] : 0.f;
+        }
+        mbar_arrive(bar_full + 8 * s);  // release: the stores before it
+        q0 += FH_BN;
+        if (q0 >= Sq) q0 = q_first, lse_h += Sq, dl_h += Sq;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: keys [kw, kw + 64); this thread holds keys r_lo
+  // and r_lo + 8, queries 8 j + 2 t + {0, 1} of each transposed score
+  // tile and columns 8 j + 2 t + {0, 1} of dK and dV
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw = k0 + 64 * w;
+  const int r_lo = kw + 16 * warp + g;
+  const bool wg_on = kw < Skv;
+  const uint32_t k_tile = k_s + w * P::TILE;
+  const uint32_t v_tile = v_s + w * P::TILE;
+  const float scale_log2 = scale * FH_LOG2E;
+
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n_tiles > 0 && wg_on) mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % FH_STAGES;
+    mbar_wait(bar_full + 8 * s, (i / FH_STAGES) & 1);
+    const int q0 = q_first + i % nq * FH_BN;
+    // under causal a q tile whose last row is before this warpgroup's
+    // first key sees none of them
+    if (wg_on && !(causal && q_offset + q0 + FH_BN - 1 < kw)) {
+      // S^T = K Q^T and dP^T = V dO^T
+      float st[32], dpt[32];
+      const uint32_t q_tile = q_s + s * P::TILE;
+      const uint32_t do_tile = do_s + s * P::TILE;
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      wgmma_tiles_nt<D>(st, k_tile, q_tile);
+      wgmma_tiles_nt<D>(dpt, v_tile, do_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p^T and ds^T on the accumulators: st[4 j + 2 r + e] is key
+      // r_lo + 8 r, query q0 + 8 j + 2 t + e, so lse and delta are read by
+      // column; p^T split into the A fragments hi and lo (pair c = 2 j + r),
+      // ds^T kept in dpt
+      const float* lse_s = rows + s * L::ROWS;
+      const float* dl_s = lse_s + FH_BN;
+      const bool masked = kw + FH_BN > Skv || q0 + FH_BN > Sq ||
+                          (causal && kw + FH_BN - 1 > q_offset + q0);
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int r = c % 2, col = 8 * (c / 2) + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + col);
+        float x[2] = {st[2 * c] * scale_log2 - l2.x,
+                      st[2 * c + 1] * scale_log2 - l2.y};
+        if (masked) {
+          const int kpos = r_lo + 8 * r;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qrow = q0 + col + e;
+            if (kpos >= Skv || qrow >= Sq ||
+                (causal && kpos > q_offset + qrow))
+              x[e] = -CUDART_INF_F;
+          }
+        }
+        const float p0 = exp2f(x[0]), p1 = exp2f(x[1]);
+        dpt[2 * c] = p0 * (dpt[2 * c] - d2.x);
+        dpt[2 * c + 1] = p1 * (dpt[2 * c + 1] - d2.y);
+        split_pair(p0, p1, hi[c], lo[c]);
+      }
+
+      // dV += hi dO + lo dO, then dK += hi Q + lo Q with ds^T's halves,
+      // 16 queries a step, dO and Q read MN-major
+      fence_regs(acc_v);
+      wgmma_fence();
+      wgmma_split_nn<D>(acc_v, hi, lo, do_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_v);
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        split_pair(dpt[2 * c], dpt[2 * c + 1], hi[c], lo[c]);
+      fence_regs(acc_k);
+      wgmma_fence();
+      wgmma_split_nn<D>(acc_k, hi, lo, q_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_k);
+    }
+    mbar_arrive(bar_empty + 8 * s);  // this warpgroup is done with the slot
+  }
+
+  if (!wg_on) return;
+  __nv_bfloat16* dkb = dk + b * gsb + hk * gsh;
+  __nv_bfloat16* dvb = dv + b * gsb + hk * gsh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Skv) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int64_t at = (int64_t)row * gss + 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + at) = __floats2bfloat162_rn(
+          acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + at) = __floats2bfloat162_rn(
+          acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Operands of the float32 backward kernels: base pointers and (batch, seq,
+// head) strides in elements, the unit-stride head dim last.
 struct Strided {
-  const T* p;
+  const float* p;
   int64_t sb, ss, sh;
 };
 
-// dq of one (q tile, q head, batch row); see the file's note 3.
-template <typename T, int D>
+// dq of one (q tile, q head, batch row) in float32; see the file's note 3.
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_bwd_dq_kernel(Strided<T> q, Strided<T> k, Strided<T> v, Strided<T> dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int64_t dqsb, int64_t dqss, int64_t dqsh, int Hq,
-                    int Hkv, int Sq, int Skv, int causal, float scale) {
+flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int64_t dqsb, int64_t dqss,
+                        int64_t dqsh, int Hq, int Hkv, int Sq, int Skv,
+                        int causal, float scale) {
+  using T = float;
   constexpr int S = TileStride<T, D>::value;
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -847,16 +1327,17 @@ flash_bwd_dq_kernel(Strided<T> q, Strided<T> k, Strided<T> v, Strided<T> dout,
   }
 }
 
-// dk and dv of one (kv tile, kv head, batch row), summed over the GQA
-// group's query heads; see the file's note 4.
-template <typename T, int D>
+// dk and dv of one (kv tile, kv head, batch row) in float32, summed over
+// the GQA group's query heads; see the file's note 4.
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_bwd_dkv_kernel(Strided<T> q, Strided<T> k, Strided<T> v,
-                     Strided<T> dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int64_t gsb, int64_t gss,
-                     int64_t gsh, int Hq, int Hkv, int Sq, int Skv,
-                     int causal, float scale) {
+flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int64_t gsb, int64_t gss, int64_t gsh, int Hq,
+                         int Hkv, int Sq, int Skv, int causal, float scale) {
+  using T = float;
   constexpr int S = TileStride<T, D>::value;
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1117,54 +1598,14 @@ cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-Strided<T> strided(const void* p, const int64_t* st) {
-  return Strided<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
-}
-
-// st: (batch, seq, head) strides of q, k, v, do, then dq
-template <typename T, int D>
-cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
-                          const void* dout, const float* lse,
-                          const float* delta, void* dq, int B, int Hq,
-                          int Hkv, int Sq, int Skv, const int64_t* st,
-                          int causal, float scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<T, D>(1);
-  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
-  cudaError_t err = smem_opt_in(flash_bwd_dq_kernel<T, D>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
-  flash_bwd_dq_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
-      strided<T>(q, st), strided<T>(k, st + 3), strided<T>(v, st + 6),
-      strided<T>(dout, st + 9), lse, delta, static_cast<T*>(dq), st[12],
-      st[13], st[14], Hq, Hkv, Sq, Skv, causal, scale);
-  return cudaGetLastError();
-}
-
-// st: (batch, seq, head) strides of q, k, v, do, then dk and dv (alike)
-template <typename T, int D>
-cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse,
-                           const float* delta, void* dk, void* dv, int B,
-                           int Hq, int Hkv, int Sq, int Skv,
-                           const int64_t* st, int causal, float scale,
-                           cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<T, D>(2);
-  static std::atomic<bool> smem_set[FA_MAX_DEVICES];
-  cudaError_t err = smem_opt_in(flash_bwd_dkv_kernel<T, D>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + FA_BK - 1) / FA_BK, Hkv, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
-      strided<T>(q, st), strided<T>(k, st + 3), strided<T>(v, st + 6),
-      strided<T>(dout, st + 9), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), st[12], st[13], st[14], Hq, Hkv, Sq, Skv, causal,
-      scale);
-  return cudaGetLastError();
+Strided strided(const void* p, const int64_t* st) {
+  return Strided{static_cast<const float*>(p), st[0], st[1], st[2]};
 }
 
 // One of the three flash kernels (0 forward, 1 dq, 2 dk/dv) for element
 // type T, by head dim. Pointers: q, k, v, o (forward) or do, lse, delta,
-// then the outputs.
+// then the outputs. st: (batch, seq, head) strides of q, k, v, o or do,
+// then of dq or of dk and dv (alike).
 struct FlashArgs {
   const void* q;
   const void* k;
@@ -1180,11 +1621,78 @@ struct FlashArgs {
   float scale;
 };
 
+template <int D>
+cudaError_t launch_bwd_f32(int kind, const FlashArgs& a,
+                           cudaStream_t stream) {
+  const int64_t* st = a.st;
+  static std::atomic<bool> dq_set[FA_MAX_DEVICES], dkv_set[FA_MAX_DEVICES];
+  if (kind == 1) {
+    const size_t smem = bwd_smem_bytes<float, D>(1);
+    cudaError_t err = smem_opt_in(flash_bwd_dq_f32_kernel<D>, smem, dq_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sq + FA_BQ - 1) / FA_BQ, a.Hq, a.B);
+    flash_bwd_dq_f32_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+        strided(a.q, st), strided(a.k, st + 3), strided(a.v, st + 6),
+        strided(a.x, st + 9), a.lse, a.delta, static_cast<float*>(a.out0),
+        st[12], st[13], st[14], a.Hq, a.Hkv, a.Sq, a.Skv, a.causal, a.scale);
+  } else {
+    const size_t smem = bwd_smem_bytes<float, D>(2);
+    cudaError_t err =
+        smem_opt_in(flash_bwd_dkv_f32_kernel<D>, smem, dkv_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Skv + FA_BK - 1) / FA_BK, a.Hkv, a.B);
+    flash_bwd_dkv_f32_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+        strided(a.q, st), strided(a.k, st + 3), strided(a.v, st + 6),
+        strided(a.x, st + 9), a.lse, a.delta, static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), st[12], st[13], st[14], a.Hq, a.Hkv,
+        a.Sq, a.Skv, a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(int kind, const FlashArgs& a,
+                            cudaStream_t stream) {
+  const int64_t* st = a.st;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = make_map<D>(&tm_q, a.q, a.B, a.Sq, a.Hq, st);
+  if (err == cudaSuccess)
+    err = make_map<D>(&tm_k, a.k, a.B, a.Skv, a.Hkv, st + 3);
+  if (err == cudaSuccess)
+    err = make_map<D>(&tm_v, a.v, a.B, a.Skv, a.Hkv, st + 6);
+  if (err == cudaSuccess)
+    err = make_map<D>(&tm_do, a.x, a.B, a.Sq, a.Hq, st + 9);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> dq_set[FA_MAX_DEVICES], dkv_set[FA_MAX_DEVICES];
+  if (kind == 1) {
+    constexpr size_t smem = DqPlan<D>::SMEM;
+    err = smem_opt_in(flash_bwd_dq_bf16_kernel<D>, smem, dq_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sq + FH_BM - 1) / FH_BM, a.Hq, a.B);
+    flash_bwd_dq_bf16_kernel<D><<<grid, FH_THREADS, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, a.lse, a.delta,
+        static_cast<__nv_bfloat16*>(a.out0), a.Hq, a.Hkv, a.Sq, a.Skv,
+        st[12], st[13], st[14], a.causal, a.scale);
+  } else {
+    constexpr size_t smem = DkvPlan<D>::SMEM;
+    err = smem_opt_in(flash_bwd_dkv_bf16_kernel<D>, smem, dkv_set);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Skv + FH_BM - 1) / FH_BM, a.Hkv, a.B);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, FH_THREADS, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, a.lse, a.delta,
+        static_cast<__nv_bfloat16*>(a.out0),
+        static_cast<__nv_bfloat16*>(a.out1), a.Hq, a.Hkv, a.Sq, a.Skv,
+        st[12], st[13], st[14], a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_kind(int kind, const FlashArgs& a, cudaStream_t s) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   switch (kind) {
     case 0:
-      if constexpr (std::is_same<T, float>::value)
+      if constexpr (f32)
         return launch_flash_f32<D>(a.q, a.k, a.v, const_cast<void*>(a.x),
                                    a.lse, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
                                    a.causal, a.scale, s);
@@ -1193,13 +1701,11 @@ cudaError_t launch_kind(int kind, const FlashArgs& a, cudaStream_t s) {
                                     a.lse, a.B, a.Hq, a.Hkv, a.Sq, a.Skv,
                                     a.st, a.causal, a.scale, s);
     case 1:
-      return launch_bwd_dq<T, D>(a.q, a.k, a.v, a.x, a.lse, a.delta, a.out0,
-                                 a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
-                                 a.causal, a.scale, s);
     case 2:
-      return launch_bwd_dkv<T, D>(a.q, a.k, a.v, a.x, a.lse, a.delta, a.out0,
-                                  a.out1, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.st,
-                                  a.causal, a.scale, s);
+      if constexpr (f32)
+        return launch_bwd_f32<D>(kind, a, s);
+      else
+        return launch_bwd_bf16<D>(kind, a, s);
     default:
       return cudaErrorInvalidValue;
   }

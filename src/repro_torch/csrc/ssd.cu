@@ -669,14 +669,18 @@ cudaError_t launch(bool backward, const SsdArgs& a, cudaStream_t stream) {
 }
 
 // The instantiated (L, P, N): chunks of 32 and 64 at mamba2-780m's head
-// (P=64, N=128) and the smoke config's (P=16, N=16). ssd/ops.py's SHAPES
-// lists the same.
+// (P=64, N=128), zamba2's (P=64, N=64) and the smoke config's (P=16,
+// N=16). ssd/ops.py's SHAPES lists the same.
 template <typename T>
 cudaError_t launch_shape(bool backward, int L, int P, int N,
                          const SsdArgs& a, cudaStream_t s) {
   if (P == 64 && N == 128) {
     if (L == 64) return launch<T, 64, 64, 128>(backward, a, s);
     if (L == 32) return launch<T, 32, 64, 128>(backward, a, s);
+  }
+  if (P == 64 && N == 64) {
+    if (L == 64) return launch<T, 64, 64, 64>(backward, a, s);
+    if (L == 32) return launch<T, 32, 64, 64>(backward, a, s);
   }
   if (P == 16 && N == 16) {
     if (L == 64) return launch<T, 64, 16, 16>(backward, a, s);

@@ -11,9 +11,14 @@ and ``flash_attention_bwd_dkv`` (counterparts of ``backward.flash_dq`` and
 ``paged_decode`` (counterpart of ``paged_flash_decode``); ``torch`` is
 ``ref.py``. The JAX wrappers pad the head dim to 128 lanes, the sequence to
 the block size and the page rows to 8 before the kernel; here the kernels
-mask ragged edges themselves and there is no pad pass. The flash kernels
-take their operands' strides, so the model hands them the projections as
-views, without a copy.
+mask ragged edges themselves and there is no pad pass over the sequence.
+The kernels are built for head dims 16, 32, 64 and 128; any other head dim
+up to 128 that is a multiple of 8 (zamba2's 80) runs zero-padded to the
+next of them, with the scale of the true one (:func:`call_padded`), a copy
+that no current path makes. The flash kernels take their operands'
+strides, so the model hands them the projections as views, without a copy;
+their bases and strides must be 16-byte aligned, since the bf16 kernels
+read them by TMA.
 
 Each CUDA wrapper counts its launches in a plain-integer ``launches``
 attribute: ``flash_attention_cuda.launches`` (with or without lse),
@@ -40,7 +45,7 @@ _DKV_ARGS = [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P]
 _PAGED_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
 #: positions per CTA of the paged kernel (``PD_CHUNK`` in the source)
 PAGED_CHUNK = 128
-#: head dims the kernels are instantiated for
+#: head dims the kernels are instantiated for; the others run padded
 HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the paged kernel serves at most
 MAX_GROUP = 8
@@ -66,13 +71,41 @@ def _gqa(Hq: int, Hkv: int, what: str) -> None:
                          f"Hq={Hq} Hkv={Hkv}")
 
 
-def _check_qkv(q, k, v, what: str, extra=(), align: int = 4):
+def padded_head_dim(D: int, what: str) -> int:
+    """The instantiated head dim a call at head dim ``D`` runs at: D itself
+    or the next one up. Raises for a D past 128 or not a multiple of 8."""
+    if D < 1 or D > HEAD_DIMS[-1] or D % 8:
+        raise ValueError(f"{what}: head dim {D} must be a multiple of 8 up "
+                         f"to {HEAD_DIMS[-1]}")
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def call_padded(fn, heads, rest=(), *, n_out: int = 1,
+                scale: Optional[float] = None, **kw):
+    """``fn`` at the instantiated head dim, as the JAX wrappers pad D to 128
+    lanes (``repro.kernels.flash_attention.ops``): the head-dim tensors
+    ``heads`` zero-padded on their last axis, ``rest`` passed as it is,
+    ``scale`` taken from the true D, and the first ``n_out`` outputs sliced
+    back to D. Zero columns add exact zeros to every score and leave the
+    true columns of every output as they were."""
+    D = heads[0].shape[-1]
+    Dp = padded_head_dim(D, fn.__name__)
+    out = fn(*(torch.nn.functional.pad(t, (0, Dp - D)) for t in heads),
+             *rest, scale=D ** -0.5 if scale is None else scale, **kw)
+    if not isinstance(out, tuple):
+        return out[..., :D]
+    return tuple(o[..., :D] if i < n_out else o for i, o in enumerate(out))
+
+
+def _check_qkv(q, k, v, what: str, extra=()):
     """Validate the flash kernels' strided operands: q-shaped ``extra``
-    tensors (do) beside q, k and v, base and strides ``align``-byte aligned
-    (the stride of a dim of size 1 is never stepped). Returns (B, Sq, Hq,
-    Hkv, Skv, D)."""
+    tensors (do) beside q, k and v, a head dim that
+    :func:`padded_head_dim` takes, and base and strides 16-byte aligned
+    (TMA's rule; the stride of a dim of size 1 is never stepped). Returns
+    (B, Sq, Hq, Hkv, Skv, D)."""
     dtypes = (torch.float32, torch.bfloat16)
-    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+    operands = (("q", q), ("k", k), ("v", v), *extra)
+    for name, t in operands:
         _check(t, name, what, 4, dtypes)
         if t.dtype != q.dtype:
             raise ValueError(f"{what}: q, k, v and do must share a dtype, "
@@ -80,12 +113,6 @@ def _check_qkv(q, k, v, what: str, extra=(), align: int = 4):
         if t.stride(3) != 1:
             raise ValueError(f"{what}: {name} needs a unit stride on its "
                              f"last dim, got strides {t.stride()}")
-        esz = t.element_size()
-        if t.data_ptr() % align or any(
-                s * esz % align for s, n in zip(t.stride()[:3], t.shape)
-                if n > 1):
-            raise ValueError(f"{what}: {name} rows must be {align}-byte "
-                             f"aligned (base and strides)")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
@@ -96,11 +123,17 @@ def _check_qkv(q, k, v, what: str, extra=(), align: int = 4):
             raise ValueError(f"{what}: {name} {tuple(t.shape)} must have "
                              f"q's shape {tuple(q.shape)}")
     _gqa(Hq, Hkv, what)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    padded_head_dim(D, what)
     if min(B, Sq, Skv) < 1 or B > 65535 or Hq > 65535:
         raise ValueError(f"{what}: unsupported shape q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
+    for name, t in operands:
+        esz = t.element_size()
+        if t.data_ptr() % 16 or any(
+                s * esz % 16 for s, n in zip(t.stride()[:3], t.shape)
+                if n > 1):
+            raise ValueError(f"{what}: {name} rows must be 16-byte aligned "
+                             f"(base and strides)")
     return B, Sq, Hq, Hkv, Skv, D
 
 
@@ -128,7 +161,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logsumexp of the scaled scores (-inf for a row that sees no key).
     Causal rows are right-aligned (query i sees keys [0, Skv - Sq + i])."""
     what = "flash_attention"
-    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, align=16)
+    B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what)
+    if D not in HEAD_DIMS:
+        return call_padded(flash_attention_cuda, (q, k, v), causal=causal,
+                           scale=scale, return_lse=return_lse)
     scale = D ** -0.5 if scale is None else float(scale)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
@@ -151,12 +187,15 @@ flash_attention_cuda.launches = 0
 def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
                   scale: Optional[float] = None) -> torch.Tensor:
     """dq of the attention by the Hopper kernel: q/do (B,Sq,Hq,D), k/v
-    (B,Skv,Hkv,D) as for the forward, lse and delta (B,Hq,Sq) float32
-    contiguous -> dq (B,Sq,Hq,D) in q's dtype."""
+    (B,Skv,Hkv,D) as for the forward (16-byte aligned, do too), lse and
+    delta (B,Hq,Sq) float32 contiguous -> dq (B,Sq,Hq,D) in q's dtype."""
     what = "flash_dq"
     B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, (("do", do),))
     _check_rows(lse, "lse", what, (B, Hq, Sq))
     _check_rows(delta, "delta", what, (B, Hq, Sq))
+    if D not in HEAD_DIMS:
+        return call_padded(flash_dq_cuda, (q, k, v, do), (lse, delta),
+                           causal=causal, scale=scale)
     scale = D ** -0.5 if scale is None else float(scale)
     dq = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     strides = _strides(q, k, v, do, dq)
@@ -183,6 +222,9 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     B, Sq, Hq, Hkv, Skv, D = _check_qkv(q, k, v, what, (("do", do),))
     _check_rows(lse, "lse", what, (B, Hq, Sq))
     _check_rows(delta, "delta", what, (B, Hq, Sq))
+    if D not in HEAD_DIMS:
+        return call_padded(flash_dkv_cuda, (q, k, v, do), (lse, delta),
+                           n_out=2, causal=causal, scale=scale)
     scale = D ** -0.5 if scale is None else float(scale)
     dk = torch.empty(B, Skv, Hkv, D, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
@@ -304,8 +346,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{what}: at most {MAX_GROUP} query heads per kv "
                          f"head, got {Hq // Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    padded_head_dim(D, what)
     if B > 65535 or Hkv > 65535 or P < 1:
         raise ValueError(f"{what}: unsupported shape")
     operands = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
@@ -320,6 +361,10 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    if D not in HEAD_DIMS:
+        return call_padded(paged_decode_cuda, (q, k_pool, v_pool),
+                           (page_table, kv_valid_len), k_scale=k_scale,
+                           v_scale=v_scale, scale=scale)
     scale = D ** -0.5 if scale is None else float(scale)
     npages = page_table.shape[1]
     nsplit = max(-(-npages * P // PAGED_CHUNK), 1)

@@ -126,14 +126,34 @@ def _probs_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
     return p, ds, dog
 
 
+def _dq(q, k, v, do, lse, delta, causal, scale, round_once):
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    _, ds, _ = _probs_ds(q, k, v, do, lse, delta, causal, scale)
+    if round_once:
+        ds = ds.bfloat16().float()
+    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)
+    return _heads_last((ds @ kf) * scale).to(q.dtype)
+
+
+def _dkv(q, k, v, do, lse, delta, causal, scale, round_once):
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    p, ds, dog = _probs_ds(q, k, v, do, lse, delta, causal, scale)
+    if round_once:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
+    dk = (ds.transpose(-1, -2) @ qg).sum(dim=2) * scale   # (B,Hkv,Skv,D)
+    dv = (p.transpose(-1, -2) @ dog).sum(dim=2)
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
              scale: Optional[float] = None) -> torch.Tensor:
     """dq = scale * ds k, (B,Sq,Hq,D) in q's dtype. do as q; lse and delta
     (B,Hq,Sq) float32 (delta = rowsum(do * o))."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    _, ds, _ = _probs_ds(q, k, v, do, lse, delta, causal, scale)
-    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)
-    return _heads_last((ds @ kf) * scale).to(q.dtype)
+    return _dq(q, k, v, do, lse, delta, causal, scale, False)
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -141,15 +161,25 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     """(dk, dv), each (B,Skv,Hkv,D) in k's dtype: dk = scale * ds^T q and
     dv = p^T do, summed over the GQA group in float32 before the one
     rounding."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
-    p, ds, dog = _probs_ds(q, k, v, do, lse, delta, causal, scale)
-    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
-    dk = (ds.transpose(-1, -2) @ qg).sum(dim=2) * scale   # (B,Hkv,Skv,D)
-    dv = (p.transpose(-1, -2) @ dog).sum(dim=2)
-    return (dk.permute(0, 2, 1, 3).to(k.dtype),
-            dv.permute(0, 2, 1, 3).to(v.dtype))
+    return _dkv(q, k, v, do, lse, delta, causal, scale, False)
+
+
+def flash_dq_rounded(q, k, v, do, lse, delta, *, causal: bool = True,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_dq` with ds rounded once to bf16 before ds k: what a
+    tensor-core dq without the bf16 kernel's hi/lo split of ds would
+    compute. No path of the port runs it; the checks set the bf16 kernel's
+    outputs against it and against :func:`flash_dq`, to show that ds keeps
+    float32 accuracy there (as :func:`flash_attention_p_rounded` does for
+    the forward's p)."""
+    return _dq(q, k, v, do, lse, delta, causal, scale, True)
+
+
+def flash_dkv_rounded(q, k, v, do, lse, delta, *, causal: bool = True,
+                      scale: Optional[float] = None):
+    """:func:`flash_dkv` with p and ds rounded once to bf16 before p^T do
+    and ds^T q; run by no path, a yardstick as :func:`flash_dq_rounded`."""
+    return _dkv(q, k, v, do, lse, delta, causal, scale, True)
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -31,11 +31,11 @@ _FWD_ARGS = [_P] * 8 + [_I] * 7 + [_P, _P]
 _BWD_ARGS = [_P] * 12 + [_I] * 7 + [_P, _P]
 DEFAULT_CHUNK = 64
 #: (chunk L, head dim P, state N) the kernels are instantiated for:
-#: mamba2-780m's head and the smoke config's, at chunks of 32 and 64. At
-#: L = 128 (P = 64, N = 128) the tiles would need 266 KB (forward) and
-#: 468 KB (backward) of shared memory, past the H100's 227 KB a block.
+#: mamba2-780m's head, zamba2's and the smoke config's, at chunks of 32 and
+#: 64. At L = 128 (P = 64, N = 128) the tiles would need 266 KB (forward)
+#: and 468 KB (backward) of shared memory, past the H100's 227 KB a block.
 SHAPES = frozenset((L, P, N) for L in (32, 64)
-                   for P, N in ((64, 128), (16, 16)))
+                   for P, N in ((64, 128), (64, 64), (16, 16)))
 _TYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 

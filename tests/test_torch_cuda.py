@@ -145,9 +145,10 @@ def _normal(shape, seed, device, dtype):
     (1, 4, 4, 90, 40, 32, True, torch.bfloat16),
     (2, 4, 2, 300, 333, 16, False, torch.bfloat16),
     (1, 8, 4, 200, 130, 128, True, torch.bfloat16),
+    (2, 32, 32, 300, 300, 80, True, torch.bfloat16),     # zamba2's D=80
 ], ids=["fwd", "ragged", "right_aligned", "noncausal", "f32", "smoke",
         "d64", "sq_gt_skv", "d64_bf16", "d64_bf16_s512", "sq_gt_skv_bf16",
-        "d16_ragged_bf16", "sq_gt_skv_d128_bf16"])
+        "d16_ragged_bf16", "sq_gt_skv_d128_bf16", "d80_bf16"])
 def test_flash_attention_cuda_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D,
                                             causal, dtype):
     q = _normal((B, Sq, Hq, D), 1, cuda, dtype)
@@ -221,22 +222,30 @@ def test_flash_forward_cuda_keeps_p_at_float32_accuracy(cuda, B, Hq, Hkv,
     assert flips <= P_FLIP_LIMIT < flips_once, (flips, flips_once)
 
 
-def test_flash_forward_needs_16_byte_rows_the_backward_does_not(cuda):
-    """TMA reads the forward's operands: a view 4-byte but not 16-byte
-    aligned raises by name there, and the backward kernels still take it."""
+def test_flash_kernels_need_16_byte_rows(cuda):
+    """TMA reads the operands of all three bf16 flash kernels: a view 4-byte
+    but not 16-byte aligned raises by name in each wrapper, and contiguous
+    copies of the same values run."""
     buf = _normal((3 * 8 * 4 * 64 + 2,), 7, cuda, torch.bfloat16)
     q = buf[2:2 + 8 * 4 * 64].view(1, 8, 4, 64)          # base + 4 bytes
     k = buf[2 + 8 * 4 * 64:2 + 8 * 6 * 64].view(1, 8, 2, 64)
     v = buf[2 + 8 * 6 * 64:2 + 8 * 8 * 64].view(1, 8, 2, 64)
     assert q.data_ptr() % 16 == 4
-    with pytest.raises(ValueError, match="q rows must be 16-byte aligned"):
-        fa_ops.flash_attention_cuda(q, k, v)
     do = _normal((1, 8, 4, 64), 8, cuda, torch.bfloat16)
     o, lse = fa_ref.flash_attention_lse(q, k, v, causal=True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    got = (fa_ops.flash_dq_cuda(q, k, v, do, lse, delta),
+    with pytest.raises(ValueError, match="q rows must be 16-byte aligned"):
+        fa_ops.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="q rows must be 16-byte aligned"):
+        fa_ops.flash_dq_cuda(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="q rows must be 16-byte aligned"):
+        fa_ops.flash_dkv_cuda(q, k, v, do, lse, delta)
+    q, k, v = (t.clone() for t in (q, k, v))         # fresh, aligned
+    got = (fa_ops.flash_attention_cuda(q, k, v),
+           fa_ops.flash_dq_cuda(q, k, v, do, lse, delta),
            *fa_ops.flash_dkv_cuda(q, k, v, do, lse, delta))
-    want = (fa_ref.flash_dq(q, k, v, do, lse, delta),
+    want = (fa_ref.flash_attention(q, k, v),
+            fa_ref.flash_dq(q, k, v, do, lse, delta),
             *fa_ref.flash_dkv(q, k, v, do, lse, delta))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -261,9 +270,13 @@ BWD_CASES = [
     (2, 4, 2, 12, 12, 16, True, torch.bfloat16),         # smoke config
     (1, 6, 2, 50, 70, 64, True, torch.float32),
     (1, 4, 4, 90, 40, 32, True, torch.float32),          # rows seeing no key
+    # bf16 at the other head dims, and zamba2's D=80 (run padded to 128)
+    (1, 6, 2, 50, 70, 64, True, torch.bfloat16),
+    (1, 4, 4, 90, 40, 32, True, torch.bfloat16),
+    (2, 32, 32, 200, 200, 80, True, torch.bfloat16),
 ]
 BWD_IDS = ["train", "ragged", "right_aligned", "noncausal", "f32", "smoke",
-           "d64", "sq_gt_skv"]
+           "d64", "sq_gt_skv", "d64_bf16", "sq_gt_skv_d32_bf16", "d80_bf16"]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,dtype", BWD_CASES,
@@ -297,6 +310,33 @@ def test_flash_lse_dq_dkv_cuda_match_plain(cuda, B, Hq, Hkv, Sq, Skv, D,
         blind = Sq - Skv
         assert float(o[:, :blind].abs().max()) == 0.0
         assert float(dq[:, :blind].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (2, 16, 8, 512, 512, 128, True),
+    (2, 4, 2, 64, 333, 64, True),
+    (1, 4, 2, 100, 300, 16, False),
+], ids=["d128", "d64_right_aligned", "d16_noncausal"])
+def test_flash_backward_cuda_keeps_p_and_ds_at_float32_accuracy(
+        cuda, B, Hq, Hkv, Sq, Skv, D, causal):
+    """The bf16 backward kernels split p and ds into two bf16 halves for
+    their tensor-core products. Their dq, dk and dv differ from the float32
+    plain versions' in under ``P_FLIP_LIMIT`` of the elements, where p and
+    ds rounded once to bf16 differ in more (tests/test_torch_kernels.py
+    holds the premise on the CPU)."""
+    q, k, v, do = _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, torch.bfloat16)
+    o, lse = fa_ref.flash_attention_lse(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    got = (fa_ops.flash_dq_cuda(*args, causal=causal),
+           *fa_ops.flash_dkv_cuda(*args, causal=causal))
+    want = (fa_ref.flash_dq(*args, causal=causal),
+            *fa_ref.flash_dkv(*args, causal=causal))
+    once = (fa_ref.flash_dq_rounded(*args, causal=causal),
+            *fa_ref.flash_dkv_rounded(*args, causal=causal))
+    for name, g, w, r in zip(("dq", "dk", "dv"), got, want, once):
+        flips, flips_once = (float((x != w).float().mean()) for x in (g, r))
+        assert flips <= P_FLIP_LIMIT < flips_once, (name, flips, flips_once)
 
 
 def test_flash_backward_cuda_is_deterministic_and_batch_free(cuda):
@@ -405,6 +445,7 @@ def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0):
     (5, 7, 128, 16, 8),          # odd page size
     (5, 4, 16, 4, 2),            # smoke config
     (3, 9, 64, 8, 1),            # group of 8
+    (16, 8, 80, 32, 32),         # zamba2's heads, D=80 run padded to 128
 ])
 def test_paged_decode_cuda_matches_plain(cuda, kv, P, npages, D, Hq, Hkv):
     args, scales = _paged_case(cuda, B=8, Hq=Hq, Hkv=Hkv, D=D, P=P,
@@ -447,9 +488,9 @@ def test_attention_wrappers_reject_cpu_and_bad_operands(cuda):
     with pytest.raises(ValueError, match="GQA"):
         fa_ops.flash_attention_cuda(q, k3, k3)
     with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_attention_cuda(q[..., :48].contiguous(),
-                                    k[..., :48].contiguous(),
-                                    k[..., :48].contiguous())
+        fa_ops.flash_attention_cuda(q[..., :44].contiguous(),
+                                    k[..., :44].contiguous(),
+                                    k[..., :44].contiguous())
     (q1, kp, vp, t, n), _ = _paged_case(cuda, B=2, Hq=4, Hkv=2, D=64, P=5,
                                         npages=3, kv="bf16")
     with pytest.raises(ValueError, match="CUDA device"):
@@ -599,9 +640,11 @@ SSD_CASES = [  # (Bt, S, H, P, N, chunk, dtype, decay)
     (2, 512, 48, 64, 128, 32, torch.bfloat16, "test"),     # chunk 32
     (2, 512, 48, 64, 128, 64, torch.float32, "model"),
     (2, 70, 8, 16, 16, 64, torch.float32, "test"),         # smoke config
-    (2, 70, 8, 16, 16, 32, torch.bfloat16, "model")]
+    (2, 70, 8, 16, 16, 32, torch.bfloat16, "model"),
+    (2, 512, 80, 64, 64, 64, torch.bfloat16, "model"),     # zamba2's heads
+    (2, 200, 8, 64, 64, 32, torch.float32, "test")]
 SSD_IDS = ["train", "forward", "ragged", "short", "chunk32", "f32", "smoke",
-           "smoke32"]
+           "smoke32", "zamba2", "zamba2_chunk32_f32"]
 
 
 @pytest.mark.parametrize("Bt,S,H,P,N,chunk,dtype,decay", SSD_CASES,

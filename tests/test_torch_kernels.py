@@ -522,6 +522,190 @@ def test_flash_attention_grad_matches_jax_xla_grad(B, Hq, Hkv, Sq, Skv, D,
                                    **GRAD_TOL[dtype], err_msg=name)
 
 
+def _bwd_split_in_tiles(q, k, v, do, lse, delta, causal, tile=64):
+    """The bf16 backward kernels' arithmetic in float32 on the CPU: p =
+    exp2(s * scale * log2 e - lse * log2 e) on visible entries (exp2 of the
+    select, so masked entries are exactly 0) and ds = p (dp - delta), both
+    split into hi = bf16(x) and lo = bf16(x - hi); dq sums hi k + lo k over
+    the key tiles in order, dk and dv sum hi q + lo q and hi do + lo do over
+    the group's query heads, then the q tiles, in order; one rounding to
+    the inputs' dtype at the end."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale, log2e = D ** -0.5, math.log2(math.e)
+    qh, doh = (t.float().transpose(1, 2) for t in (q, do))
+    kh, vh = (t.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for t in (k, v))
+    x = qh @ kh.transpose(-1, -2) * (scale * log2e) - lse[..., None] * log2e
+    vis = fa_ref._visible(Sq, Skv, causal, q.device)
+    p = torch.exp2(torch.where(vis, x, -math.inf))
+    ds = p * (doh @ vh.transpose(-1, -2) - delta[..., None])
+
+    def halves(t):
+        hi = t.bfloat16().float()
+        return hi, (t - hi).bfloat16().float()
+
+    (p_hi, p_lo), (ds_hi, ds_lo) = halves(p), halves(ds)
+    dq = torch.zeros(B, Hq, Sq, D)
+    for j in range(0, Skv, tile):
+        kt = kh[..., j:j + tile, :]
+        dq = dq + ds_hi[..., j:j + tile] @ kt
+        dq = dq + ds_lo[..., j:j + tile] @ kt
+
+    def grouped(t):                                   # (B, Hkv, G, S, ...)
+        return t.reshape(B, Hkv, G, *t.shape[2:])
+
+    qg, dog = grouped(qh), grouped(doh)
+    phi, plo, dhi, dlo = (grouped(t) for t in (p_hi, p_lo, ds_hi, ds_lo))
+    dk = torch.zeros(B, Hkv, Skv, D)
+    dv = torch.zeros(B, Hkv, Skv, D)
+    for g in range(G):
+        for i in range(0, Sq, tile):
+            r = slice(i, i + tile)
+            for half in (phi, plo):
+                dv = dv + half[:, :, g, r].transpose(-1, -2) @ \
+                    dog[:, :, g, r]
+            for half in (dhi, dlo):
+                dk = dk + half[:, :, g, r].transpose(-1, -2) @ \
+                    qg[:, :, g, r]
+    return ((dq * scale).transpose(1, 2).to(q.dtype),
+            (dk * scale).transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def _lse_delta(q, k, v, do, causal):
+    """The plain forward's lse and delta = rowsum(do * o), as the model's
+    backward hands them to the kernels."""
+    o, lse = fa_ref.flash_attention_lse(q, k, v, causal=causal)
+    return lse, (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", BWD_CASES)
+def test_backward_split_in_tiles_matches_pallas(B, Hq, Hkv, Sq, Skv, D,
+                                                causal, dtype):
+    """The bf16 backward kernels' arithmetic (tiles of 64, base-2 exp with
+    the folded scale, p and ds as bf16 hi + lo, float32 sums, the GQA sum
+    over heads, then tiles) against the JAX package's
+    ``flash_attention_bwd`` through Pallas in interpret mode, on the same
+    numpy inputs, at the JAX package's grad tolerance."""
+    arrs = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(_bhsd(a)).astype(jdt) for a in arrs)
+    with jregistry.use("pallas"):
+        _, res = jfa_ops.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                             interpret=True)
+        jgrads = jfa_ops.flash_attention_bwd(res, jdo, causal=causal,
+                                             interpret=True)
+    q, k, v, do = (torch.from_numpy(a).to(getattr(torch, dtype))
+                   for a in arrs)
+    grads = _bwd_split_in_tiles(q, k, v, do, *_lse_delta(q, k, v, do,
+                                                         causal), causal)
+    for name, got, want, t in zip(("dq", "dk", "dv"), grads, jgrads,
+                                  (q, k, v)):
+        assert got.dtype == t.dtype and got.shape == t.shape, name
+        np.testing.assert_allclose(_bhsd(got.float().numpy()),
+                                   np.asarray(want, np.float32),
+                                   **GRAD_TOL[dtype], err_msg=name)
+
+
+#: the bf16 backward's shares of differing outputs are held to the
+#: forward's limit (P_FLIP_LIMIT above): the kernels' arithmetic moves a few
+#: in a thousand, p and ds rounded once to bf16 about two in five
+FLIP_CASES = [
+    (1, 8, 4, 256, 256, 128, True),
+    (2, 4, 2, 64, 333, 64, True),
+    (1, 4, 2, 100, 300, 16, False),
+]
+
+
+def _flip_shares(B, Hq, Hkv, Sq, Skv, D, causal, grads_of):
+    """The share of bf16 dq, dk and dv outputs of ``grads_of`` that differ
+    from the float32 plain versions', on bf16 inputs."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=21))
+    lse, delta = _lse_delta(q, k, v, do, causal)
+    want = (fa_ref.flash_dq(q, k, v, do, lse, delta, causal=causal),
+            *fa_ref.flash_dkv(q, k, v, do, lse, delta, causal=causal))
+    got = grads_of(q, k, v, do, lse, delta, causal)
+    return [float((g != w).float().mean()) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", FLIP_CASES)
+def test_backward_split_keeps_bf16_outputs_of_float32_p_and_ds(
+        B, Hq, Hkv, Sq, Skv, D, causal):
+    """The premise of the card check that the bf16 backward keeps p and ds
+    at float32 accuracy: with both split into hi + lo, the share of bf16
+    dq, dk and dv outputs that differ from the float32 plain versions'
+    stays under ``P_FLIP_LIMIT``."""
+    shares = _flip_shares(B, Hq, Hkv, Sq, Skv, D, causal,
+                          _bwd_split_in_tiles)
+    assert max(shares) <= P_FLIP_LIMIT, shares
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", FLIP_CASES)
+def test_p_and_ds_rounded_once_flip_bf16_grads_past_the_limit(
+        B, Hq, Hkv, Sq, Skv, D, causal):
+    """With p and ds rounded once to bf16 (``flash_dq_rounded``,
+    ``flash_dkv_rounded``), the share of differing dq, dk and dv outputs
+    exceeds ``P_FLIP_LIMIT``: a kernel that dropped the lo products fails
+    the limit although its normwise error would pass 8e-3."""
+
+    def rounded(q, k, v, do, lse, delta, causal):
+        return (fa_ref.flash_dq_rounded(q, k, v, do, lse, delta,
+                                        causal=causal),
+                *fa_ref.flash_dkv_rounded(q, k, v, do, lse, delta,
+                                          causal=causal))
+
+    shares = _flip_shares(B, Hq, Hkv, Sq, Skv, D, causal, rounded)
+    assert min(shares) > P_FLIP_LIMIT, shares
+
+
+def test_padded_head_dim_takes_multiples_of_8_up_to_128():
+    assert [fa_ops.padded_head_dim(d, "t") for d in (8, 16, 24, 48, 80,
+                                                      128)] == \
+        [16, 16, 32, 64, 128, 128]
+    for d in (44, 136, 0):
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.padded_head_dim(d, "t")
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "flash_dq", "flash_dkv",
+                                "paged_decode"])
+def test_call_padded_matches_the_plain_versions_at_d80(op):
+    """The CUDA wrappers run a head dim off the built ones (zamba2's 80)
+    zero-padded to the next (128), with the true D's scale, and slice the
+    outputs back: through the plain versions that gives the unpadded
+    result, lse included."""
+    D = 80
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _bwd_inputs(2, 4, 2, 37, 45, D, seed=13))
+    lse, delta = _lse_delta(q, k, v, do, True)
+    if op == "flash_attention":
+        got = fa_ops.call_padded(fa_ref.flash_attention, (q, k, v),
+                                 causal=True, return_lse=True)
+        want = fa_ref.flash_attention(q, k, v, causal=True, return_lse=True)
+    elif op == "flash_dq":
+        got = (fa_ops.call_padded(fa_ref.flash_dq, (q, k, v, do),
+                                  (lse, delta), causal=True),)
+        want = (fa_ref.flash_dq(q, k, v, do, lse, delta, causal=True),)
+    elif op == "flash_dkv":
+        got = fa_ops.call_padded(fa_ref.flash_dkv, (q, k, v, do),
+                                 (lse, delta), n_out=2, causal=True)
+        want = fa_ref.flash_dkv(q, k, v, do, lse, delta, causal=True)
+    else:
+        (pq, kp, vp, t, n), scales = _paged_inputs(3, 4, 2, D, 5, 3, "int8")
+        got = (fa_ops.call_padded(fa_ref.paged_decode, (pq, kp, vp), (t, n),
+                                  **scales),)
+        want = (fa_ref.paged_decode(pq, kp, vp, t, n, **scales),)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def _autograd_attention(q, k, v, causal):
     """Attention as plain differentiable float64 PyTorch, for autograd."""
     B, Sq, Hq, D = q.shape

@@ -402,3 +402,46 @@ def test_mamba2_decode_matches_jax_and_forward():
         decode_step(tp, tcfg, tc, torch.from_numpy(toks[:, :1]),
                     positions=torch.zeros(B, dtype=torch.int32),
                     page_table=torch.zeros(B, 2, dtype=torch.int32))
+
+
+def teacher_forcing_gaps(n_layers: int, positions: int):
+    """mamba2-780m at full width with depth cut to ``n_layers``: the
+    teacher-forcing gap, max |decode - forward| over the logits of
+    ``positions`` positions of 2 rows, in JAX (XLA backend) and in the
+    port's plain path, on the same weights (the JAX init carried through
+    numpy) and the same tokens. Returns (JAX's gap, the port's gap)."""
+    cfg = jconfigs.get_arch(MAMBA).scaled(n_layers=n_layers)
+    tcfg = to_torch_config_arch(cfg)
+    jp = j_init_params(cfg, jax.random.PRNGKey(0))
+    tp = to_torch_params(jp, cfg)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(2, positions)).astype(np.int32)
+    with jregistry.use("xla"):
+        jf, _ = jax.jit(lambda p, t: j_forward(p, cfg, {"tokens": t}))(
+            jp, jnp.asarray(toks))
+        step = jax.jit(lambda p, c, tok: j_decode_step(p, cfg, c, tok))
+        jc, jd = j_init_cache(cfg, 2, positions), []
+        for t in range(positions):
+            lg, jc = step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+            jd.append(_f32(lg[:, 0]))
+    with torch.no_grad():
+        tf, _ = forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+        tc, td = init_cache(tcfg, 2, positions, device="cpu"), []
+        for t in range(positions):
+            lg, tc = decode_step(tp, tcfg, tc,
+                                 torch.from_numpy(toks[:, t:t + 1]))
+            td.append(_t(lg[:, 0]))
+    return (float(np.abs(np.stack(jd, 1) - _f32(jf)).max()),
+            float(np.abs(np.stack(td, 1) - _t(tf)).max()))
+
+
+if __name__ == "__main__":
+    # The full-width teacher-forcing gap of mamba2-780m at cut depth, JAX
+    # against the port, on the CPU (not a test: 512 positions of JAX's
+    # decode take minutes at a few layers):
+    #   PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/test_torch_models.py 8 512
+    import sys
+    L, S = int(sys.argv[1]), int(sys.argv[2])
+    gj, gt = teacher_forcing_gaps(L, S)
+    print(f"{MAMBA} full width, {L} layers, {S} positions: max |decode - "
+          f"forward| JAX {gj:.4f}, port {gt:.4f}")

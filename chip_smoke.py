@@ -128,26 +128,38 @@ What it does, in order; any failure raises and the exit code is not 0:
    states) and ``ssd_bwd`` (dxdt, da, dB and dC per head) at the training
    shape (Bt=8, S=1024, H=48, P=64, N=128, chunk 64, bf16 x), the forward's
    (Bt=2, S=512), ragged (S=1000), shorter than a chunk (S=37), chunk 32,
-   float32 x and zamba2's heads (H=80, N=64), three of them with mamba2's
-   decay (A = -(1..16)), where exp overflows above the diagonal. Each against its plain version (which
-   sums in float64), normwise: float32 outputs 1e-5, y in bf16 8e-3, da
-   1e-4 (its reverse cumsum subtracts large terms); two launches of each
-   bit-equal; kernel and plain version timed with CUDA events beside their
-   bounds, which count the L x L products over the pairs t >= s only (no
-   PyTorch call computes the scan, so no library yardstick);
+   the smoke config's heads at chunk 32 and zamba2's heads (H=80, N=64),
+   with B and C in bf16 as mamba2 hands them (the tensor-core bodies), then
+   with B and C in float32 and in float32 x (the CUDA-core bodies), some
+   with mamba2's decay (A = -(1..16)), where exp overflows above the
+   diagonal. Each call runs the body its operand types choose (checked by
+   its count), against its plain version (which sums in float64),
+   normwise: float32 outputs 1e-5, y in bf16 8e-3, da 1e-4 (its reverse
+   cumsum subtracts large terms); at each bf16 shape the share of y's bf16
+   outputs that differ from the plain version's must stay under 2%, where
+   M' and h rounded once to bf16 (``ref.ssd_chunked_rounded``) exceed it;
+   two launches of each bit-equal; kernel and plain version timed with
+   CUDA events at the training shape, both bodies, beside their bounds:
+   bytes over 3.35 TB/s or the products the scan needs at 989 TFLOP/s
+   (the float32 CUDA-core bound beside it, and the FLOP the tensor-core
+   bodies run counting each bf16 term, not part of the bound), the L x L
+   products over the pairs t >= s only (no PyTorch call computes the
+   scan, so no library yardstick);
 13. mamba2 model phase: first the JAX package's own check
    (tests/test_models.py) at the smoke config: ``forward`` (ssd) against
    the same 64 tokens one at a time through ``decode_step`` (the plain
    recurrence), atol = rtol = 0.05. Then full width, bf16 weights (A_log
    and dt_bias float32): ``forward`` on (2, 512) numpy-seeded tokens
-   launches ssd 48 times, every call held to its plain version on its own
+   launches ssd 48 times, all on the tensor-core body (bf16 x, B and C),
+   every call held to its plain version on its own
    inputs (y 8e-3, the final state 1e-5), and the 512 positions through
    ``decode_step``, the decode-vs-forward logits margin printed, not gated;
 14. mamba2 train phase, full width, as phase 11: float32 masters,
    ``make_train_step(ca_k=4, remat=True)`` on ``TokenStream(32, 1024,
    seed 0)``, a warm-up step and three timed ones with loss and grad norm
    finite, ssd launched 3 * 48 * ca_k times a step (forward, remat
-   recompute and the backward's states sweep) and ssd_bwd 48 * ca_k; for
+   recompute and the backward's states sweep) and ssd_bwd 48 * ca_k, all
+   on the tensor-core bodies; for
    one microbatch every ssd and ssd_bwd call held to its plain version on
    its own inputs (as in phase 12); ms/step, tokens/s, the FLOP share (the
    SSD's own FLOPs in place of attention's), peak memory and one profiled
@@ -1108,23 +1120,42 @@ def backward_kernel_phase(dev):
     return entries, lse_times
 
 
-#: phase 12's shapes (Bt, S, H, P, N, chunk, x dtype, decay): the train
-#: step's first; "model" is mamba2's A = -(1..16) with dt up to ~2, where
-#: exp overflows above the diagonal
-SSD_SHAPES = ((8, 1024, 48, 64, 128, 64, "bfloat16", "test"),
-              (2, 512, 48, 64, 128, 64, "bfloat16", "model"),  # the forward
-              (2, 1000, 48, 64, 128, 64, "bfloat16", "test"),  # ragged
-              (2, 37, 48, 64, 128, 64, "bfloat16", "test"),    # S < chunk
-              (2, 512, 48, 64, 128, 32, "bfloat16", "test"),   # chunk 32
-              (2, 512, 48, 64, 128, 64, "float32", "model"),
-              (2, 512, 80, 64, 64, 64, "bfloat16", "model"))   # zamba2
+#: phase 12's shapes (Bt, S, H, P, N, chunk, x dtype, decay, B/C dtype):
+#: the train step's first; "model" is mamba2's A = -(1..16) with dt up to
+#: ~2, where exp overflows above the diagonal. bf16 x, B and C (as mamba2
+#: hands them) run the tensor-core bodies, a float32 B and C the CUDA-core
+#: ones
+SSD_SHAPES = (
+    (8, 1024, 48, 64, 128, 64, "bfloat16", "test", "bfloat16"),  # train
+    (2, 512, 48, 64, 128, 64, "bfloat16", "model", "bfloat16"),  # forward
+    (2, 1000, 48, 64, 128, 64, "bfloat16", "test", "bfloat16"),  # ragged
+    (2, 37, 48, 64, 128, 64, "bfloat16", "test", "bfloat16"),    # S < chunk
+    (2, 512, 48, 64, 128, 32, "bfloat16", "test", "bfloat16"),   # chunk 32
+    (2, 70, 8, 16, 16, 32, "bfloat16", "model", "bfloat16"),     # smoke32
+    (2, 512, 80, 64, 64, 64, "bfloat16", "model", "bfloat16"),   # zamba2
+    (8, 1024, 48, 64, 128, 64, "bfloat16", "test", "float32"),
+    (2, 512, 48, 64, 128, 64, "bfloat16", "model", "float32"),
+    (2, 1000, 48, 64, 128, 64, "bfloat16", "test", "float32"),
+    (2, 37, 48, 64, 128, 64, "bfloat16", "test", "float32"),
+    (2, 512, 48, 64, 128, 32, "bfloat16", "test", "float32"),
+    (2, 512, 48, 64, 128, 64, "float32", "model", "float32"),
+    (2, 512, 80, 64, 64, 64, "bfloat16", "model", "float32"))
+#: the SSD bodies by operand type, and how the bf16 ones reach the tensor
+#: cores and load their tiles
+SSD_BODIES = {True: ("ssd_fwd_bf16_kernel", "ssd_bwd_bf16_kernel"),
+              False: ("ssd_fwd_f32_kernel", "ssd_bwd_f32_kernel")}
+SSD_ROUTE = "wgmma+tma"
+#: bf16 terms the tensor-core bodies carry each float32 operand in
+#: (csrc/ssd.cu notes 3 and 4; tests/test_torch_ssd.py::KERNEL_TERMS)
+SSD_TERMS = dict(M=2, h=2, U=3, G=3, DD=3, dh=2, hin=2, eY=2)
 
 
-def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay):
+def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay, bc):
     """x as a strided view of a wider projection (as the model hands it),
-    dt, A, B, C float32, and dy, dh_final for the backward, from numpy.
-    "test" draws as the JAX tests do (dt = softplus(normal) / 2, A =
-    -exp(normal / 2))."""
+    dt, A float32, B and C float32 or, with ``bc`` bf16, views of the same
+    projection (mamba2's conv output), and dy, dh_final for the backward,
+    from numpy. "test" draws as the JAX tests do (dt = softplus(normal) /
+    2, A = -exp(normal / 2))."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -1132,48 +1163,64 @@ def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay):
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
-    x = t(rng.standard_normal((Bt, S, H * P + 2 * N)), dtype)[
-        ..., :H * P].reshape(Bt, S, H, P)
+    wide = t(rng.standard_normal((Bt, S, H * P + 2 * N)), dtype)
+    x = wide[..., :H * P].reshape(Bt, S, H, P)
     dt = np.logaddexp(rng.standard_normal((Bt, S, H)), 0.0)
     if decay == "model":
         A = -np.linspace(1.0, 16.0, H)
     else:
         dt, A = dt * 0.5, -np.exp(rng.standard_normal(H) * 0.5)
-    B, C = (rng.standard_normal((Bt, S, N)) for _ in range(2))
+    B, C = (t(rng.standard_normal((Bt, S, N))) for _ in range(2))
+    if bc == torch.bfloat16:
+        B, C = wide[..., H * P:H * P + N], wide[..., H * P + N:]
     dy = t(rng.standard_normal((Bt, S, H, P)), dtype)
     dh = t(rng.standard_normal((Bt, H, P, N)))
-    return (x, t(dt), t(A), t(B), t(C)), dy, dh
+    return (x, t(dt), t(A), B, C), dy, dh
 
 
-def _ssd_work(Bt, S, H, P, N, L, esz, states=False):
-    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of one
-    launch: each input read once, each output written once. Per chunk of
-    l rows and head-row, the L x L-shaped products are counted over the
-    l (l + 1) / 2 pairs t >= s that the causal decay leaves (the rest is
-    masked to zero): the forward's C B^T and its product with xdt, the
-    backward's C B^T, dy xdt^T, (decay C B)^T dy, DD B and DD^T C; the
-    state products run over all l rows: the forward's C h^T and the state
-    update (4 l P N), the backward's B dh^T, C h_in^T, dy h_in, (w xdt) dh
-    and (e dy)^T C (10 l P N). Elementwise work is not counted."""
+def _ssd_work(Bt, S, H, P, N, L, esz, bc_esz=4, states=False):
+    """One launch's work: forward and backward bytes (each input read once,
+    each output written once), the FLOP of their products as the scan
+    needs them (``*_f32``: what the float32 CUDA-core bodies run, and what
+    the bound counts on either route) and as the tensor-core bodies run
+    them (``*_tc``, printed beside it only: each product counted once per
+    bf16 term of its float32 operand, ``SSD_TERMS``; a product of two bf16
+    operands once). Per chunk of l rows and head-row, the L x L-shaped products are
+    counted over the l (l + 1) / 2 pairs t >= s that the causal decay
+    leaves: the forward's C B^T and M' x; the backward's C B^T, dy x^T
+    (twice on the tensor cores, once per layout), (decay C B)^T dy, DD B
+    and DD^T C. The state products run over all l rows: the forward's
+    C h^T and the state update, the backward's B dh^T, x dh (C h_in^T on
+    the CUDA cores), dy h_in, (w xdt) dh and (e dy)^T C. Elementwise work
+    is not counted."""
     nc = -(-S // L)
     lens = [L] * (S // L) + ([S % L] if S % L else [])
     rows, state = Bt * S * H, Bt * H * P * N
-    fwd_flops = Bt * H * sum(l * (l + 1.0) * (N + P) + 4.0 * l * P * N
-                             for l in lens)
-    bwd_flops = Bt * H * sum(l * (l + 1.0) * (3 * N + 2 * P)
-                             + 10.0 * l * P * N for l in lens)
-    common = rows * P * esz + rows * 4 + H * 4 + 2 * Bt * S * N * 4
+    tr = SSD_TERMS
+    f32 = {"fwd": 0.0, "bwd": 0.0}
+    tc = {"fwd": 0.0, "bwd": 0.0}
+    for l in lens:
+        pairs, st = l * (l + 1.0), 2.0 * l * P * N
+        f32["fwd"] += pairs * (N + P) + 2 * st
+        f32["bwd"] += pairs * (3 * N + 2 * P) + 5 * st
+        tc["fwd"] += pairs * (N + tr["M"] * P) + (tr["h"] + tr["U"]) * st
+        tc["bwd"] += (pairs * (N + 2 * P + tr["G"] * P + 2 * tr["DD"] * N)
+                      + (2 * tr["dh"] + tr["hin"] + tr["eY"]) * st)
+    common = rows * P * esz + rows * 4 + H * 4 + 2 * Bt * S * N * bc_esz
     fwd_bytes = common + rows * P * esz + state * 4 + (
         nc * state * 4 if states else 0)
     bwd_bytes = (common + rows * P * esz + nc * state * 4 + state * 4
                  + rows * P * 4 + rows * 4 + 2 * rows * N * 4)
-    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+    return dict(fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+                **{f"{k}_f32": Bt * H * v for k, v in f32.items()},
+                **{f"{k}_tc": Bt * H * v for k, v in tc.items()})
 
 
 def ssd_kernel_phase(dev):
-    """Phase 12: ssd and ssd_bwd against their plain versions, bit-equal
-    across launches, timed beside their bounds. Returns their JSON entries
-    at the training shape."""
+    """Phase 12: ssd and ssd_bwd against their plain versions by the body
+    the operand types choose, bit-equal across launches, bf16 y within the
+    flip share, timed beside their bounds. Returns their JSON entries at
+    the training shape."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
@@ -1181,70 +1228,101 @@ def ssd_kernel_phase(dev):
     entries = {}
     f32 = SSD_RTOL["float32"]
     print("SSD kernel phase: ssd, ssd_bwd")
-    for i, (Bt, S, H, P, N, L, tname, decay) in enumerate(SSD_SHAPES):
-        dtype = getattr(torch, tname)
-        args, dy, dh = _ssd_inputs(dev, Bt, S, H, P, N, dtype, i, decay)
-        shape = (Bt, S, H, P, N, f"chunk {L}", tname, decay)
-        y, h, st = ssd_ops.ssd_cuda(*args, chunk=L, return_states=True)
+    for i, (Bt, S, H, P, N, L, tname, decay, bcname) in enumerate(SSD_SHAPES):
+        dtype, bc = getattr(torch, tname), getattr(torch, bcname)
+        args, dy, dh = _ssd_inputs(dev, Bt, S, H, P, N, dtype, i, decay, bc)
+        tc = dtype == bc == torch.bfloat16
+        shape = (Bt, S, H, P, N, f"chunk {L}", tname, decay, f"B,C {bcname}")
+        fwd, bwd = ssd_ops.ssd_cuda, ssd_ops.ssd_bwd_cuda
+        n0 = (fwd.launches_bf16, fwd.launches_f32)
+        y, h, st = fwd(*args, chunk=L, return_states=True)
+        check((fwd.launches_bf16 - n0[0], fwd.launches_f32 - n0[1]) ==
+              ((1, 0) if tc else (0, 1)), f"ssd{shape}: the wrong body ran")
         wy, wh, ws = ssd_ref.ssd_chunked(*args, chunk=L, return_states=True)
         errs = [_normwise("ssd: y", shape, y, wy, SSD_RTOL[tname]),
                 _normwise("ssd: h_final", shape, h, wh, f32)]
         if S > L:
             errs.append(_normwise("ssd: states", shape, st, ws, f32))
+        if dtype == torch.bfloat16:
+            # the normwise limit cannot tell M' and h carried at float32
+            # accuracy from M' and h rounded once to bf16; the share of
+            # bf16 outputs that move can
+            once = ssd_ref.ssd_chunked_rounded(*args, chunk=L)
+            flips, flips_once = (float((a != wy).float().mean())
+                                 for a in (y, once))
+            print(f"  ssd: y outputs off the plain version's bf16: "
+                  f"{100 * flips:.3f}% (M' and h rounded once: "
+                  f"{100 * flips_once:.3f}%; limit {100 * P_FLIP_LIMIT}%)")
+            check(flips <= P_FLIP_LIMIT < flips_once,
+                  f"ssd{shape}: {flips:.4f} of y off the plain version "
+                  f"(rounded once: {flips_once:.4f}, limit {P_FLIP_LIMIT})")
+            del once
         del wy, wh, ws
-        got = ssd_ops.ssd_bwd_cuda(*args, dy, st, dh, chunk=L)
+        got = bwd(*args, dy, st, dh, chunk=L)
         want = ssd_ref.ssd_bwd(*args, dy, st, dh, chunk=L)
         berrs = [_normwise(f"ssd_bwd: {n}", shape, g, w,
                            SSD_DA_RTOL if n == "da" else f32)
                  for n, g, w in zip(("dxdt", "da", "dB", "dC"), got, want)]
         del want
         same = (all(torch.equal(a, b) for a, b in zip(
-            (y, h, st), ssd_ops.ssd_cuda(*args, chunk=L, return_states=True)))
+            (y, h, st), fwd(*args, chunk=L, return_states=True)))
             and all(torch.equal(a, b) for a, b in zip(
-                got, ssd_ops.ssd_bwd_cuda(*args, dy, st, dh, chunk=L))))
+                got, bwd(*args, dy, st, dh, chunk=L))))
         print(f"  two launches of each SSD kernel bit-equal: {same}")
         check(same, f"ssd{shape}: two launches differ")
-        if i > 0:
+        if (Bt, S) != (8, 1024):
             del args, dy, dh, y, h, st, got
             continue
 
         # times at the training shape: the forward as the model runs it,
         # with the states (the backward's sweep), and the reverse scan
         t = dict(
-            fwd=_event_ms(lambda: ssd_ops.ssd_cuda(*args, chunk=L), 10),
-            states=_event_ms(lambda: ssd_ops.ssd_cuda(
-                *args, chunk=L, return_states=True), 10),
-            bwd=_event_ms(lambda: ssd_ops.ssd_bwd_cuda(
-                *args, dy, st, dh, chunk=L), 5),
+            fwd=_event_ms(lambda: fwd(*args, chunk=L), 10),
+            states=_event_ms(lambda: fwd(*args, chunk=L,
+                                         return_states=True), 10),
+            bwd=_event_ms(lambda: bwd(*args, dy, st, dh, chunk=L), 5),
             fwd_plain=_event_ms(lambda: ssd_ref.ssd_chunked(
                 *args, chunk=L), 3),
             bwd_plain=_event_ms(lambda: ssd_ref.ssd_bwd(
                 *args, dy, st, dh, chunk=L), 2))
-        fb, ff, bb, bf = _ssd_work(Bt, S, H, P, N, L, y.element_size())
-        fbs, _, _, _ = _ssd_work(Bt, S, H, P, N, L, y.element_size(), True)
-        b_fwd, b_sts, b_bwd = (bound_ms(fb, ff), bound_ms(fbs, ff),
-                               bound_ms(bb, bf))
-        tf32 = 495e12
-        for name, (bms, by), ms, plain, flops, nbytes in (
-                ("ssd", b_fwd, t["fwd"], t["fwd_plain"], ff, fb),
-                ("ssd+states", b_sts, t["states"], t["fwd_plain"], ff, fbs),
-                ("ssd_bwd", b_bwd, t["bwd"], t["bwd_plain"], bf, bb)):
-            print(f"  time {name:10s} {str(shape):44s} kernel={ms:.4f}ms "
-                  f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}, float32 "
-                  f"CUDA cores; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
-                  f"MB) TF32-tensor-core bound="
-                  f"{max(nbytes / HBM_BYTES_PER_S, flops / tf32) * 1e3:.5f}"
-                  f"ms, {100 * bms / ms:.1f}% of the float32 bound")
-        for name, (bms, by), ms, plain, err in (
-                ("ssd", b_fwd, t["fwd"], t["fwd_plain"], max(errs)),
-                ("ssd_bwd", b_bwd, t["bwd"], t["bwd_plain"], max(berrs))):
+        w = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
+                      args[3].element_size())
+        ws_ = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
+                        args[3].element_size(), states=True)
+        body = SSD_BODIES[tc]
+        rows = []
+        for name, nbytes, kind, ms, plain in (
+                ("ssd", w["fwd_bytes"], "fwd", t["fwd"], t["fwd_plain"]),
+                ("ssd+states", ws_["fwd_bytes"], "fwd", t["states"],
+                 t["fwd_plain"]),
+                ("ssd_bwd", w["bwd_bytes"], "bwd", t["bwd"], t["bwd_plain"])):
+            # the bound counts the work the scan needs; the bf16 terms the
+            # tensor-core bodies run for it are printed beside it only
+            b32 = bound_ms(nbytes, w[f"{kind}_f32"])
+            bms, by = (bound_ms(nbytes, w[f"{kind}_f32"], BF16_FLOP_PER_S)
+                       if tc else b32)
+            print(f"  time {name:10s} {str(shape):52s} kernel={ms:.4f}ms "
+                  f"({body[kind == 'bwd']}) plain={plain:.4f}ms "
+                  f"bound={bms:.5f}ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{w[f'{kind}_f32'] / 1e9:.2f} GFLOP) [float32 CUDA-core "
+                  f"bound {b32[0]:.5f}ms] {100 * bms / ms:.1f}% of the "
+                  f"bound; the tensor-core bodies run "
+                  f"{w[f'{kind}_tc'] / 1e9:.2f} GFLOP counting each bf16 "
+                  f"term ({w[f'{kind}_tc'] / (ms * 1e9):.1f} TFLOP/s)")
+            rows.append((name, bms, by, b32[0], ms, plain))
+        if not tc:
+            continue
+        for name, bms, by, b32, ms, plain in (rows[0], rows[2]):
+            err = max(errs) if name == "ssd" else max(berrs)
             entries[name] = dict(
                 name=name, route="cuda", source="src/repro_torch/csrc/ssd.cu",
                 replaces=("src/repro/kernels/ssd/kernel.py:120"
                           if name == "ssd" else
                           "src/repro/kernels/ssd/backward.py:123"),
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None,
+                body=body[name == "ssd_bwd"], tensor_core_route=SSD_ROUTE,
+                bound_f32_ms=b32)
         del args, dy, dh, y, h, st, got
     return entries
 
@@ -1316,6 +1394,8 @@ def mamba2_model_phase(dev, cfg, params):
     check(bool(torch.isfinite(logits).all()), "forward logits not finite")
     check(launches["ssd"] == cfg.n_layers, f"forward launched ssd "
           f"{launches['ssd']} times, want {cfg.n_layers}")
+    check(kernels.body_launch_counts()["ssd.launches_bf16"] == cfg.n_layers,
+          "the forward's ssd launches did not all run the tensor-core body")
     ssd_launches = launches["ssd"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1405,6 +1485,7 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
             walls.append(time.perf_counter() - t0)
             logs.append({k: float(v) for k, v in m.items()})
         launches = kernels.launch_counts()
+        bodies = kernels.body_launch_counts()
         peak = torch.cuda.max_memory_allocated()
         for i, (w, lg) in enumerate(zip(walls, logs)):
             print(f"  step {i + 1}: {w * 1e3:.1f} ms loss {lg['loss']:.5f} "
@@ -1421,6 +1502,12 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
                   launches["ssd_bwd"] == want,
                   f"SSD kernels launched {launches}, want {3 * want} and "
                   f"{want}")
+            # the model hands bf16 x, B and C: every launch on the tensor
+            # cores
+            print(f"  by body: {bodies}")
+            check(bodies["ssd.launches_bf16"] == 3 * want and
+                  bodies["ssd_bwd.launches_bf16"] == want,
+                  f"SSD launches off the tensor-core bodies: {bodies}")
             check(launches["flash_attention"] == 0, "attention launched")
         else:
             print(f"  launches over {steps} steps: {launches} (want "

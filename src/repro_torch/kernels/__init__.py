@@ -14,6 +14,9 @@
 
 Each CUDA wrapper carries a plain-integer ``launches`` count that it bumps
 once per kernel launch and nowhere else; :func:`launch_counts` reads them.
+A wrapper with more than one body (``ssd``, ``ssd_bwd``) also counts each
+body's launches (``launches_bf16``, ``launches_f32``), which
+:func:`body_launch_counts` reads.
 """
 from typing import Dict
 
@@ -40,9 +43,23 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _cuda_wrappers().items()}
 
 
+def body_launch_counts() -> Dict[str, int]:
+    """Launches per op and body (``"ssd.launches_bf16"``, ...) since the
+    last :func:`reset_launch_counts`, for the ops that have more than one
+    body."""
+    return {f"{name}.{attr}": getattr(fn, attr)
+            for name, fn in _cuda_wrappers().items()
+            for attr in ("launches_bf16", "launches_f32")
+            if hasattr(fn, attr)}
+
+
 def reset_launch_counts() -> None:
     for fn in _cuda_wrappers().values():
         fn.launches = 0
+        for attr in ("launches_bf16", "launches_f32"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
-__all__ = ["registry", "launch_counts", "reset_launch_counts"]
+__all__ = ["registry", "launch_counts", "body_launch_counts",
+           "reset_launch_counts"]

@@ -3,8 +3,10 @@
 Each ``repro_torch/csrc/<stem>.cu`` has a plain C interface and becomes one
 shared library, compiled by ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/<stem>-<hash>.so`` at the root of the checkout. The hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``nvcc``'s ``-Xptxas -v`` report
+covers the source, every header it includes from ``csrc/`` (``#include
+"..."``, followed through the headers' own includes) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is. ``nvcc``'s ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside the library as
 ``<stem>-<hash>.log``.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,8 +64,27 @@ def unavailable_reason() -> Optional[str]:
     return None
 
 
-def _target(stem: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(stem: str, csrc: Path = CSRC) -> list:
+    """``<stem>.cu`` and every header of ``csrc`` it includes with quotes,
+    directly or through another header, each once, in the order found."""
+    found, todo = [], [csrc / f"{stem}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [csrc / m.decode() for m in _INCLUDE.findall(
+            path.read_bytes())]
+    return found
+
+
+def _target(stem: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256()
+    for path in _sources(stem, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 

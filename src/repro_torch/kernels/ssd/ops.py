@@ -11,9 +11,17 @@ read x (strided), dt, A, B and C as the model holds them, form x dt and
 dt A themselves and mask the ragged last chunk, so there is no copy and no
 pad pass.
 
+The operand types choose the body: x, B and C all bf16 (mamba2 hands the
+conv's bf16 B and C as they are) run the tensor-core bodies
+(``ssd_fwd_bf16_kernel``, ``ssd_bwd_bf16_kernel``), which read x, B, C and
+dy through TMA and so need 16-byte aligned bases and strides; a float32 x,
+B or C runs the CUDA-core bodies (``ssd_fwd_f32_kernel``,
+``ssd_bwd_f32_kernel``). B and C come in float32 or in x's dtype.
+
 Each CUDA wrapper counts its launches in a plain-integer ``launches``
-attribute: ``ssd_cuda.launches`` (with or without the states) and
-``ssd_bwd_cuda.launches``.
+attribute, ``ssd_cuda.launches`` (with or without the states) and
+``ssd_bwd_cuda.launches``, and each body its own in ``launches_bf16`` and
+``launches_f32`` beside it.
 """
 from __future__ import annotations
 
@@ -37,12 +45,13 @@ DEFAULT_CHUNK = 64
 SHAPES = frozenset((L, P, N) for L in (32, 64)
                    for P, N in ((64, 128), (64, 64), (16, 16)))
 _TYPE = {torch.float32: 0, torch.bfloat16: 1}
+#: the C side's body code when x, B and C are all bf16: the tensor cores
+_TC = 2
 
 
 def _check(t: torch.Tensor, name: str, what: str, shape, dtypes) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: {name} must be on a CUDA device, "
-                         f"got {t.device}")
+    """dtype, shape and a unit last stride of one operand (its device is
+    checked once every operand's type is, by :func:`_check_devices`)."""
     if t.dtype not in dtypes:
         raise ValueError(f"{what}: {name} must be one of "
                          f"{[str(d) for d in dtypes]}, got {t.dtype}")
@@ -52,6 +61,13 @@ def _check(t: torch.Tensor, name: str, what: str, shape, dtypes) -> None:
     if t.dim() and t.stride(-1) != 1:
         raise ValueError(f"{what}: {name} needs a unit stride on its last "
                          f"dim, got strides {t.stride()}")
+
+
+def _check_devices(what: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be on a CUDA device, "
+                             f"got {t.device}")
 
 
 def _check_inputs(x, dt, A, B, C, chunk: int, what: str):
@@ -65,15 +81,45 @@ def _check_inputs(x, dt, A, B, C, chunk: int, what: str):
     _check(x, "x", what, (Bt, S, H, P), tuple(_TYPE))
     _check(dt, "dt", what, (Bt, S, H), f32)
     _check(A, "A", what, (H,), f32)
-    _check(B, "B", what, (Bt, S, N), f32)
-    _check(C, "C", what, (Bt, S, N), f32)
+    bc = tuple(dict.fromkeys((torch.float32, x.dtype)))
+    _check(B, "B", what, (Bt, S, N), bc)
+    _check(C, "C", what, (Bt, S, N), bc)
+    if B.dtype != C.dtype:
+        raise ValueError(f"{what}: B and C must share a dtype, got "
+                         f"{B.dtype} and {C.dtype}")
     if (chunk, P, N) not in SHAPES:
         raise ValueError(f"{what}: (chunk, head dim, state) = "
                          f"{(chunk, P, N)} not among the built "
                          f"{sorted(SHAPES)}")
     if min(Bt, S, H) < 1 or Bt > 65535 or H > 2 ** 31 - 1:
         raise ValueError(f"{what}: unsupported shape x {tuple(x.shape)}")
+    _check_devices(what, x=x, dt=dt, A=A, B=B, C=C)
     return Bt, S, H, P, N
+
+
+def _body(x, B, C, what: str, *tma) -> int:
+    """The C side's body code: the tensor cores when x, B and C are all
+    bf16, whose operands (x, B, C and the backward's dy) TMA reads, so
+    their bases and strides must be 16-byte aligned; else x's CUDA-core
+    code."""
+    if not all(t.dtype == torch.bfloat16 for t in (x, B, C)):
+        return _TYPE[x.dtype]
+    for t in (x, B, C, *tma):
+        if t.data_ptr() % 16 or any(st * 2 % 16 for st, n in zip(
+                t.stride()[:-1], t.shape[:-1]) if n > 1):
+            raise ValueError(f"{what}: bf16 x, B, C and dy are read by TMA: "
+                             f"rows must be 16-byte aligned, got strides "
+                             f"{t.stride()} at offset {t.data_ptr() % 16}")
+    return _TC
+
+
+def _count(fn, body: int) -> None:
+    """One launch of ``fn``'s kernel, by the body that ran it."""
+    fn.launches += 1
+    if body == _TC:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches_f32 += 1
 
 
 def _strides(*pairs) -> ctypes.Array:
@@ -87,8 +133,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = DEFAULT_CHUNK, h0: Optional[torch.Tensor] = None,
              return_states: bool = False):
     """The SSD scan from zero state by the Hopper kernel. x (Bt,S,H,P)
-    float32 or bf16, unit stride on P; dt (Bt,S,H), A (H,), B and C
-    (Bt,S,N) float32 with unit last strides -> y (Bt,S,H,P) in x's dtype,
+    float32 or bf16, unit stride on P; dt (Bt,S,H), A (H,) float32; B and
+    C (Bt,S,N) float32 or in x's dtype, unit last strides -> y (Bt,S,H,P)
+    in x's dtype,
     h_final (Bt,H,P,N) float32 and, with ``return_states``, the state
     entering each chunk (Bt,H,ceil(S/chunk),P,N) float32."""
     what = "ssd"
@@ -96,6 +143,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{what}: the kernel starts from zero state; the "
                          f"plain version (backend torch) takes h0")
     Bt, S, H, P, N = _check_inputs(x, dt, A, B, C, chunk, what)
+    body = _body(x, B, C, what)
     dev = x.device
     y = torch.empty(Bt, S, H, P, dtype=x.dtype, device=dev)
     h = torch.empty(Bt, H, P, N, dtype=torch.float32, device=dev)
@@ -106,15 +154,15 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fn = _build.function("ssd", "ssd_fwd", _FWD_ARGS)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
              C.data_ptr(), y.data_ptr(), h.data_ptr(),
-             states.data_ptr() if return_states else None, _TYPE[x.dtype],
+             states.data_ptr() if return_states else None, body,
              Bt, S, H, P, N, chunk, ctypes.cast(strides, ctypes.c_void_p),
              _build.stream_of(x))
     _build.check("ssd", err, what)
-    ssd_cuda.launches += 1
+    _count(ssd_cuda, body)
     return (y, h, states) if return_states else (y, h)
 
 
-ssd_cuda.launches = 0
+ssd_cuda.launches = ssd_cuda.launches_bf16 = ssd_cuda.launches_f32 = 0
 
 
 def ssd_bwd_cuda(x, dt, A, B, C, dy, states, dh_final=None, *,
@@ -135,6 +183,8 @@ def ssd_bwd_cuda(x, dt, A, B, C, dy, states, dh_final=None, *,
         _check(t, name, what, shape, (torch.float32,))
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    _check_devices(what, dy=dy, states=states, dh_final=dh_final)
+    body = _body(x, B, C, what, dy)
     dev = x.device
     dxdt = torch.empty(Bt, S, H, P, dtype=torch.float32, device=dev)
     da = torch.empty(Bt, S, H, dtype=torch.float32, device=dev)
@@ -146,14 +196,15 @@ def ssd_bwd_cuda(x, dt, A, B, C, dy, states, dh_final=None, *,
              C.data_ptr(), dy.data_ptr(), states.data_ptr(),
              dh_final.data_ptr() if dh_final is not None else None,
              dxdt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-             _TYPE[x.dtype], Bt, S, H, P, N, chunk,
+             body, Bt, S, H, P, N, chunk,
              ctypes.cast(strides, ctypes.c_void_p), _build.stream_of(x))
     _build.check("ssd", err, what)
-    ssd_bwd_cuda.launches += 1
+    _count(ssd_bwd_cuda, body)
     return dxdt, da, dB, dC
 
 
-ssd_bwd_cuda.launches = 0
+ssd_bwd_cuda.launches = ssd_bwd_cuda.launches_bf16 = 0
+ssd_bwd_cuda.launches_f32 = 0
 
 
 def _rejects(x, dt, A, B, C, *rest, chunk: int = DEFAULT_CHUNK, h0=None,
@@ -198,7 +249,7 @@ class SSDFn(torch.autograd.Function):
         x, dt, A, B, C = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-        elif dy.stride(-1) != 1:
+        else:
             dy = dy.contiguous()
         if dh is not None:
             dh = dh.float().contiguous()

@@ -122,6 +122,41 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64,
     return (y, h, h_ins) if return_states else (y, h)
 
 
+def ssd_chunked_rounded(x, dt, A, B, C, *, chunk: int = 64):
+    """y of :func:`ssd_chunked` with the two float32 operands of its
+    products rounded once to bf16: M' = (C B^T o decay) dt_s before its
+    product with x, and each chunk's incoming state before C h^T. What a
+    bf16 kernel that kept one term of each would give; run by no path, a
+    yardstick for the share of y's bf16 outputs that move (the tensor-core
+    ``ssd`` carries both as two bf16 terms)."""
+    f64 = torch.float64
+    Bt, S, H, P = x.shape
+    L = chunk
+
+    def once(t):
+        return t.float().to(torch.bfloat16).to(f64)
+
+    xc, cs, Bc, Cc = _chunks(x, dt, A, B, C, L, f64)
+    nc = cs.shape[2]
+    dtc = torch.nn.functional.pad(dt.to(f64), (0, 0, 0, nc * L - S))
+    dtc = dtc.reshape(Bt, nc, L, H).permute(0, 3, 1, 2)
+    xr = torch.nn.functional.pad(x.to(f64), (0, 0, 0, 0, 0, nc * L - S))
+    xr = xr.reshape(Bt, nc, L, H, P).permute(0, 3, 1, 2, 4)
+    M = _decay(cs) * (Cc @ Bc.transpose(-1, -2)) * dtc[..., None, :]
+    y = once(M) @ xr
+    w = torch.exp(cs[..., -1:] - cs)
+    chunk_state = (xc * w[..., None]).transpose(-1, -2) @ Bc
+    h = torch.zeros(Bt, H, P, B.shape[-1], dtype=f64, device=x.device)
+    states = []
+    for c in range(nc):
+        states.append(h)
+        h = torch.exp(cs[:, :, c, -1])[..., None, None] * h \
+            + chunk_state[:, :, c]
+    h_ins = once(torch.stack(states, 2))
+    y = y + torch.exp(cs)[..., None] * (Cc @ h_ins.transpose(-1, -2))
+    return _to_model(y, S).to(x.dtype)
+
+
 def ssd_bwd(x, dt, A, B, C, dy, states, dh_final=None, *, chunk: int = 64):
     """The reverse chunk scan of ``repro.kernels.ssd.backward``, chunk by
     chunk, carrying dh (P x N). Per chunk, with e = exp(cs), w =

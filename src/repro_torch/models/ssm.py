@@ -121,7 +121,7 @@ def mamba2_forward(params: dict, x: torch.Tensor, cfg,
     d_inner, H, N, _, _ = mamba2_dims(d_model, cfg)
     z, xs, Bm, Cm, dt, A, _ = _project(params, x, cfg)
     xh = xs.reshape(bsz, S, H, cfg.ssm_head_dim)   # a view, no copy
-    y, _ = ssd(xh, dt, A, Bm.float(), Cm.float(), chunk=ssd_chunk)
+    y, _ = ssd(xh, dt, A, Bm, Cm, chunk=ssd_chunk)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     return _output(params, y.reshape(bsz, S, d_inner), z, x.dtype)
 

@@ -609,11 +609,13 @@ SSD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 SSD_DA_RTOL = 1e-4
 
 
-def _ssd_case(device, Bt, S, H, P, N, dtype, seed=0, decay="test"):
+def _ssd_case(device, Bt, S, H, P, N, dtype, seed=0, decay="test",
+              bc=torch.float32):
     """x as a strided view of a wider projection (as the model hands it),
-    dt, A, B, C float32, dy and dh for the backward. ``decay="model"``
-    takes mamba2's A = -(1..16) with dt up to ~2, so that exp overflows
-    above the diagonal."""
+    dt, A float32, B and C float32 or (``bc`` bf16) views of the same
+    projection, as mamba2's conv output hands them; dy and dh for the
+    backward. ``decay="model"`` takes mamba2's A = -(1..16) with dt up to
+    ~2, so that exp overflows above the diagonal."""
     rng = np.random.default_rng(seed)
     wide = torch.from_numpy(rng.standard_normal(
         (Bt, S, H * P + 2 * N)).astype(np.float32)).to(device, dtype)
@@ -629,43 +631,72 @@ def _ssd_case(device, Bt, S, H, P, N, dtype, seed=0, decay="test"):
                      rng.standard_normal((Bt, H, P, N)))]
     dy = _normal((Bt, S, H, P), seed + 1, device, dtype)
     dt, A, B, C, dh = f32
+    if bc == torch.bfloat16:
+        B, C = wide[..., H * P:H * P + N], wide[..., H * P + N:]
     return (x, dt, A, B, C), dy, dh
 
 
-SSD_CASES = [  # (Bt, S, H, P, N, chunk, dtype, decay)
-    (8, 1024, 48, 64, 128, 64, torch.bfloat16, "test"),    # the train step
-    (2, 512, 48, 64, 128, 64, torch.bfloat16, "model"),    # the forward
-    (2, 1000, 48, 64, 128, 64, torch.bfloat16, "test"),    # ragged
-    (2, 37, 48, 64, 128, 64, torch.bfloat16, "test"),      # S < chunk
-    (2, 512, 48, 64, 128, 32, torch.bfloat16, "test"),     # chunk 32
-    (2, 512, 48, 64, 128, 64, torch.float32, "model"),
-    (2, 70, 8, 16, 16, 64, torch.float32, "test"),         # smoke config
-    (2, 70, 8, 16, 16, 32, torch.bfloat16, "model"),
-    (2, 512, 80, 64, 64, 64, torch.bfloat16, "model"),     # zamba2's heads
-    (2, 200, 8, 64, 64, 32, torch.float32, "test")]
+BF16 = torch.bfloat16
+SSD_CASES = [  # (Bt, S, H, P, N, chunk, x dtype, decay, B/C dtype)
+    (8, 1024, 48, 64, 128, 64, BF16, "test", torch.float32),  # the train step
+    (2, 512, 48, 64, 128, 64, BF16, "model", torch.float32),  # the forward
+    (2, 1000, 48, 64, 128, 64, BF16, "test", torch.float32),  # ragged
+    (2, 37, 48, 64, 128, 64, BF16, "test", torch.float32),    # S < chunk
+    (2, 512, 48, 64, 128, 32, BF16, "test", torch.float32),   # chunk 32
+    (2, 512, 48, 64, 128, 64, torch.float32, "model", torch.float32),
+    (2, 70, 8, 16, 16, 64, torch.float32, "test", torch.float32),  # smoke
+    (2, 70, 8, 16, 16, 32, BF16, "model", torch.float32),
+    (2, 512, 80, 64, 64, 64, BF16, "model", torch.float32),   # zamba2's heads
+    (2, 200, 8, 64, 64, 32, torch.float32, "test", torch.float32),
+    # B and C in bf16, as the model hands them: the tensor-core bodies
+    (8, 1024, 48, 64, 128, 64, BF16, "test", BF16),
+    (2, 512, 48, 64, 128, 64, BF16, "model", BF16),
+    (2, 1000, 48, 64, 128, 64, BF16, "test", BF16),
+    (2, 37, 48, 64, 128, 64, BF16, "test", BF16),
+    (2, 512, 48, 64, 128, 32, BF16, "test", BF16),
+    (2, 70, 8, 16, 16, 32, BF16, "model", BF16),
+    (2, 512, 80, 64, 64, 64, BF16, "model", BF16)]
 SSD_IDS = ["train", "forward", "ragged", "short", "chunk32", "f32", "smoke",
-           "smoke32", "zamba2", "zamba2_chunk32_f32"]
+           "smoke32", "zamba2", "zamba2_chunk32_f32", "train_bf16bc",
+           "forward_bf16bc", "ragged_bf16bc", "short_bf16bc",
+           "chunk32_bf16bc", "smoke32_bf16bc", "zamba2_bf16bc"]
 
 
-@pytest.mark.parametrize("Bt,S,H,P,N,chunk,dtype,decay", SSD_CASES,
+def _flips(got, want):
+    return float((got != want).float().mean())
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk,dtype,decay,bc", SSD_CASES,
                          ids=SSD_IDS)
 def test_ssd_cuda_kernels_match_plain(cuda, Bt, S, H, P, N, chunk, dtype,
-                                      decay):
+                                      decay, bc):
     """ssd (y, h_final, the per-chunk states) and ssd_bwd (dxdt, da, dB,
-    dC per head) against their plain versions on the same operands; two
-    launches of each give the same bits."""
-    args, dy, dh = _ssd_case(cuda, Bt, S, H, P, N, dtype, decay=decay)
+    dC per head) against their plain versions on the same operands, by
+    the body the operand types choose (the tensor cores when x, B and C are
+    all bf16); bf16 y within the flip share the plain version rounded once
+    exceeds (``P_FLIP_LIMIT``: the tensor-core bodies carry M' and h as two
+    bf16 terms; tests/test_torch_ssd.py::test_bf16_terms_meet_the_limits);
+    two launches of each give the same bits."""
+    args, dy, dh = _ssd_case(cuda, Bt, S, H, P, N, dtype, decay=decay, bc=bc)
+    kernels.reset_launch_counts()
     y, h, states = ssd_ops.ssd_cuda(*args, chunk=chunk, return_states=True)
     wy, wh, ws = ssd_ref.ssd_chunked(*args, chunk=chunk, return_states=True)
     torch.cuda.synchronize()
+    tc = dtype == BF16 and bc == BF16
+    assert (ssd_ops.ssd_cuda.launches_bf16,
+            ssd_ops.ssd_cuda.launches_f32) == ((1, 0) if tc else (0, 1))
     assert y.dtype == dtype and torch.isfinite(y.float()).all()
     assert _normwise(y.float(), wy.float()) <= SSD_RTOL[dtype]
+    if dtype == BF16:
+        once = ssd_ref.ssd_chunked_rounded(*args, chunk=chunk)
+        assert _flips(y, wy) <= P_FLIP_LIMIT < _flips(once, wy)
     assert _normwise(h, wh) <= SSD_RTOL[torch.float32]
     if S > chunk:
         assert _normwise(states, ws) <= SSD_RTOL[torch.float32]
     got = ssd_ops.ssd_bwd_cuda(*args, dy, states, dh, chunk=chunk)
     want = ssd_ref.ssd_bwd(*args, dy, states, dh, chunk=chunk)
     torch.cuda.synchronize()
+    assert ssd_ops.ssd_bwd_cuda.launches_bf16 == int(tc)
     for name, g, w in zip(("dxdt", "da", "dB", "dC"), got, want):
         assert torch.isfinite(g).all(), name
         rtol = SSD_DA_RTOL if name == "da" else SSD_RTOL[torch.float32]
@@ -691,6 +722,21 @@ def test_ssd_cuda_rows_do_not_depend_on_the_batch(cuda):
     assert all(torch.equal(a, b[1:2]) for a, b in zip(b1, bwd))
 
 
+def test_ssd_tensor_core_rows_do_not_depend_on_the_batch(cuda):
+    """The tensor-core bodies: a batch row's outputs have the same bits
+    alone and in its batch, and a null dh_final is zeros."""
+    args, dy, dh = _ssd_case(cuda, 3, 200, 4, 64, 128, BF16, bc=BF16)
+    y, h, st = ssd_ops.ssd_cuda(*args, return_states=True)
+    bwd = ssd_ops.ssd_bwd_cuda(*args, dy, st, None)
+    zero = ssd_ops.ssd_bwd_cuda(*args, dy, st, torch.zeros_like(dh))
+    assert all(torch.equal(a, b) for a, b in zip(bwd, zero))
+    one = [a[1:2] for a in args[:2]] + [args[2]] + [a[1:2] for a in args[3:]]
+    y1, h1, st1 = ssd_ops.ssd_cuda(*one, return_states=True)
+    assert torch.equal(y1, y[1:2]) and torch.equal(h1, h[1:2])
+    b1 = ssd_ops.ssd_bwd_cuda(*one, dy[1:2], st1, None)
+    assert all(torch.equal(a, b[1:2]) for a, b in zip(b1, bwd))
+
+
 def test_ssd_wrappers_reject_bad_operands(cuda):
     args, dy, dh = _ssd_case(cuda, 1, 64, 2, 64, 128, torch.float32)
     x, dt, A, B, C = args
@@ -699,7 +745,13 @@ def test_ssd_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="not among the built"):
         ssd_ops.ssd_cuda(*args, chunk=128)
     with pytest.raises(ValueError, match="float32"):
-        ssd_ops.ssd_cuda(x, dt, A, B.bfloat16(), C)
+        ssd_ops.ssd_cuda(x, dt, A, B.bfloat16(), C.bfloat16())
+    with pytest.raises(ValueError, match="share a dtype"):
+        ssd_ops.ssd_cuda(x.bfloat16(), dt, A, B.bfloat16(), C)
+    odd = torch.zeros(1, 64, 2 * 64 + 3, dtype=BF16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_ops.ssd_cuda(odd[..., :128].reshape(1, 64, 2, 64), dt, A,
+                         B.bfloat16(), C.bfloat16())
     with pytest.raises(ValueError, match="unit stride"):
         ssd_ops.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
                          dt, A, B, C)
@@ -736,6 +788,31 @@ def test_ssd_autograd_through_the_kernels(cuda):
                                                       w.float()) <= tol, i
 
 
+def test_ssd_autograd_through_the_tensor_core_kernels(cuda):
+    """``ssd`` under autograd with bf16 x, B and C, as the model calls it:
+    the forward, the states sweep and the reverse scan run the tensor-core
+    bodies, and the grads equal the plain backend's (bf16 grads 8e-3
+    normwise, float32 1e-4)."""
+    args, _, _ = _ssd_case(cuda, 2, 300, 4, 64, 128, BF16, bc=BF16)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves_ = [a.detach().clone().requires_grad_() for a in args]
+        kernels.reset_launch_counts()
+        with registry.use(backend):
+            y, h = ssd_ops.ssd(*leaves_)
+            loss = (y.float() ** 2).sum() + (h ** 2).sum()
+            grads[backend] = torch.autograd.grad(loss, leaves_)
+        torch.cuda.synchronize()
+        bodies = kernels.body_launch_counts()
+        want = (2, 1) if backend == "cuda" else (0, 0)
+        assert (bodies["ssd.launches_bf16"],
+                bodies["ssd_bwd.launches_bf16"]) == want
+    for i, (g, w) in enumerate(zip(grads["cuda"], grads["torch"])):
+        tol = SSD_RTOL[g.dtype] if g.dtype == BF16 else 1e-4
+        assert g.dtype == args[i].dtype and _normwise(g.float(),
+                                                      w.float()) <= tol, i
+
+
 MCFG = smoke_config(get_arch("mamba2-780m"))
 
 
@@ -751,6 +828,7 @@ def test_mamba2_teacher_forced_decode_matches_forward(cuda):
     kernels.reset_launch_counts()
     logits, _ = forward(params, MCFG, {"tokens": toks})
     assert kernels.launch_counts()["ssd"] == MCFG.n_layers
+    assert kernels.body_launch_counts()["ssd.launches_bf16"] == MCFG.n_layers
     cache = init_cache(MCFG, B, S, device=cuda)
     outs = []
     for t in range(S):
@@ -780,6 +858,10 @@ def test_mamba2_train_step_through_the_ssd_kernels(cuda):
         launches = kernels.launch_counts()
         n = MCFG.n_layers * 2 if backend == "cuda" else 0
         assert launches["ssd_bwd"] == n and launches["ssd"] == 3 * n
+        # the model hands bf16 x, B and C: every launch a tensor-core body
+        bodies = kernels.body_launch_counts()
+        assert (bodies["ssd.launches_bf16"],
+                bodies["ssd_bwd.launches_bf16"]) == (3 * n, n)
         metrics[backend] = {k: float(v) for k, v in m.items()}
     assert np.isfinite(metrics["cuda"]["loss"])
     for name in ("loss", "grad_norm"):

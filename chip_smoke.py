@@ -20,26 +20,36 @@ What it does, in order; any failure raises and the exit code is not 0:
 3. builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one
    process per source, all at once) into ``build/repro_torch/``;
 4. kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the main path's shapes (gram sees the augmented data [X; y], so
-   d+1 rows), at a ragged shape and (prox_loop) above the shared-memory
-   limit, and times kernel, plain version and, for gram, ``torch.bmm``.
-   Tolerances are normwise (max |kernel - plain| / max |plain|): 1e-5 for
-   the prox kernels; for gram 2e-6 over all of G and 2e-5 over its
-   off-diagonal entries against their own largest magnitude, limits that
-   float32 sums in m-chunks meet (3e-7 and 1.2e-6 in a float32 model of
-   the kernel's summation order) and TF32 products would not (4e-6 and
-   3.6e-4 in the same model);
+   card at the main path's shapes (the Gram kernels see the augmented data
+   [X; y], so d+1 rows), at ragged shapes and (prox_loop) above the
+   shared-memory limit, and times kernel, plain version and, for gram,
+   ``torch.bmm``. ``gram_gather`` runs over the sample-major rows of
+   covtype and susy at full size (the launcher's synthetic data) with real
+   draws, which repeat rows: the CA block (k=32) and the classical draw
+   (k=1) of each; its G and R must be bitwise ``gram``'s over the gathered
+   copy, scaled, and one draw's alone bitwise its slice of the batch; its
+   bound counts each distinct row drawn once, and the gather + ``torch.bmm``
+   pair is timed beside it as a diagnostic (no single PyTorch call gathers
+   and multiplies). Tolerances are normwise (max |kernel - plain| / max
+   |plain|): 1e-5 for the prox kernels; for the Gram kernels 2e-6 over all
+   of G (and R) and 2e-5 over G's off-diagonal entries against their own
+   largest magnitude, limits that float32 sums in m-chunks meet (3e-7 and
+   1.2e-6 in a float32 model of the kernel's summation order) and TF32
+   products would not (4e-6 and 3.6e-4 in the same model);
 5. main path: ``repro_torch.launch.lasso_solve.main`` with T=256, k=32,
    b=0.1, Q=5 on covtype at full size (CA-SFISTA, SFISTA) and on susy at
    full size (CA-SPNM, SPNM). Each run is read for its kernel launches and
-   registry dispatches (zeroed just before it), its relative solution error,
+   registry dispatches (zeroed just before it: ``gram_gather`` launched T/k
+   times for CA and T for classical, ``gram`` never), its relative
+   solution error,
    CA == classical (5e-6) and the card's w against the port's plain solve on
    the card with the same draws and step (1e-4). Then the solve wall of
    each schedule on the same draws: one untimed warm-up solve of each, then
    three timed solves of each in the order CA, classical, classical, CA,
    CA, classical, reported as all six walls and the two medians;
-6. a profiled CA and classical covtype solve: device time by kernel and the
-   device's busy share of the wall time;
+6. a profiled CA and classical solve of covtype and of susy: device time
+   by kernel and the device's busy share of the wall time; no gather or
+   index kernel may run on the solve (the sampled rows are read in place);
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
@@ -1658,7 +1668,8 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.core import sstep
-    from repro_torch.core.sampling import sample_index_batch
+    from repro_torch.core.sampling import gather_columns, sample_index_batch
+    from repro_torch.data import make_dataset_like
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
     from repro_torch.kernels.prox_step import ops as prox_ops
@@ -1717,14 +1728,30 @@ def main() -> int:
               f"{rtol}")
         return err
 
-    def compare_offdiag(shape, got, want):
-        off = ~torch.eye(shape[1], dtype=torch.bool, device=dev)
+    def compare_offdiag(shape, got, want, name="gram"):
+        off = ~torch.eye(got.shape[1], dtype=torch.bool, device=dev)
         err = float((got - want).abs()[:, off].max())
         rel = err / max(float(want.abs()[:, off].max()), 1e-30)
-        print(f"  {'gram':9s} {str(shape):22s} off-diagonal "
+        print(f"  {name:9s} {str(shape):22s} off-diagonal "
               f"max_abs_err={err:.3e} normwise_rel={rel:.3e}")
-        check(rel <= GRAM_OFFDIAG_RTOL, f"gram{shape}: off-diagonal error "
+        check(rel <= GRAM_OFFDIAG_RTOL, f"{name}{shape}: off-diagonal error "
               f"{rel:.3e} > {GRAM_OFFDIAG_RTOL}")
+
+    def hold_gram_gather(shape, rows, Xy, draws, r):
+        """gram_gather against its plain version and, bitwise, against gram
+        over the gathered copy, scaled; returns (G, R, max_abs_err)."""
+        inv_m = 1.0 / draws.shape[1]
+        G, R = gram_ops.gram_gather_cuda(rows, draws, r, inv_m)
+        want_G, want_R = gram_ref.gram_gather(rows, draws, r, inv_m)
+        err = compare("gram_gather", shape, torch.cat([G.flatten(1), R], 1),
+                      torch.cat([want_G.flatten(1), want_R], 1),
+                      rtol=GRAM_RTOL)
+        compare_offdiag(shape, G, want_G, "gram_gather")
+        Ga = gram_ops.gram_cuda(gather_columns(Xy, draws)) * inv_m
+        d = r - 1
+        check(torch.equal(G, Ga[:, :d, :d]) and torch.equal(R, Ga[:, :d, d]),
+              f"gram_gather{shape}: not bitwise gram over the gathered copy")
+        return G, R, err
 
     gen = torch.Generator(device=dev).manual_seed(0)
     entries = {}   # one per kernel, at its main-path shape, for the JSON line
@@ -1766,7 +1793,76 @@ def main() -> int:
             entries["gram"] = e
         del Xs, got
 
-    # 4b. prox_step / prox_loop at d = 54 and 18 for each variant, ragged
+    # 4b. gram_gather: the solvers' block statistics over the sample-major
+    # rows of covtype and susy at full size, with real draws (with
+    # replacement: rows repeat); the CA block (k=32) and the classical draw
+    # (k=1) of each, then ragged shapes
+    print("kernel phase: gram_gather")
+    for dataset, scale in (("covtype", 10), ("susy", 50)):
+        problem, _ = make_dataset_like(dataset, scale=scale, device=dev)
+        rows, Xy = problem.Xy_rows, problem.Xy
+        n, r = problem.n, problem.d + 1
+        m = max(int(B * n), 1)
+        idx = sample_index_batch(gen, K, n, m)
+        for k in (K, 1):
+            draws = idx[:k]
+            shape = (k, r, m)
+            G, R, err = hold_gram_gather(shape, rows, Xy, draws, r)
+            if k > 1:
+                for j in (0, k - 1):
+                    Gj, Rj = gram_ops.gram_gather_cuda(rows, draws[j:j + 1],
+                                                       r, 1.0 / m)
+                    check(torch.equal(Gj[0], G[j]) and torch.equal(Rj[0], R[j]),
+                          f"gram_gather{shape}: draw {j} alone differs from "
+                          f"its batch")
+            distinct = int(torch.unique(draws).numel())
+            check(distinct < k * m, f"gram_gather{shape}: no row drawn twice")
+            iters = 20 if k > 1 else 200
+            ms = time_ms(lambda: gram_ops.gram_gather_cuda(rows, draws, r,
+                                                           1.0 / m), iters)
+            plain = time_ms(lambda: gram_ref.gram_gather(rows, draws, r,
+                                                         1.0 / m), iters)
+
+            def gather_bmm():
+                Xs = gather_columns(Xy, draws)
+                return torch.bmm(Xs, Xs.transpose(1, 2))
+            pair = time_ms(gather_bmm, iters)
+            host = _host_us(lambda: gram_ops.gram_gather_cuda(rows, draws, r,
+                                                              1.0 / m))
+            # each distinct row read once, the draws, G and R written once;
+            # r(r+1)/2 entries of m FMAs each
+            out_bytes = 4.0 * k * (r - 1) * r
+            flops = 1.0 * k * m * r * (r + 1)
+            bms, by = bound_ms(4.0 * distinct * r + 8.0 * k * m + out_bytes,
+                               flops)
+            every, _ = bound_ms(4.0 * k * m * r + 8.0 * k * m + out_bytes,
+                                flops)
+            print(f"  gram_gather {dataset} {shape}: {distinct} distinct rows "
+                  f"of {k * m} draws; kernel={ms:.4f}ms plain={plain:.4f}ms "
+                  f"bound={bms:.5f}ms ({by}; {every:.5f}ms if every drawn "
+                  f"row is read) gather+bmm={pair:.4f}ms (diagnostic); "
+                  f"wrapper host time {host:.1f}us a call")
+            e = dict(name="gram_gather", route="cuda",
+                     source="src/repro_torch/csrc/gram.cu",
+                     replaces="src/repro/kernels/gram/kernel.py:44",
+                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None,
+                     shape=list(shape))
+            timings.append(e)
+            if k > 1 and dataset == "covtype":
+                entries["gram_gather"] = e
+            del G, R
+        del problem, rows, Xy, idx, draws
+        torch.cuda.empty_cache()
+    for shape in ((3, 61, 129), (2, 130, 777), (1, 8, 1)):
+        k, r, m = shape
+        n = m // 2 + 3
+        # padding columns of garbage: they take part in no entry
+        rows = torch.randn(n, -(-r // 4) * 4 + 4, generator=gen, device=dev)
+        draws = torch.randint(0, n, (k, m), generator=gen, device=dev)
+        hold_gram_gather(shape, rows, rows[:, :r].T, draws, r)
+
+    # 4c. prox_step / prox_loop at d = 54 and 18 for each variant, ragged
     # d = 61, and prox_loop at d = 300, above the shared-memory limit
     print("kernel phase: prox_step, prox_loop")
     scal = prox_ops.prox_scalars(*SCAL, device=dev)
@@ -1822,7 +1918,8 @@ def main() -> int:
 
     # 5. main path
     print(f"main path: lasso_solve T={T} k={K} b={B} Q={Q}")
-    total = {"gram": 0, "prox_step": 0, "prox_loop": 0}
+    profiled = {}
+    total = {"gram": 0, "gram_gather": 0, "prox_step": 0, "prox_loop": 0}
     for dataset, scale, (ca_name, cl_name), rule, n_full in (
             ("covtype", "10", ("ca_sfista", "sfista"), sstep.FISTA_RULE,
              581_010),
@@ -1849,8 +1946,12 @@ def main() -> int:
             check(all(b == "cuda" for (_, b) in dispatches),
                   f"{algo}: a plain version ran: {dispatches}")
             want_gram = T // K if ca else T
-            check(launches["gram"] == want_gram,
-                  f"{algo}: gram launched {launches['gram']}, want {want_gram}")
+            check(launches["gram_gather"] == want_gram,
+                  f"{algo}: gram_gather launched {launches['gram_gather']}, "
+                  f"want {want_gram}")
+            check(launches["gram"] == 0,
+                  f"{algo}: gram launched {launches['gram']} times on the "
+                  f"solve")
             check(launches[prox] == T,
                   f"{algo}: {prox} launched {launches[prox]}, want {T}")
             check(math.isfinite(run.rel_err) and run.rel_err < 1.0,
@@ -1894,37 +1995,48 @@ def main() -> int:
         print(f"  {dataset}: warm solve wall, median of 3: {ca_name} "
               f"{med[True]!r}s {walls[True]!r}, {cl_name} {med[False]!r}s "
               f"{walls[False]!r}, classical/CA {med[False] / med[True]!r}")
-        if dataset == "covtype":
-            covtype = (problem, cfg, draws)
+        profiled[dataset] = (problem, cfg, draws, rule, (ca_name, cl_name))
         del runs, ca_run, cl_run, problem, w_plain
 
     for name, e in list(entries.items()):
         e["launches"] = total[name]
+    for name in ("gram_gather", "prox_step", "prox_loop"):
         check(total[name] > 0, f"{name} was not launched on the main path")
+    # gram, the Pallas kernel's pre-gathered counterpart, held in phase 4
+    check(total["gram"] == 0, "gram was launched on the solves")
 
-    # 6. where the time goes: one profiled CA and classical covtype solve
+    # 6. where the time goes: a profiled CA and classical solve of each
+    # dataset; the sampled rows are read in place, so no gather or index
+    # kernel may run
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    problem, cfg, draws = covtype
-    for ca in (True, False):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sstep.solve(problem, cfg, None, sstep.FISTA_RULE, name="profiled",
-                        ca=ca, idx=draws)
+    for dataset, (problem, cfg, draws, rule, names) in profiled.items():
+        for ca in (True, False):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(ev.key, _self_device_us(ev), ev.count)
-                for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows) / 1e6
-        print(f"profile covtype {'ca_sfista' if ca else 'sfista'}: wall "
-              f"{wall:.4f}s (profiled), device kernels {busy:.4f}s "
-              f"({100 * busy / wall:.1f}% busy), {len(rows)} kernel names")
-        for key, us, count in rows[:8]:
-            print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sstep.solve(problem, cfg, None, rule, name="profiled", ca=ca,
+                            idx=draws)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows = [(ev.key, _self_device_us(ev), ev.count)
+                    for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA]
+            rows.sort(key=lambda r: -r[1])
+            busy = sum(r[1] for r in rows) / 1e6
+            print(f"profile {dataset} {names[0] if ca else names[1]}: wall "
+                  f"{wall:.4f}s (profiled), device kernels {busy:.4f}s "
+                  f"({100 * busy / wall:.1f}% busy), {len(rows)} kernel "
+                  f"names")
+            for key, us, count in rows[:8]:
+                print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+            gathers = [key for key, _, _ in rows
+                       if ("gather" in key.lower() or "index" in key.lower())
+                       and "gram_gather" not in key]
+            check(not gathers, f"{dataset}: a gather ran on the solve: "
+                  f"{gathers}")
+    del profiled
 
     # 7-9. serving internlm2-1.8b at full width
     from repro_torch.configs import get_arch

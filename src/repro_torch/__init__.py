@@ -7,9 +7,10 @@ Subpackages ported so far:
   core        the paper's solvers on Lasso (SFISTA, CA-SFISTA, SPNM,
               CA-SPNM), the shared s-step schedule, the Comet cost model
   kernels     the op registry and the hand-written Hopper kernels
-              (``gram``, ``prox_step``, ``prox_loop``, ``flash_attention``,
-              ``flash_dq``, ``flash_dkv``, ``paged_decode``) beside their
-              plain PyTorch versions
+              (``gram``, ``gram_gather``, ``prox_step``, ``prox_loop``,
+              ``flash_attention``, ``flash_dq``, ``flash_dkv``,
+              ``paged_decode``, ``ssd``, ``ssd_bwd``) beside their plain
+              PyTorch versions
   configs     the ten architecture configs
   models      the dense model: init, forward, loss, decode
   serve       the continuous-batching engine over slot and paged caches

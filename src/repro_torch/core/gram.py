@@ -6,20 +6,23 @@ These are the only statistics through which the stochastic iteration
 touches the data — the linchpin of the k-step reformulation: G/R for k
 future iterations can be computed before any of the k updates run.
 
-Both come from one rank-m product through the kernel registry (op
-``gram``: the Hopper kernel for CUDA tensors, its plain PyTorch version on
-the CPU), taken over the augmented data [X; y] (d+1, n): the top-left
-d x d block of its Gram matrix is G, the first d entries of its last column
-are R. The JAX package takes R = Xs ys outside the kernel; here R comes from
-the same launch and the same m-only summation order as G, so a draw's R,
-like its G, has the same bits alone (classical) as in a block of k (CA).
+Both come from one rank-m product over the augmented data [X; y], whose
+Gram matrix holds G as its top-left d x d block and R as the first d
+entries of its last column. The solvers hold the augmented data
+sample-major, Xy_rows (n, r_pad) with row i = [x_i, y_i] padded to a
+16-byte pitch (``LassoProblem.Xy_rows``), and take a block's k pairs from
+one ``gram_gather`` dispatch over it and the draws (the Hopper kernel for
+CUDA tensors, which reads the sampled rows in place; its plain PyTorch
+version on the CPU). The JAX package gathers the columns (``jnp.take``) and
+takes R = Xs ys outside its kernel; here R comes from the same launch and
+the same m-only summation order as G, so a draw's R, like its G, has the
+same bits alone (classical) as in a block of k (CA).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sampling import gather_columns
-from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels import registry
 
 
 def augment(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -27,24 +30,36 @@ def augment(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.cat([X, y.unsqueeze(0)], 0)
 
 
-def augmented_gram_blocks(Xy: torch.Tensor, idx_batch: torch.Tensor):
+def augment_rows(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[X; y] sample-major: (n, r_pad), row i = [X[:, i], y[i]] and zeros
+    up to r_pad, d+1 rounded up to a multiple of 4 (16-byte rows)."""
+    d, n = X.shape
+    rows = torch.zeros(n, -(-(d + 1) // 4) * 4, dtype=X.dtype,
+                       device=X.device)
+    rows[:, :d] = X.T
+    rows[:, d] = y
+    return rows
+
+
+def augmented_gram_blocks(Xy_rows: torch.Tensor, d: int,
+                          idx_batch: torch.Tensor):
     """G (k, d, d) and R (k, d) of k draws idx_batch (k, m) from the
-    augmented data Xy = [X; y] (d+1, n): one gather into a contiguous
-    (k, d+1, m) tensor and ONE ``gram`` dispatch for the block."""
-    d = Xy.shape[0] - 1
-    Ga = gram_ops.gram(gather_columns(Xy, idx_batch))
-    Ga = Ga * (1.0 / idx_batch.shape[1])
-    return Ga[:, :d, :d].contiguous(), Ga[:, :d, d].contiguous()
+    sample-major augmented data Xy_rows (:func:`augment_rows`): ONE
+    ``gram_gather`` dispatch for the block, scaled by 1/m. (The op takes
+    the scale as an argument, so a distributed solve can pass the global
+    sample count's.)"""
+    return registry.dispatch("gram_gather", Xy_rows, idx_batch, d + 1,
+                             1.0 / idx_batch.shape[1])
 
 
 def gram_blocks(X: torch.Tensor, y: torch.Tensor, idx_batch: torch.Tensor):
     """k independent Gram blocks at once: G (k, d, d), R (k, d).
 
-    The paper's line 6 of Algorithm III. Builds [X; y] on every call;
-    solvers hold it once per problem (``LassoProblem.Xy``) and call
-    :func:`augmented_gram_blocks`.
+    The paper's line 6 of Algorithm III. Builds the augmented rows on every
+    call; solvers hold them once per problem (``LassoProblem.Xy_rows``) and
+    call :func:`augmented_gram_blocks`.
     """
-    return augmented_gram_blocks(augment(X, y), idx_batch)
+    return augmented_gram_blocks(augment_rows(X, y), X.shape[0], idx_batch)
 
 
 def sampled_gram(X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):

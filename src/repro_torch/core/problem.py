@@ -56,12 +56,21 @@ class LassoProblem:
         from repro_torch.core.gram import augment
         return augment(self.X, self.y)
 
+    @functools.cached_property
+    def Xy_rows(self) -> torch.Tensor:
+        """[X; y] sample-major (n, r_pad), built once by one transpose on
+        first use: row i is sample i's d features and its y, zero-padded to
+        a 16-byte pitch (r_pad = 56 for covtype, 20 for susy). The
+        ``gram_gather`` kernel reads a draw's rows from it in place."""
+        from repro_torch.core.gram import augment_rows
+        return augment_rows(self.X, self.y)
+
     def block_stats(self, idx_block: torch.Tensor):
         """(G, R) of shapes (k, d, d), (k, d) for k draws idx_block (k, m):
         the batched counterpart of the JAX package's
-        ``vmap(problem.gram_stats)``."""
+        ``vmap(problem.gram_stats)``, one ``gram_gather`` dispatch."""
         from repro_torch.core.gram import augmented_gram_blocks
-        return augmented_gram_blocks(self.Xy, idx_block)
+        return augmented_gram_blocks(self.Xy_rows, self.d, idx_block)
 
     def full_stats(self):
         """Full-batch (G, R): the gradient of f is G w - R."""

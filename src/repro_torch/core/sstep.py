@@ -8,7 +8,8 @@ instantiation of the same skeleton:
   2. regroup them into T/k blocks of k (classical solvers are the k=1
      instantiation of the same code path);
   3. per outer block, compute the block's k sampled Gram pairs at once
-     (``problem.block_stats``: one gather, one ``gram`` dispatch);
+     (``problem.block_stats``: one ``gram_gather`` dispatch, which reads
+     the sampled rows where they lie);
   4. run the k per-iteration updates of the rule over the block with no
      further communication (a Python loop; the JAX package's ``lax.scan``).
 

@@ -2,7 +2,7 @@
 ``cuda``, sources in ``repro_torch/csrc``) and its plain PyTorch version
 (backend ``torch``, the ``ref.py`` beside it).
 
-  gram/             ``gram``                     csrc/gram.cu
+  gram/             ``gram``, ``gram_gather``     csrc/gram.cu
   prox_step/        ``prox_step``, ``prox_loop``  csrc/prox_step.cu
   flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
                     ``flash_dq``, ``flash_dkv``,
@@ -29,7 +29,9 @@ def _cuda_wrappers():
     from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    return {"gram": gram_ops.gram_cuda, "prox_step": prox_ops.prox_step_cuda,
+    return {"gram": gram_ops.gram_cuda,
+            "gram_gather": gram_ops.gram_gather_cuda,
+            "prox_step": prox_ops.prox_step_cuda,
             "prox_loop": prox_ops.prox_loop_cuda,
             "flash_attention": fa_ops.flash_attention_cuda,
             "paged_decode": fa_ops.paged_decode_cuda,

@@ -1,13 +1,23 @@
-"""Op ``gram``: G = Xs Xs^T for one draw (d, m) or a batch of draws (k, d, m).
+"""Ops ``gram`` and ``gram_gather``: sampled Gram matrices.
 
-``cuda`` launches ``csrc/gram.cu`` (counterpart of the Pallas kernel
-``repro.kernels.gram.kernel.gram``); ``torch`` is :func:`ref.gram`. The
-kernel splits the m axis into chunks fixed by m alone (:func:`chunking`),
-writes one partial tile per chunk into scratch the wrapper allocates, and
-sums the partials in chunk order — so a draw's G has the same bits at any
-batch size k.
+``gram``: G = Xs Xs^T for one draw (d, m) or a batch of draws (k, d, m)
+already gathered. ``cuda`` launches ``csrc/gram.cu`` (counterpart of the
+Pallas kernel ``repro.kernels.gram.kernel.gram``); ``torch`` is
+:func:`ref.gram`.
 
-:func:`gram` is the differentiable form the solvers call: under autograd it
+``gram_gather``: the same over the draws idx (k, m) of a sample-major copy
+of the data, Xy_rows (n, r_pad), read in place by the kernel, scaled by
+inv_m and split into G (k, r-1, r-1) and R (k, r-1), R the last column: the
+Lasso solvers' block statistics in one launch pair. ``torch`` is
+:func:`ref.gram_gather`.
+
+Both kernels split the m axis into chunks fixed by m alone
+(:func:`chunking`), write one partial triangle per chunk into scratch the
+wrapper allocates, and sum the partials in chunk order — so a draw's G has
+the same bits at any batch size k, and ``gram_gather``'s G and R are
+bitwise ``gram``'s over the gathered copy (before scaling).
+
+:func:`gram` is the ``gram`` op's differentiable form: under autograd it
 runs :class:`GramFn`, whose backward is the analytic VJP of the JAX
 package's Pallas impl (``repro.kernels.gram.ops._gram_bwd``), dXs =
 (dG + dG^T) Xs — a plain product outside any kernel, as in JAX.
@@ -23,7 +33,9 @@ from repro_torch.kernels import _build, registry
 from repro_torch.kernels.gram import ref
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-#: columns staged per step in the kernel (``KC`` in gram.cu)
+_GATHER_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+                + [ctypes.c_float, ctypes.c_void_p])
+#: samples a stage holds in the kernels (``KC`` in gram.cu)
 _KC = 32
 _MAX_CHUNKS = 128
 _MIN_CHUNK = 512
@@ -42,6 +54,12 @@ def chunking(m: int) -> Tuple[int, int]:
     return chunk, _cdiv(m, chunk)
 
 
+def _triangle(r: int) -> int:
+    """Entries on and above the diagonal of an r x r matrix: one partial
+    holds these."""
+    return r * (r + 1) // 2
+
+
 def gram_cuda(Xs: torch.Tensor) -> torch.Tensor:
     """G = Xs Xs^T by the Hopper kernel; Xs float32, contiguous, on the card."""
     X3 = Xs.unsqueeze(0) if Xs.dim() == 2 else Xs
@@ -51,7 +69,7 @@ def gram_cuda(Xs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gram: need 1 <= k <= 65535 and d, m >= 1, "
                          f"got shape {tuple(Xs.shape)}")
     chunk, nchunks = chunking(m)
-    part = torch.empty(k * nchunks * d * d, dtype=torch.float32,
+    part = torch.empty(k * nchunks * _triangle(d), dtype=torch.float32,
                        device=X3.device)
     G = torch.empty(k, d, d, dtype=torch.float32, device=X3.device)
     fn = _build.function("gram", "gram_f32", _ARGS)
@@ -63,6 +81,60 @@ def gram_cuda(Xs: torch.Tensor) -> torch.Tensor:
 
 
 gram_cuda.launches = 0
+
+
+def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
+                     inv_m: float):
+    """G (k, d, d) and R (k, d), d = r - 1, of the draws idx (k, m) over the
+    rows of Xy_rows (n, r_pad), both times inv_m, by the Hopper kernel:
+    entry (i, j) of the draw b is inv_m * sum_s Xy_rows[idx[b, s], i] *
+    Xy_rows[idx[b, s], j], R the column j = d.
+
+    Xy_rows is float32, contiguous, on the card, with 16-byte rows (r_pad a
+    multiple of 4) and r <= r_pad; its columns past r take part in nothing.
+    idx is int64, contiguous, on the same card, read in place; a row drawn
+    twice counts twice. The indices are not range-checked on the card (that
+    would cost a host sync): each must lie in [0, n), as the solvers draw
+    them."""
+    what = "gram_gather"
+    for name, t, dtype in (("Xy_rows", Xy_rows, torch.float32),
+                           ("idx", idx, torch.int64)):
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{what}: {name} must have 2 dims, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    r_pad = Xy_rows.shape[1]
+    if not 2 <= r <= r_pad:
+        raise ValueError(f"{what}: need 2 <= r <= r_pad = {r_pad}, got r={r}")
+    if r_pad % 4 or Xy_rows.data_ptr() % 16:
+        raise ValueError(f"{what}: rows must be 16-byte aligned (r_pad a "
+                         f"multiple of 4, got {r_pad})")
+    if Xy_rows.device.type != "cuda" or idx.device != Xy_rows.device:
+        raise ValueError(f"{what}: Xy_rows and idx must be on one CUDA "
+                         f"device, got {Xy_rows.device} and {idx.device}")
+    k, m = idx.shape
+    if min(k, m) < 1 or k > 65535:
+        raise ValueError(f"{what}: need 1 <= k <= 65535 and m >= 1, got "
+                         f"idx shape {tuple(idx.shape)}")
+    chunk, nchunks = chunking(m)
+    dev = Xy_rows.device
+    part = torch.empty(k * nchunks * _triangle(r), dtype=torch.float32,
+                       device=dev)
+    G = torch.empty(k, r - 1, r - 1, dtype=torch.float32, device=dev)
+    R = torch.empty(k, r - 1, dtype=torch.float32, device=dev)
+    fn = _build.function("gram", "gram_gather_f32", _GATHER_ARGS)
+    err = fn(Xy_rows.data_ptr(), idx.data_ptr(), part.data_ptr(),
+             G.data_ptr(), R.data_ptr(), k, r, r_pad, m, chunk, nchunks,
+             float(inv_m), _build.stream_of(Xy_rows))
+    _build.check("gram", err, what)
+    gram_gather_cuda.launches += 1
+    return G, R
+
+
+gram_gather_cuda.launches = 0
 
 
 class GramFn(torch.autograd.Function):
@@ -94,3 +166,6 @@ def gram(Xs: torch.Tensor) -> torch.Tensor:
 registry.register("gram", "cuda", unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(gram_cuda)
 registry.register("gram", "torch")(ref.gram)
+registry.register("gram_gather", "cuda", unavailable=_build.unavailable_reason,
+                  rejects=_build.rejects_cpu)(gram_gather_cuda)
+registry.register("gram_gather", "torch")(ref.gram_gather)

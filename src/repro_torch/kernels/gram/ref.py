@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the ``gram`` kernel: the CPU path and the oracle
-the CUDA kernel is held against."""
+"""Plain PyTorch versions of the ``gram`` and ``gram_gather`` kernels: the
+CPU path and the oracles the CUDA kernels are held against."""
 import torch
 
 
@@ -14,3 +14,16 @@ def gram(Xs: torch.Tensor) -> torch.Tensor:
     """
     X64 = Xs.to(torch.float64)
     return (X64 @ X64.transpose(-1, -2)).to(torch.float32)
+
+
+def gram_gather(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
+                inv_m: float):
+    """G (k, d, d) and R (k, d), d = r - 1, of the draws idx (k, m) over the
+    rows of Xy_rows (n, r_pad): the float64 Gram matrix of the gathered rows'
+    first r columns, rounded once to float32, times inv_m (in float32, as
+    the kernel scales), split into its top-left block and the first d
+    entries of its last column."""
+    rows = Xy_rows[idx][..., :r].to(torch.float64)
+    Ga = (rows.transpose(-1, -2) @ rows).to(torch.float32) * inv_m
+    d = r - 1
+    return Ga[:, :d, :d].contiguous(), Ga[:, :d, d].contiguous()

@@ -3,7 +3,9 @@
 The counterpart of ``repro.kernels.registry``, slimmed to what the port
 runs. Each op registers two implementations:
 
-* ``gram``, ``prox_step``, ``prox_loop`` — the Lasso solvers' kernels;
+* ``gram_gather``, ``prox_step``, ``prox_loop`` — the Lasso solvers'
+  kernels, and ``gram``, the Gram matrix of draws already gathered (the
+  Pallas kernel's counterpart);
 * ``flash_attention`` — the model's teacher-forced attention, (B, S, H, D),
   with its per-row lse on request (``return_lse=True``);
 * ``flash_dq``, ``flash_dkv`` — its backward: dq, and dk/dv summed over
@@ -55,7 +57,7 @@ ENV_VAR = "REPRO_TORCH_BACKEND"
 #: modules whose import registers every op implementation (lazy, so the
 #: registry has no import-time dependency on the kernels that import it)
 _IMPL_MODULES = (
-    "repro_torch.kernels.gram.ops",       # registers "gram"
+    "repro_torch.kernels.gram.ops",       # registers "gram", "gram_gather"
     "repro_torch.kernels.prox_step.ops",  # registers "prox_step", "prox_loop"
     # registers "flash_attention", "flash_dq", "flash_dkv", "paged_attention"
     "repro_torch.kernels.flash_attention.ops",

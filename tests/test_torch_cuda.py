@@ -19,6 +19,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core import SolverConfig, ca_sfista, ca_spnm, sfista, spnm
+from repro_torch.core.sampling import gather_columns
 from repro_torch.data import make_lasso_data
 from repro_torch.kernels import registry
 from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
@@ -81,6 +82,67 @@ def test_gram_cuda_bits_do_not_depend_on_batch_size(cuda):
         assert torch.equal(gram_ops.gram_cuda(Xs[j]), batch[j])
 
 
+def _gather_inputs(k, r, m, seed, device):
+    """Sample-major rows (n, r_pad), n = m // 2 + 3, padded with nonzero
+    values (they take part in nothing), and k draws (k, m) with
+    replacement, each with its first row drawn again last."""
+    rng = np.random.default_rng(seed)
+    n = m // 2 + 3
+    rows = rng.standard_normal((n, -(-r // 4) * 4 + 4)).astype(np.float32)
+    idx = rng.integers(0, n, (k, m))
+    idx[:, -1] = idx[:, 0]
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(idx).to(device))
+
+
+#: (k, r, m) of gram_gather's card tests: few CTAs (k x chunks < 1024:
+#: the small tiles) and many (the large tiles, as at the CA blocks)
+GATHER_SHAPES = [(1, 54, 5810), (4, 18, 50_000), (3, 61, 129), (2, 130, 777),
+                 (1, 8, 1), (32, 55, 5810), (2, 19, 500), (32, 55, 20_000),
+                 (32, 19, 20_000), (16, 130, 40_000)]
+
+
+@pytest.mark.parametrize("k,r,m", GATHER_SHAPES)
+def test_gram_gather_cuda_matches_plain(cuda, k, r, m):
+    rows, idx = _gather_inputs(k, r, m, k + r + m, cuda)
+    G, R = gram_ops.gram_gather_cuda(rows, idx, r, 1.0 / m)
+    want_G, want_R = gram_ref.gram_gather(rows, idx, r, 1.0 / m)
+    torch.cuda.synchronize()
+    assert G.shape == (k, r - 1, r - 1) and R.shape == (k, r - 1)
+    got = torch.cat([G.flatten(1), R], 1)
+    assert _normwise(got, torch.cat([want_G.flatten(1), want_R], 1)) \
+        <= GRAM_RTOL
+
+
+@pytest.mark.parametrize("k,r,m", [(4, 55, 5810), (3, 19, 20_000),
+                                   (3, 61, 129), (2, 130, 777),
+                                   (32, 55, 20_000), (32, 19, 20_000)])
+def test_gram_gather_cuda_is_gram_cuda_of_the_gathered_rows(cuda, k, r, m):
+    """The fused kernel keeps gram's summation order: its G and R are
+    bitwise gram_cuda's over the gathered copy, before and after the
+    scaling."""
+    rows, idx = _gather_inputs(k, r, m, 7, cuda)
+    Ga = gram_ops.gram_cuda(gather_columns(rows[:, :r].T, idx))
+    d = r - 1
+    for inv_m in (1.0, 1.0 / m):
+        G, R = gram_ops.gram_gather_cuda(rows, idx, r, inv_m)
+        want = Ga * inv_m
+        assert torch.equal(G, want[:, :d, :d])
+        assert torch.equal(R, want[:, :d, d])
+
+
+@pytest.mark.parametrize("r", [55, 19])
+def test_gram_gather_cuda_bits_do_not_depend_on_batch_size(cuda, r):
+    """A batch of 32 runs the large tiles, one draw alone the small ones:
+    the same bits."""
+    rows, idx = _gather_inputs(32, r, 20_000, 1, cuda)
+    G, R = gram_ops.gram_gather_cuda(rows, idx, r, 1.0 / 20_000)
+    for j in (0, 13, 31):
+        Gj, Rj = gram_ops.gram_gather_cuda(rows, idx[j:j + 1], r,
+                                           1.0 / 20_000)
+        assert torch.equal(Gj[0], G[j]) and torch.equal(Rj[0], R[j])
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("d", [18, 54, 61, 300])
 def test_prox_cuda_matches_plain(cuda, variant, d):
@@ -107,7 +169,8 @@ def test_ca_matches_classical_through_the_kernels(cuda, pair):
     w_cl = pair[0](problem, cfg, 3)
     w_ca = pair[1](problem, cfg, 3)
     launches = kernels.launch_counts()
-    assert launches["gram"] == cfg.T + cfg.T // cfg.k
+    assert launches["gram_gather"] == cfg.T + cfg.T // cfg.k
+    assert launches["gram"] == 0
     assert launches["prox_step"] + launches["prox_loop"] == 2 * cfg.T
     assert all(b == "cuda" for _, b in registry.dispatch_counts())
     assert float((w_ca - w_cl).abs().max()) <= 5e-6

@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import gram as jgram_core
 from repro.kernels.gram import ops as jgram_ops, ref as jgram_ref
 from repro.kernels.prox_step import ops as jprox_ops, ref as jprox_ref
 from repro.kernels import registry as jregistry
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.models.attention import attention as j_attention
+from repro_torch.core.gram import augment, augment_rows
+from repro_torch.core.sampling import gather_columns
 from repro_torch.kernels import launch_counts, registry, reset_launch_counts
 from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
 from repro_torch.kernels.prox_step import ops as prox_ops, ref as prox_ref
@@ -83,6 +86,84 @@ def test_gram_cuda_wrapper_rejects_cpu_tensors():
         gram_ops.gram_cuda(torch.zeros(2, 4, 8))
 
 
+# ----------------------------------------------------------- gram_gather ---
+def _lasso_arrays(d, n, m, k, seed):
+    """X (d, n), y (n,) and k draws (k, m) of [0, n) with replacement, each
+    with its first index drawn again last."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((d, n)).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    idx = rng.integers(0, n, (k, m))
+    idx[:, -1] = idx[:, 0]
+    return X, y, idx
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("k,d,m", [(1, 54, 581), (4, 18, 5000), (3, 60, 129)])
+def test_gram_gather_ref_matches_jax_gram_blocks(k, d, m, backend):
+    """The plain gram_gather over the sample-major rows against the JAX
+    package's gram_blocks (take, then the gram op, R = Xs ys) on the same
+    arrays, through XLA and through the Pallas kernel in interpret mode.
+    n < m, so draws repeat rows besides the forced duplicate."""
+    n = 2 * m // 3
+    X, y, idx = _lasso_arrays(d, n, m, k, seed=k * 1009 + d + m)
+    G, R = gram_ref.gram_gather(
+        augment_rows(torch.from_numpy(X), torch.from_numpy(y)),
+        torch.from_numpy(idx), d + 1, 1.0 / m)
+    with jregistry.use(backend):
+        jG, jR = jgram_core.gram_blocks(jnp.asarray(X), jnp.asarray(y),
+                                        jnp.asarray(idx.astype(np.int32)))
+    # _gram_tol(m) on the sums, which are scaled by 1/m here
+    tol = dict(rtol=1e-5, atol=1e-6)
+    assert G.shape == (k, d, d) and R.shape == (k, d)
+    np.testing.assert_allclose(G.numpy(), np.asarray(jG), **tol)
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), **tol)
+
+
+def test_gram_gather_ref_is_gram_of_the_gathered_columns():
+    d, n, m, k = 21, 300, 257, 3
+    X, y, idx = _lasso_arrays(d, n, m, k, seed=5)
+    X, y, idx = torch.from_numpy(X), torch.from_numpy(y), torch.from_numpy(idx)
+    G, R = gram_ref.gram_gather(augment_rows(X, y), idx, d + 1, 1.0 / m)
+    Ga = gram_ref.gram(gather_columns(augment(X, y), idx)) * (1.0 / m)
+    np.testing.assert_allclose(G.numpy(), Ga[:, :d, :d].numpy(), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(R.numpy(), Ga[:, :d, d].numpy(), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_gram_gather_ref_counts_a_row_drawn_twice_twice():
+    X = torch.arange(12, dtype=torch.float32).reshape(2, 6) - 5.0
+    y = torch.linspace(-1.0, 1.0, 6)
+    G, R = gram_ref.gram_gather(augment_rows(X, y),
+                                torch.tensor([[2, 4, 2]]), 3, 1.0 / 3)
+    x2, x4 = X[:, 2].double(), X[:, 4].double()
+    want_G = (2 * torch.outer(x2, x2) + torch.outer(x4, x4)) / 3
+    want_R = (2 * x2 * y[2] + x4 * y[4]) / 3
+    np.testing.assert_allclose(G[0].numpy(), want_G.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(R[0].numpy(), want_R.numpy(), rtol=1e-6)
+
+
+def test_gram_gather_cuda_wrapper_refuses_bad_operands():
+    rows, idx = torch.zeros(10, 8), torch.zeros(2, 5, dtype=torch.int64)
+    call = gram_ops.gram_gather_cuda
+    with pytest.raises(ValueError, match="one CUDA device"):
+        call(rows, idx, 5, 0.2)
+    with pytest.raises(ValueError, match="Xy_rows must be torch.float32"):
+        call(rows.double(), idx, 5, 0.2)
+    with pytest.raises(ValueError, match="idx must be torch.int64"):
+        call(rows, idx.int(), 5, 0.2)
+    with pytest.raises(ValueError, match="idx must be contiguous"):
+        call(rows, torch.zeros(5, 2, dtype=torch.int64).T, 5, 0.2)
+    with pytest.raises(ValueError, match="r <= r_pad = 8, got r=9"):
+        call(rows, idx, 9, 0.2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(torch.zeros(10, 6), idx, 5, 0.2)
+    with pytest.raises(RuntimeError, match="backend 'cuda' cannot run"):
+        with registry.use("cuda"):
+            registry.dispatch("gram_gather", rows, idx, 5, 0.2)
+
+
 # ------------------------------------------------------------- prox ops ----
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("d", [18, 54])
@@ -139,6 +220,8 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     registry.reset_dispatch_counts()
     G, R, v = (torch.from_numpy(a) for a in _prox_inputs(8))
     registry.dispatch("gram", torch.from_numpy(_xs((2, 8, 16))))
+    registry.dispatch("gram_gather", torch.from_numpy(_xs((9, 8))),
+                      torch.tensor([[0, 3, 3, 8]]), 6, 0.25)
     registry.dispatch("prox_step", G, R, v, prox_scalars(*SCAL))
     registry.dispatch("prox_loop", G, R, v, prox_scalars(*SCAL), Q=2)
     q = torch.from_numpy(_xs((1, 4, 2, 16)))
@@ -154,15 +237,15 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
                                      return_states=True)
     registry.dispatch("ssd_bwd", x, dt, A, B, B, x, states, None, chunk=4)
     assert registry.dispatch_counts() == {
-        ("gram", "torch"): 1, ("prox_step", "torch"): 1,
-        ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
+        ("gram", "torch"): 1, ("gram_gather", "torch"): 1,
+        ("prox_step", "torch"): 1, ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
         ("paged_attention", "torch"): 1, ("flash_dq", "torch"): 1,
         ("flash_dkv", "torch"): 1, ("ssd", "torch"): 1,
         ("ssd_bwd", "torch"): 1}
-    assert launch_counts() == {"gram": 0, "prox_step": 0, "prox_loop": 0,
-                               "flash_attention": 0, "paged_decode": 0,
-                               "flash_dq": 0, "flash_dkv": 0, "ssd": 0,
-                               "ssd_bwd": 0}
+    assert launch_counts() == {"gram": 0, "gram_gather": 0, "prox_step": 0,
+                               "prox_loop": 0, "flash_attention": 0,
+                               "paged_decode": 0, "flash_dq": 0,
+                               "flash_dkv": 0, "ssd": 0, "ssd_bwd": 0}
 
 
 # ------------------------------------------------------------- attention ---

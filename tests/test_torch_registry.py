@@ -20,8 +20,8 @@ def clean_policy(monkeypatch):
 
 def test_ops_table():
     assert registry.ops() == ["flash_attention", "flash_dkv", "flash_dq",
-                              "gram", "paged_attention", "prox_loop",
-                              "prox_step", "ssd", "ssd_bwd"]
+                              "gram", "gram_gather", "paged_attention",
+                              "prox_loop", "prox_step", "ssd", "ssd_bwd"]
 
 
 def test_policy_precedence(monkeypatch):

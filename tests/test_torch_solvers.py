@@ -202,7 +202,7 @@ def test_gram_blocks_take_G_and_R_from_one_augmented_gram(problems):
                                    tprob.n, 65)
     registry.reset_dispatch_counts()
     G, R = tcore.gram_blocks(tprob.X, tprob.y, idx)
-    assert registry.dispatch_counts() == {("gram", "torch"): 1}
+    assert registry.dispatch_counts() == {("gram_gather", "torch"): 1}
     assert G.shape == (3, tprob.d, tprob.d) and R.shape == (3, tprob.d)
     assert G.is_contiguous() and R.is_contiguous()
     Xs, ys = tcore.sample_columns(tprob.X, tprob.y, idx)
@@ -215,6 +215,20 @@ def test_gram_blocks_take_G_and_R_from_one_augmented_gram(problems):
     assert tprob.Xy is tprob.Xy and tprob.Xy.shape == (tprob.d + 1, tprob.n)
     Gp, Rp = tprob.block_stats(idx)
     assert torch.equal(Gp, G) and torch.equal(Rp, R)
+
+
+def test_xy_rows_is_xy_sample_major_with_zero_padding(problems):
+    _, tprob = problems
+    rows = tprob.Xy_rows
+    assert rows is tprob.Xy_rows and rows.is_contiguous()
+    r_pad = -(-(tprob.d + 1) // 4) * 4
+    assert rows.shape == (tprob.n, r_pad) and rows.dtype == torch.float32
+    assert torch.equal(rows[:, :tprob.d + 1], tprob.Xy.T)
+    assert not rows[:, tprob.d + 1:].any()
+    for d, r_pad in ((54, 56), (18, 20), (3, 4), (4, 8)):
+        p = tcore.LassoProblem(X=torch.ones(d, 5), y=torch.ones(5))
+        assert p.Xy_rows.shape == (5, r_pad)
+        assert not p.Xy_rows[:, d + 1:].any()
 
 
 # ------------------------------------------------------ data and launch ---
@@ -247,10 +261,10 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     assert run.w.shape == (18,) and torch.isfinite(run.w).all()
     assert 0.0 <= run.rel_err < 1.0
     # the CPU run takes the plain versions: no kernel is launched
-    assert run.launches == {"gram": 0, "prox_step": 0, "prox_loop": 0,
-                            "flash_attention": 0, "paged_decode": 0,
-                            "flash_dq": 0, "flash_dkv": 0, "ssd": 0,
-                            "ssd_bwd": 0}
+    assert run.launches == {"gram": 0, "gram_gather": 0, "prox_step": 0,
+                            "prox_loop": 0, "flash_attention": 0,
+                            "paged_decode": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "ssd": 0, "ssd_bwd": 0}
 
 
 def test_lasso_solve_tol_stops_early():

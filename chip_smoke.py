@@ -62,19 +62,27 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``paged_decode`` at the engine's shape (B=8, Hq=16,
    Hkv=8, D=128, page size 16, 64 pages a slot, valid 1..1024, table
    entries past valid at page 0) with bf16, int8 (with scales) and float32
-   pools, with page size 5, and at D=80 (32 heads). Each against its plain
+   pools, with page size 5, at D=80 (32 heads), and in bf16 at the
+   engine's own lengths (the first 8 prompts of phase 9 plus 32 tokens).
+   Each against its plain
    version, normwise (max |kernel - plain| / max |plain|): at most 1e-5
    for float32 outputs (float32 sums in another order) and 8e-3 for bf16
    outputs (one bf16 rounding at the top of the range, 2^-7). Times:
    kernel and plain version with CUDA events after warm-up (paged decode
-   with the L2 cache flushed before each launch, as 24 layers' pools find
-   it; flash_attention and its SDPA yardstick also, as a diagnostic, with
+   behind an L2 flush before each launch, as 24 layers' pools find it: a
+   read of a 256 MB buffer, so no dirty line is written back inside the
+   span, beside the flush's own floor, an empty launch behind the same
+   flush; and back to back;
+   flash_attention and its SDPA yardstick also, as a diagnostic, with
    the card asleep while
    the host enqueues the timed span, so a wrapper's host time does not
    hide the kernel's), and the
    library yardstick ``scaled_dot_product_attention``, timed alone on the
-   same q/k/v (KV heads repeated beforehand; for paged decode on the
-   gathered dense K/V with a length mask). The port never calls it;
+   same q/k/v (KV heads repeated beforehand). No single PyTorch call walks
+   a page table, so paged decode has no library time; the page gather
+   from the table (dequantized for int8) and SDPA with a length mask are
+   timed together in one span beside it, as a diagnostic. The port never
+   calls either;
 8. model phase: first the JAX package's own check (tests/test_models.py)
    at its own size, the smoke config: ``forward`` (flash_attention) and
    the same 64 tokens one at a time through ``decode_step`` on a bf16
@@ -97,7 +105,9 @@ What it does, in order; any failure raises and the exit code is not 0:
    streams; then int8 pages (same accounting; the share of tokens equal to
    the bf16 run is printed, not gated); steady-state tok/s, ms/step and
    ms/sync at k=8 and k=1; one profiled k=8 block (device time by kernel,
-   busy share); and once the CLI, ``repro_torch.launch.serve.main`` with
+   busy share, the paged kernel's own time a launch and its launches a
+   step: one paged kernel name, 24 launches a step, no merge kernel); and
+   once the CLI, ``repro_torch.launch.serve.main`` with
    ``--preset full --page-size 16``;
 10. backward kernel phase: the lse forward (o and lse), ``flash_dq`` and
    ``flash_dkv`` at the training shape (B=8, Hq=16, Hkv=8, S=1024, D=128,
@@ -273,8 +283,9 @@ def _self_device_us(ev) -> float:
 
 def _event_ms(fn, iters: int, flush=None, queued=False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches after 3 warm-up
-    calls, by CUDA events. With ``flush`` (a large device buffer) the L2
-    cache is overwritten before each launch, outside the timed span. With
+    calls, by CUDA events. With ``flush`` (a call that reads or writes a
+    buffer larger than the L2 cache) the L2 is flushed before each launch,
+    outside the timed span. With
     ``queued`` the card sleeps while the host enqueues the whole span, so
     a wrapper whose host time exceeds its kernel's leaves no gap inside it
     (without it, back-to-back launches time the slower of the two)."""
@@ -298,7 +309,7 @@ def _event_ms(fn, iters: int, flush=None, queued=False) -> float:
         # keep the card busy while the host enqueues the flush and the
         # launch, so no host gap falls inside the timed span
         torch.cuda._sleep(1_000_000)
-        flush.zero_()
+        flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -493,16 +504,62 @@ def attention_kernel_phase(dev):
                 tensor_core_route=FLASH_ROUTE)
         del q, k, v, got, want
 
+    entries.update(paged_decode_phase(dev))
+    return entries
+
+
+#: the L2 cache holds 50 MB; a flush reads a buffer five times that (a
+#: sum), so the L2 holds only clean lines when the timed span opens
+L2_FLUSH_BYTES = 256 * 2 ** 20
+
+
+def paged_decode_phase(dev):
+    """Phase 7's paged half: ``paged_decode`` against its plain version at
+    the engine's shapes, timed behind an L2 flush beside the flush's own
+    floor (an empty launch behind the same flush), back to back, and beside
+    the page gather + SDPA pair (a diagnostic: no single PyTorch call walks
+    a page table). Returns the JSON entry at the engine's bf16 shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = np.random.default_rng(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
     print("kernel phase: paged_decode")
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for kv, P, npages, Hq, Hkv, D in (
-            ("bf16", 16, 64, 16, 8, 128), ("int8", 16, 64, 16, 8, 128),
-            ("f32", 16, 64, 16, 8, 128), ("bf16", 5, 205, 16, 8, 128),
-            ("int8", 5, 205, 16, 8, 128),
-            ("bf16", 16, 64, 32, 32, 80)):           # zamba2's heads
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        # a read: zeroing the buffer would leave dirty lines that the
+        # kernel's own reads write back inside the timed span
+        buf.sum()
+
+    floor = _event_ms(lambda: torch.cuda._sleep(0), 100, flush)
+    print(f"  flush floor (an empty launch behind the flush): "
+          f"{floor:.4f}ms")
+    # the engine's first 8 rows at 32 decoded tokens: prompts of 32-512
+    engine_lens = [len(r.prompt) + 32
+                   for r in _serve_requests(get_arch(ARCH))[:8]]
+    entries = {}
+    for kv, P, npages, Hq, Hkv, D, lens in (
+            ("bf16", 16, 64, 16, 8, 128, None),
+            ("int8", 16, 64, 16, 8, 128, None),
+            ("f32", 16, 64, 16, 8, 128, None),
+            ("bf16", 5, 205, 16, 8, 128, None),
+            ("int8", 5, 205, 16, 8, 128, None),
+            ("bf16", 16, 64, 32, 32, 80, None),        # zamba2's heads
+            ("bf16", 16, 64, 16, 8, 128, engine_lens)):
         Bq = 8
         num_pages = 1 + Bq * npages
-        valid = np.linspace(1, min(npages * P, 1024), Bq).astype(np.int32)
+        valid = (np.linspace(1, min(npages * P, 1024), Bq) if lens is None
+                 else np.asarray(lens)).astype(np.int32)
         perm = rng.permutation(np.arange(1, num_pages)).reshape(Bq, npages)
         table = np.where(np.arange(npages)[None] < -(-valid // P)[:, None],
                          perm, 0).astype(np.int32)
@@ -520,38 +577,44 @@ def attention_kernel_phase(dev):
             vp = normal(shp, f32 if kv == "f32" else bf16)
         t = torch.from_numpy(table).to(dev)
         n = torch.from_numpy(valid).to(dev)
-        shape = (Bq, Hq, Hkv, D, f"page {P}", kv)
-        got = fa_ops.paged_decode_cuda(q, kp, vp, t, n, **scales)
-        want = fa_ref.paged_decode(q, kp, vp, t, n, **scales)
-        err = _normwise("paged_decode", shape, got, want,
+        shape = (Bq, Hq, Hkv, D, f"page {P}", kv,
+                 "engine lengths" if lens else "valid 1..1024")
+
+        def kernel():
+            return fa_ops.paged_decode_cuda(q, kp, vp, t, n, **scales)
+
+        def plain():
+            return fa_ref.paged_decode(q, kp, vp, t, n, **scales)
+
+        got, want = kernel(), plain()
+        err = _normwise("paged_decode", shape[:6], got, want,
                         ATTN_RTOL[str(qdt).split(".")[1]])
-        ms = _event_ms(lambda: fa_ops.paged_decode_cuda(
-            q, kp, vp, t, n, **scales), 100, flush)
-        plain = _event_ms(lambda: fa_ref.paged_decode(
-            q, kp, vp, t, n, **scales), 20, flush)
-        # the yardstick: SDPA on the K/V gathered densely beforehand
-        # (dequantized for int8, KV heads repeated), a length mask; only
-        # the call is timed
+        ms = _event_ms(kernel, 100, flush)
+        plain_ms = _event_ms(plain, 20, flush)
+        warm = _event_ms(kernel, 200)
+        host = _host_us(kernel)
+
+        # the diagnostic pair, in one span: the pages gathered from the
+        # table (dequantized for int8), then SDPA with a length mask
         T = npages * P
-        kd = kp[t.long()].reshape(Bq, T, Hkv, D)
-        vd = vp[t.long()].reshape(Bq, T, Hkv, D)
-        if kv == "int8":
-            kd = (kd.float() * scales["k_scale"][t.long()].reshape(
-                Bq, T, Hkv)[..., None]).to(qdt)
-            vd = (vd.float() * scales["v_scale"][t.long()].reshape(
-                Bq, T, Hkv)[..., None]).to(qdt)
-        kd = kd.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous()
-        vd = vd.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous()
-        qd = q.transpose(1, 2).contiguous()
+        tl = t.long()
+        qd = q.transpose(1, 2)
         mask = (torch.arange(T, device=dev)[None, :] < n[:, None])
         mask = mask[:, None, None, :]
-        lib = _event_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask), 100, flush)
-        del kd, vd, qd
-        warm = _event_ms(lambda: fa_ops.paged_decode_cuda(
-            q, kp, vp, t, n, **scales), 200)
-        host = _host_us(lambda: fa_ops.paged_decode_cuda(
-            q, kp, vp, t, n, **scales))
+
+        def gather_sdpa():
+            kd, vd = kp[tl], vp[tl]
+            if kv == "int8":
+                kd = (kd.float() * scales["k_scale"][tl][..., None]).to(qdt)
+                vd = (vd.float() * scales["v_scale"][tl][..., None]).to(qdt)
+            kd = kd.reshape(Bq, T, Hkv, D).transpose(1, 2)
+            vd = vd.reshape(Bq, T, Hkv, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        pair_err = float((gather_sdpa().transpose(1, 2).float()
+                          - want.float()).abs().max())
+        pair = _event_ms(gather_sdpa, 100, flush)
         # bytes: q and out once, the valid K/V rows (and their scales) once
         tokens = float(valid.sum())
         row = Hkv * D * kp.element_size() + (Hkv * 4 if scales else 0)
@@ -559,19 +622,23 @@ def attention_kernel_phase(dev):
             + table.nbytes + valid.nbytes
         flops = 4.0 * tokens * Hq * D
         bms, by = bound_ms(nbytes, flops, _rate(kp.dtype))
-        print(f"  time paged_decode {str(shape):44s} kernel={ms:.4f}ms "
-              f"(L2 flushed; {warm:.4f}ms back to back) plain={plain:.4f}ms "
-              f"sdpa={lib:.4f}ms bound={bms:.5f}ms ({by}) valid "
-              f"tokens={int(tokens)} host={host:.1f}us/call")
-        if kv == "bf16" and P == 16 and D == 128:
+        print(f"  time paged_decode {str(shape):62s} kernel={ms:.4f}ms "
+              f"(behind the flush; {ms - floor:.4f}ms above its floor "
+              f"{floor:.4f}ms; {warm:.4f}ms back to back) "
+              f"plain={plain_ms:.4f}ms bound={bms:.5f}ms ({by}) "
+              f"gather+sdpa={pair:.4f}ms (diagnostic, max |d| vs plain "
+              f"{pair_err:.2e}) valid tokens={int(tokens)} "
+              f"host={host:.1f}us/call")
+        if kv == "bf16" and P == 16 and D == 128 and lens is None:
             entries["paged_decode"] = dict(
                 name="paged_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:208",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None, floor_ms=floor,
+                warm_ms=warm, gather_sdpa_ms=pair)
         del q, kp, vp, got, want
-    del flush
+    del buf
     return entries
 
 
@@ -856,12 +923,53 @@ def _serve_requests(cfg, n=16, new_tokens=64):
     return reqs
 
 
+def serve_profile(dev, cfg, params, k=8):
+    """One profiled k-step block of the paged engine in steady state
+    (phase 9's): device time by kernel and the busy share, then each paged
+    kernel's own device time a launch and launches a step. Returns the
+    paged kernels' (name, device us, launches) in the block."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Engine
+
+    eng = Engine(params, cfg, num_slots=8, max_len=1024, max_prompt=512, k=k,
+                 page_size=16, eos_id=None, device=dev, sync_debug=True)
+    for r in _serve_requests(cfg):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(ev.key, _self_device_us(ev), ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    print(f"  profile one k={k} block: wall {wall * 1e3:.3f} ms (profiled), "
+          f"device kernels {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% "
+          f"busy), {sum(r[2] for r in rows)} kernel launches, "
+          f"{len(rows)} kernel names")
+    for key, us, count in rows[:10]:
+        print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    paged = [r for r in rows if "paged" in r[0]]
+    for key, us, count in paged:
+        print(f"  paged kernel {key[:70]}: {us / max(count, 1):.2f} us a "
+              f"launch, {count / k:.1f} launches a step, {us / k:.2f} us a "
+              f"step")
+    del eng
+    return paged
+
+
 def serve_phase(dev, cfg, params):
     """Phase 9: the paged engine at full width. Returns paged_decode's
     launches in the k=8 run."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import Engine
@@ -925,31 +1033,14 @@ def serve_phase(dev, cfg, params):
     print(f"  int8 pages vs bf16: {equal}/{total} tokens equal "
           f"({100.0 * equal / total:.1f}%, not gated)")
 
-    # where the time goes: one profiled k=8 block in steady state
-    eng = engine(8)
-    for r in _serve_requests(cfg):
-        eng.submit(r)
-    for _ in range(3):
-        eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [(ev.key, _self_device_us(ev), ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e6
-    print(f"  profile one k=8 block: wall {wall * 1e3:.3f} ms (profiled), "
-          f"device kernels {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% "
-          f"busy), {sum(r[2] for r in rows)} kernel launches, "
-          f"{len(rows)} kernel names")
-    for key, us, count in rows[:10]:
-        print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
-    del eng
+    # where the time goes: one profiled k=8 block in steady state; one
+    # paged kernel, launched once a layer and step, and no merge kernel
+    paged = serve_profile(dev, cfg, params)
+    check(len(paged) == 1 and paged[0][2] == 8 * cfg.n_layers,
+          f"profiled block: paged kernels {paged}, want one name launched "
+          f"{8 * cfg.n_layers} times")
+    check(not any("merge" in key for key, _, _ in paged),
+          "profiled block: a paged merge kernel ran")
 
     # the normal entry point
     t0 = time.perf_counter()

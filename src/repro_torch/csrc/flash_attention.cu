@@ -58,31 +58,65 @@
 //    they select 0 there, so such a row has zero gradients, not NaN.
 //
 // 2. paged_decode replaces the Pallas kernel `paged_flash_decode`
-//    (kernel.py:159, bodies `_paged_kernel` :145 and `_paged_kernel_quant`
-//    :151), which every engine decode step runs in every layer.
+//    (kernel.py:208, bodies `_paged_body` :93, `_paged_kernel` :145 and
+//    `_paged_kernel_quant` :151), which every engine decode step runs in
+//    every layer.
 //    q (B,1,Hq,D); pools (num_pages, page_size, Hkv, D) of float32, bf16 or
 //    int8 with float32 scales (num_pages, page_size, Hkv); table
-//    (B, npages) int32; valid (B,) int32. One CTA per (kv head, batch row)
-//    serves all Hq/Hkv query heads of the group, so each K/V row is read
-//    once (the Pallas grid (B, Hq, npages) reads it once per query head).
-//    The sequence is split too (flash-decoding): one CTA per (chunk of 128
-//    positions, kv head, batch row), so a long row spreads over the card
-//    instead of walking its pages in one CTA; a second small kernel merges
-//    each row's chunk states (m, l, acc) into the output. The chunk is a
-//    constant, never a function of the batch, so a row's result does not
-//    depend on its neighbours. Each CTA stages its chunk's table entries in
-//    shared memory and reads the row's valid length; no position at or
-//    past `valid` is read, so pages whose first position is past it (table
-//    entries 0, the pool's scratch page) are never touched and weigh
-//    exactly 0, and a CTA whose chunk starts past it returns at once. Each
-//    of the 4 warps takes every 4th group of 4 positions and issues all 8
-//    K/V row loads of a round before it uses one; a lane holds D/32
-//    consecutive elements of the head dimension, loaded as one vector.
-//    int8 is dequantized in registers (code * scale, then the dot, as the
-//    Pallas body does). Any page size works (5 as well as 16).
+//    (B, npages) int32; valid (B,) int32. One launch a call
+//    (`paged_decode_kernel`). One CTA per (chunk of 128 positions, kv head,
+//    batch row) serves all Hq/Hkv query heads of the group, so each K/V
+//    row is read once (the Pallas grid (B, Hq, npages) reads it once per
+//    query head); the chunk is a constant, never a function of the batch,
+//    so a row's result does not depend on its neighbours, and a long row
+//    spreads over the card (flash-decoding). Warp 0 is the producer: it
+//    stages the chunk's table entries in shared memory and its lane 0 asks
+//    TMA for each page's (rows, 1 kv head, D) box of K and of V through 4-D
+//    tensor maps over the pools (D, Hkv, page_size, num_pages innermost
+//    first), with the page number from the table as a coordinate, so TMA
+//    walks the page table and no thread forms a K/V address. The boxes go
+//    into a ring of stages with full/empty mbarriers, about 64 KB, which
+//    holds a whole chunk at the engine's page size of 16 in bf16 (8 pages
+//    of 2 x 4 KB). A box has at most 64 rows: a larger page is read in
+//    several, and rows of a box past the page read as zeros. int8 scales
+//    are P floats at a stride of Hkv floats, too narrow for a TMA box (16
+//    bytes at least) at the smoke config's Hkv = 2: the producer's lanes
+//    copy them by 4-byte cp.async into the stage, and each lane's
+//    cp.async.mbarrier.arrive.noinc counts on the same full barrier, so a
+//    stage is full when its boxes and its scales have landed. The 4
+//    consumer warps take the tiles in turn (warp w the tiles w, w + 4,
+//    ...; each releases its stage alone); a warp's lanes form groups of
+//    D/16 lanes (D/8 for a group of 8 query heads), each group one row at
+//    a time, so a score is 16 (8) fmaf a lane and a sum over the group's
+//    lanes (3 shuffles at D = 128, not 5). Each group keeps its own online
+//    softmax in base 2, in float32 on the CUDA cores, and rescales only
+//    when its max grows; the groups, then the warps, merge at the end of
+//    the chunk in a fixed order. Only
+//    rows inside [chunk start, valid) are read from a tile: TMA loads the
+//    last page whole, and the rows past valid (NaN in a pool is possible
+//    there) add nothing to m, l or acc, by selection and not by a zero
+//    weight; pages whose first position is at or past valid (table entries
+//    0, the pool's scratch page) are never asked for. int8 is dequantized
+//    in registers (code * scale, then the dot, as the Pallas body does).
+//    The warps' states merge through the ring. A row that fits one chunk is
+//    normalized and written by its CTA. A longer row's CTAs each write
+//    their (m, l, acc), fence, and draw a ticket (atomicAdd on a per-(row,
+//    kv head) counter the caller keeps zeroed); the CTA that draws the last
+//    one merges the row's chunks in chunk order, the same order and
+//    arithmetic for any arrival order, so the bits do not depend on which
+//    CTA came last, and resets the counter. The ticket is the only atomic;
+//    no value is summed atomically. A row with no valid position gives 0.
+//    Tensor cores: not used. wgmma's smallest M is 64 rows and a group
+//    holds 1-8 query rows; mma.sync's m16n8k16 would waste at least half
+//    its rows; and the work is 4 FLOP per K/V element against a byte bound.
 //    What bounds it: the valid K/V bytes. At the engine's shape (B=8,
 //    Hkv=8, D=128, bf16, valid up to 1024) that is at most 33.6 MB a layer
-//    (10 us at 3.35 TB/s); the FLOP are 4 per K/V element, far below.
+//    (10 us at 3.35 TB/s); the FLOP are 4 per K/V element, far below. On
+//    the card the kernel stays well above that bound: a CTA's chain of
+//    dependent steps (valid and the table, the first box, its rows'
+//    arithmetic, the partial's fence and ticket, the merge's reads) sets
+//    its time, and the consumers' instruction issue, not the bytes, the
+//    longest step (PERF.md, row 7).
 //
 // 3. flash_attention_bwd_dq replaces the Pallas kernel `flash_dq`
 //    (src/repro/kernels/flash_attention/backward.py:125, body `_dq_kernel`
@@ -157,6 +191,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -1541,13 +1576,81 @@ cudaError_t launch_flash_any(int kind, int dtype, int D, const FlashArgs& a,
 }
 
 // ------------------------------------------------------------- paged decode
-constexpr int PD_WARPS = 4;
-constexpr int PD_U = 4;        // positions a warp takes per round
-constexpr int PD_GMAX = 8;     // query heads per kv head (GQA group) at most
-constexpr int PD_CHUNK = 128;  // positions per CTA: a constant, so a row's
-                               // result never depends on the batch
+constexpr int PD_CHUNK = 128;   // positions per CTA: a constant, so a row's
+                                // result never depends on the batch
+constexpr int PD_GMAX = 8;      // query heads per kv head (GQA group) at most
+constexpr int PD_CWARPS = 4;    // consumer warps; warp 0 is the producer
+constexpr int PD_THREADS = 32 * (1 + PD_CWARPS);
+constexpr int PD_MB = 8;        // chunk partials the merge reads at once
+constexpr int PD_BOX_ROWS = 64;       // rows of one TMA box at most
+constexpr int PD_RING = 64 * 1024;    // ring bytes aimed at
+constexpr int PD_MAX_STAGES = 32;
+constexpr int PD_SMEM_MAX = 232448;   // an H100 block's opt-in limit
 
-// raw vector type of B bytes, for one load of a lane's head-dim slice
+__host__ __device__ constexpr int pd_align(int x, int a) {
+  return (x + a - 1) / a * a;
+}
+
+// pages a chunk of PD_CHUNK positions touches at most
+__host__ __device__ constexpr int pd_chunk_pages(int P) {
+  return (PD_CHUNK - 1) / P + 2;
+}
+
+// The shared-memory plan of one (page size, head dim, element size): a
+// ring of `ns` stages, each one box of K and one of V (`br` rows of one kv
+// head, D wide), with the int8 rows' scales after them; the ring is reused
+// for the warps' merge at the end; then the mbarriers, the staged table
+// entries and the ticket flag. Offsets from a 128-byte aligned base.
+struct PdPlan {
+  int br, box, sbox, stage, ns, bar_off, table_off, flag_off, smem;
+};
+
+__host__ __device__ inline PdPlan pd_plan(int P, int D, int esz, bool quant) {
+  PdPlan p;
+  p.br = P < PD_BOX_ROWS ? P : PD_BOX_ROWS;
+  p.box = pd_align(p.br * D * esz, 128);
+  p.sbox = quant ? pd_align(p.br * 4, 16) : 0;
+  p.stage = pd_align(2 * p.box + 2 * p.sbox, 128);
+  // tiles a chunk can touch: its pages, each in ceil(P / br) boxes
+  const int tiles = pd_chunk_pages(P) * ((P + p.br - 1) / p.br);
+  int ns = PD_RING / p.stage;
+  ns = ns < 2 ? 2 : ns;
+  ns = ns > tiles ? tiles : ns;
+  p.ns = ns > PD_MAX_STAGES ? PD_MAX_STAGES : ns;
+  const int merge = PD_CWARPS * PD_GMAX * (D + 2) * 4;
+  const int ring = p.ns * p.stage > merge ? p.ns * p.stage : merge;
+  p.bar_off = pd_align(ring, 8);
+  p.table_off = p.bar_off + 16 * p.ns;
+  p.flag_off = p.table_off + 4 * pd_chunk_pages(P);
+  p.smem = p.flag_off + 4 + 128;  // + the base's alignment
+  return p;
+}
+
+// one 4-byte cp.async, global to shared
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.asyncs have landed,
+// counted in the barrier's expected arrivals (.noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the consumer warps' own barrier (the producer warp has left)
+__device__ __forceinline__ void pd_consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * PD_CWARPS) : "memory");
+}
+
+// raw vector type of B bytes, for one load of a lane's head-dim vector
 template <int B> struct RawVec;
 template <> struct RawVec<1> { using type = uint8_t; };
 template <> struct RawVec<2> { using type = uint16_t; };
@@ -1555,8 +1658,9 @@ template <> struct RawVec<4> { using type = uint32_t; };
 template <> struct RawVec<8> { using type = uint2; };
 template <> struct RawVec<16> { using type = uint4; };
 
+// N elements of type T (N * sizeof(T) bytes, aligned so) as floats
 template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
   using R = typename RawVec<sizeof(T) * N>::type;
   const R raw = *reinterpret_cast<const R*>(p);
   const T* e = reinterpret_cast<const T*>(&raw);
@@ -1564,247 +1668,466 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
   for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
 }
 
-// Pass 1: one CTA per (chunk of PD_CHUNK positions, kv head, batch row).
-// A CTA whose chunk starts at or past the row's valid length returns at
-// once. The others write the chunk's softmax state (m, l, acc) for every
-// query head of the group into the partial buffers.
-template <typename TQ, typename TKV, int D, bool QUANT>
-__global__ void __launch_bounds__(PD_WARPS * 32)
-paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-                   const TKV* __restrict__ vp,
-                   const float* __restrict__ kscale,
-                   const float* __restrict__ vscale,
-                   const int* __restrict__ table,
-                   const int* __restrict__ valid, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                   int Hq, int Hkv, int page_size, int npages, int nsplit,
-                   float scale) {
-  constexpr int PER = D >= 32 ? D / 32 : 1;  // head-dim elements per lane
-  __shared__ int s_table[PD_CHUNK + 1];
-  __shared__ float sm_m[PD_WARPS][PD_GMAX];
-  __shared__ float sm_l[PD_WARPS][PD_GMAX];
-  __shared__ float sm_acc[PD_WARPS][PD_GMAX][D];
+// A consumer warp's layout over rows of D elements: LANES lanes a row (a
+// lane group), E elements a lane, RPW rows a warp at once. A lane reads its
+// E elements as 16-byte vectors of VB elements, interleaved across its
+// group (element e of lane `sub` is column col(sub, e)), so the 8 lanes of
+// a quarter warp read 128 contiguous bytes. The pair layout (G = 2) holds
+// 16 elements a lane; the wide group (G = 8) 8, to keep q and acc in
+// registers.
+template <typename TKV, int D, int G>
+struct PdLanes {
+  static constexpr int E = (G <= 2 ? 16 : 8) < D ? (G <= 2 ? 16 : 8) : D;
+  static constexpr int LANES = D / E;
+  static constexpr int RPW = 32 / LANES;
+  static constexpr int VB =
+      16 / (int)sizeof(TKV) < E ? 16 / (int)sizeof(TKV) : E;
+  __device__ static __forceinline__ int col(int sub, int e) {
+    return ((e / VB) * LANES + sub) * VB + e % VB;
+  }
+};
+
+// One launch a call. One CTA per (chunk of PD_CHUNK positions, kv head,
+// batch row); a CTA whose chunk starts at or past the row's valid length
+// returns at once (split 0 of a row with none writes its zeros). Warp 0's
+// lane 0 walks the chunk's pages and asks TMA for each page's K and V box
+// (int8: its lanes copy the rows' scales by cp.async, counted on the same
+// barrier); the 4 consumer warps take the tiles in turn, a tile's rows
+// spread over a warp's lane groups (PdLanes), and keep an online softmax
+// per query head of the group. A row that fits one chunk is normalized
+// and written here; otherwise each CTA writes its (m, l, acc), and the CTA
+// that draws the row's last ticket merges the chunks in order and resets
+// the ticket. Scores are in base 2 (scale_log2 = scale * log2 e). G is
+// the group size the registers are laid out for (2 or PD_GMAX), at least
+// Hq / Hkv: the engine's group of 2 holds its q and acc in 64 registers a
+// lane, which lets three CTAs share an SM.
+template <typename TQ, typename TKV, int D, int G>
+__global__ void __launch_bounds__(PD_THREADS, G <= 2 ? 3 : 1)
+paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const TQ* __restrict__ q, const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ valid, float* __restrict__ part_m,
+                    float* __restrict__ part_l, float* __restrict__ part_acc,
+                    int* __restrict__ tickets, TQ* __restrict__ out, int Hq,
+                    int Hkv, int P, int npages, int nsplit,
+                    float scale_log2) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  extern __shared__ unsigned char pd_smem[];
+  const PdPlan plan = pd_plan(P, D, (int)sizeof(TKV), QUANT);
+  unsigned char* sm = pd_smem + ((128u - (smem_addr(pd_smem) & 127u)) & 127u);
+  const uint32_t base = smem_addr(sm);
+  const uint32_t full = base + plan.bar_off;      // + 8 * stage
+  const uint32_t empty = full + 8 * plan.ns;      // + 8 * stage
+  int* s_table = reinterpret_cast<int*>(sm + plan.table_off);
+  volatile int* s_flag = reinterpret_cast<int*>(sm + plan.flag_off);
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int group = Hq / Hkv;
+  const int64_t h0 = (int64_t)b * Hq + hk * group;  // the group's first head
+  const int t0 = split * PD_CHUNK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row_valid = valid[b];
+  if (warp == 0) {
+    // the producer's table entries over the chunk's whole reach, read
+    // while `valid` is in flight (those past it are never used)
+    const int last = min((t0 + PD_CHUNK - 1) / P, npages - 1) - t0 / P;
+    for (int i = lane; i <= last; i += 32)
+      s_table[i] = table[(int64_t)b * npages + t0 / P + i];
+  }
   // positions past the table's reach are not read (the Pallas grid stops
   // at npages pages as well)
-  const int n = min(valid[b], npages * page_size);
-  const int t0 = split * PD_CHUNK;
-  if (t0 >= n) return;
+  const int n = max(0, min(row_valid, npages * P));
+  if (t0 >= n) {
+    // a row with no valid position gives 0, as the Pallas kernel does
+    if (split == 0)
+      for (int i = threadIdx.x; i < group * D; i += PD_THREADS)
+        out[h0 * D + i] = from_f<TQ>(0.f);
+    return;
+  }
   const int t1 = min(n, t0 + PD_CHUNK);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int d0 = lane * PER;
-  const bool lane_on = d0 < D;
+  const int used = (n + PD_CHUNK - 1) / PD_CHUNK;  // the row's chunks
+  const int p0 = t0 / P, p1 = (t1 - 1) / P;        // the chunk's pages
+  const int br = plan.br, ns = plan.ns;
 
-  // the chunk's pages, staged once: no table load inside the loop
-  const int p0 = t0 / page_size, np = (t1 - 1) / page_size - p0 + 1;
-  for (int i = threadIdx.x; i < np; i += PD_WARPS * 32)
-    s_table[i] = table[(int64_t)b * npages + p0 + i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8 * s, QUANT ? 1 + 32 : 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  float qr[PD_GMAX][PER], acc[PD_GMAX][PER], m[PD_GMAX], l[PD_GMAX];
+  if (warp == 0) {
+    // producer: one tile (a box of K and of V) a stage, in page order;
+    // pages past the chunk's last valid position are never asked for
+    int it = 0;
+    for (int p = p0; p <= p1; ++p) {
+      const int page = s_table[p - p0];
+      for (int r0 = 0; r0 < P; r0 += br) {
+        const int a = p * P + r0, rows = min(br, P - r0);
+        if (a + rows <= t0 || a >= t1) continue;
+        const int s = it % ns;
+        if (it >= ns) mbar_wait(empty + 8 * s, (it / ns - 1) & 1);
+        const uint32_t st = base + s * plan.stage;
+        if constexpr (QUANT) {
+          for (int r = lane; r < rows; r += 32) {
+            const int64_t row = ((int64_t)page * P + r0 + r) * Hkv + hk;
+            cp_async4(st + 2 * plan.box + 4 * r, kscale + row);
+            cp_async4(st + 2 * plan.box + plan.sbox + 4 * r, vscale + row);
+          }
+          cp_async_arrive(full + 8 * s);
+        }
+        if (lane == 0) {
+          // rows of the box past the page read as zeros and count
+          mbar_expect_tx(full + 8 * s, 2u * br * D * (uint32_t)sizeof(TKV));
+          tma_load(st, &tm_k, full + 8 * s, 0, hk, r0, page);
+          tma_load(st + plan.box, &tm_v, full + 8 * s, 0, hk, r0, page);
+        }
+        ++it;
+      }
+    }
+    if constexpr (QUANT) cp_async_wait_all();
+    return;
+  }
+
+  // consumers: warp cw takes tiles cw, cw + 4, ... of the chunk; a tile's
+  // rows go to the warp's lane groups, one row a group at a time, and each
+  // group keeps its own online softmax, rescaled only when its max grows
+  using Lay = PdLanes<TKV, D, G>;
+  constexpr int E = Lay::E, VB = Lay::VB;
+  const int cw = warp - 1, ct = threadIdx.x - 32;
+  const int grp = lane / Lay::LANES, sub = lane % Lay::LANES;
+  float qr[G][E], acc[G][E], m[G], l[G];
 #pragma unroll
-  for (int g = 0; g < PD_GMAX; ++g) {
+  for (int g = 0; g < G; ++g) {
     m[g] = -CUDART_INF_F;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
-    if (g < group && lane_on) {
-      load_vec<TQ, PER>(q + ((int64_t)b * Hq + hk * group + g) * D + d0,
-                        qr[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < PER; ++e) qr[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) {
+      acc[g][e] = 0.f;
+      qr[g][e] = g < group ? to_f(q[(h0 + g) * D + Lay::col(sub, e)]) : 0.f;
     }
   }
 
-  for (int base = t0 + warp * PD_U; base < t1; base += PD_WARPS * PD_U) {
-    // issue every K and V load of the round before using any of them
-    int64_t row[PD_U];
-    float kv[PD_U][PER], vv[PD_U][PER], ksc[PD_U], vsc[PD_U];
+  int it = 0;
+  for (int p = p0; p <= p1; ++p) {
+    for (int r0 = 0; r0 < P; r0 += br) {
+      const int a = p * P + r0, rows = min(br, P - r0);
+      if (a + rows <= t0 || a >= t1) continue;
+      const int s = it % ns, phase = (it / ns) & 1;
+      if (it++ % PD_CWARPS != cw) continue;  // another warp's tile
+      mbar_wait(full + 8 * s, phase);
+      const unsigned char* st = sm + s * plan.stage;
+      const TKV* kt = reinterpret_cast<const TKV*>(st);
+      const TKV* vt = reinterpret_cast<const TKV*>(st + plan.box);
+      const float* kst = reinterpret_cast<const float*>(st + 2 * plan.box);
+      const float* vst = kst + plan.sbox / 4;
+      // the tile's rows inside [t0, t1): rows at or past `valid` (NaN in
+      // a pool is possible there) are never read
+      const int lo = max(t0 - a, 0), hi = min(rows, t1 - a);
+      for (int rb = lo; rb < hi; rb += Lay::RPW) {
+        const int r = rb + grp;
+        const bool live = r < hi;
+        float kv[E], vv[E];
+        if (live) {
 #pragma unroll
-    for (int u = 0; u < PD_U; ++u) {
-      const int t = base + u;
-      row[u] = -1;
-      if (t < t1)
-        row[u] = ((int64_t)s_table[t / page_size - p0] * page_size +
-                  t % page_size) * Hkv + hk;
-      ksc[u] = vsc[u] = 1.f;
-      if (row[u] >= 0 && lane_on) {
-        load_vec<TKV, PER>(kp + row[u] * D + d0, kv[u]);
-        load_vec<TKV, PER>(vp + row[u] * D + d0, vv[u]);
-        if (QUANT) {
-          ksc[u] = kscale[row[u]];
-          vsc[u] = vscale[row[u]];
+          for (int j = 0; j < E / VB; ++j) {
+            load_vec<TKV, VB>(kt + r * D + Lay::col(sub, j * VB), kv + j * VB);
+            load_vec<TKV, VB>(vt + r * D + Lay::col(sub, j * VB), vv + j * VB);
+          }
+          if constexpr (QUANT) {
+            // dequantize, then the dot, as the Pallas body does
+            const float ks = kst[r], vs = vst[r];
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              kv[e] *= ks;
+              vv[e] *= vs;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kv[e] = vv[e] = 0.f;
         }
-      } else {
 #pragma unroll
-        for (int e = 0; e < PER; ++e) kv[u][e] = vv[u][e] = 0.f;
-      }
-    }
-    float s[PD_U][PD_GMAX];
+        for (int g = 0; g < G; ++g) {
+          if (g >= group) continue;
+          float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-    for (int u = 0; u < PD_U; ++u) {
-      if (QUANT)  // dequantize, then the dot, as the Pallas body does
+          for (int e = 0; e < E; e += 2) {
+            d0 = fmaf(qr[g][e], kv[e], d0);
+            d1 = fmaf(qr[g][e + 1], kv[e + 1], d1);
+          }
+          float dot = d0 + d1;
 #pragma unroll
-        for (int e = 0; e < PER; ++e) kv[u][e] *= ksc[u];
+          for (int off = Lay::LANES / 2; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          if (live) {
+            const float sc = dot * scale_log2;
+            if (sc > m[g]) {  // a new max: rescale what the group holds
+              const float alpha = exp2f(m[g] - sc);  // 0 at the first row
+              l[g] *= alpha;
 #pragma unroll
-      for (int g = 0; g < PD_GMAX; ++g) {
-        float part = 0.f;
-        if (g < group) {
+              for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+              m[g] = sc;
+            }
+            const float pr = exp2f(sc - m[g]);
+            l[g] += pr;
 #pragma unroll
-          for (int e = 0; e < PER; ++e) part = fmaf(qr[g][e], kv[u][e], part);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            part += __shfl_xor_sync(0xffffffffu, part, off);
+            for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pr, vv[e], acc[g][e]);
+          }
         }
-        s[u][g] = row[u] >= 0 ? part * scale : -CUDART_INF_F;
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    // position `base` is < t1, so every group row sees a finite score here
+  }
+
+  // the warp's lane groups combine by a butterfly over the group bits; a
+  // group that saw no row holds m = -inf, weight 0. The two lanes of a
+  // pair may round their sums differently (the compiler contracts either
+  // product into an fma), so the groups' bits may differ: only group 0's
+  // state is stored, and its order of combination is fixed, so the
+  // result does not depend on the run
 #pragma unroll
-    for (int g = 0; g < PD_GMAX; ++g) {
+  for (int off = Lay::LANES; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
       if (g >= group) continue;
-      float mx = s[0][g];
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], mo);
+      const float c = M == -CUDART_INF_F ? 0.f : exp2f(m[g] - M);
+      const float co = M == -CUDART_INF_F ? 0.f : exp2f(mo - M);
+      l[g] = l[g] * c + lo_ * co;
 #pragma unroll
-      for (int u = 1; u < PD_U; ++u) mx = fmaxf(mx, s[u][g]);
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - m_new);
-      float p[PD_U], rs = 0.f;
-#pragma unroll
-      for (int u = 0; u < PD_U; ++u) {
-        p[u] = row[u] >= 0 ? expf(s[u][g] - m_new) : 0.f;
-        rs += p[u];
+      for (int e = 0; e < E; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * c + ao * co;
       }
-      l[g] = l[g] * alpha + rs;
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        float a = acc[g][e] * alpha;
-#pragma unroll
-        for (int u = 0; u < PD_U; ++u)
-          a = fmaf(p[u], QUANT ? vv[u][e] * vsc[u] : vv[u][e], a);
-        acc[g][e] = a;
-      }
+      m[g] = M;
     }
   }
 
-  // merge the warps' states into the chunk's (warp 0 always saw a token)
+  // merge the warps' states into the chunk's, through the ring (every
+  // stage has been read); a warp that saw no row holds m = -inf, weight 0
+  float* wm = reinterpret_cast<float*>(sm);    // [warp][g]
+  float* wl = wm + PD_CWARPS * G;              // [warp][g]
+  float* wa = wl + PD_CWARPS * G;              // [warp][g][D]
+  pd_consumer_sync();
 #pragma unroll
-  for (int g = 0; g < PD_GMAX; ++g) {
+  for (int g = 0; g < G; ++g) {
     if (g >= group) continue;
     if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      wm[cw * G + g] = m[g];
+      wl[cw * G + g] = l[g];
     }
-    if (lane_on)
+    if (grp == 0)
 #pragma unroll
-      for (int e = 0; e < PER; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+      for (int e = 0; e < E; ++e)
+        wa[(cw * G + g) * D + Lay::col(sub, e)] = acc[g][e];
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < group * D; i += PD_WARPS * 32) {
+  pd_consumer_sync();
+  for (int i = ct; i < group * D; i += 32 * PD_CWARPS) {
     const int g = i / D, d = i % D;
     float M = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < PD_WARPS; ++w) M = fmaxf(M, sm_m[w][g]);
+    for (int w = 0; w < PD_CWARPS; ++w) M = fmaxf(M, wm[w * G + g]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < PD_WARPS; ++w) {
-      const float c = expf(sm_m[w][g] - M);  // 0 for a warp with no token
-      L += sm_l[w][g] * c;
-      A += sm_acc[w][g][d] * c;
+    for (int w = 0; w < PD_CWARPS; ++w) {
+      const float c = exp2f(wm[w * G + g] - M);
+      L += wl[w * G + g] * c;
+      A += wa[(w * G + g) * D + d] * c;
     }
-    const int64_t hs = ((int64_t)b * Hq + hk * group + g) * nsplit + split;
-    part_acc[hs * D + d] = A;
-    if (d == 0) {
-      part_m[hs] = M;
-      part_l[hs] = L;
+    if (used == 1) {
+      out[h0 * D + i] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+    } else {
+      const int64_t hs = (h0 + g) * nsplit + split;
+      part_acc[hs * D + d] = A;
+      if (d == 0) {
+        part_m[hs] = M;
+        part_l[hs] = L;
+      }
     }
   }
+  if (used == 1) return;
+
+  // the row's chunks meet here: each CTA publishes its partial, then draws
+  // a ticket; the last one merges all of them in chunk order, so the bits
+  // do not depend on which CTA came last
+  __threadfence();
+  pd_consumer_sync();
+  if (ct == 0)
+    *s_flag = atomicAdd(&tickets[b * Hkv + hk], 1) == used - 1;
+  pd_consumer_sync();
+  if (!*s_flag) return;
+  __threadfence();
+  // each thread merges two of the group's (head, column) entries at once,
+  // reading their partials PD_MB chunks at a time with every load of a
+  // batch issued before the sums take them in chunk order: a row of up to
+  // PD_MB chunks costs two L2 round trips, the maxima, then the rest
+  for (int i0 = ct; i0 < group * D; i0 += 2 * 32 * PD_CWARPS) {
+    int64_t hs[2];
+    int dd[2];
+    bool on[2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int i = i0 + t * 32 * PD_CWARPS;
+      on[t] = i < group * D;
+      hs[t] = (h0 + (on[t] ? i / D : 0)) * nsplit;
+      dd[t] = i % D;
+    }
+    float M[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    for (int s0 = 0; s0 < used; s0 += PD_MB) {
+      float mv[2][PD_MB];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < PD_MB; ++j)
+          mv[t][j] = on[t] && s0 + j < used ? __ldcg(part_m + hs[t] + s0 + j)
+                                            : -CUDART_INF_F;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < PD_MB; ++j) M[t] = fmaxf(M[t], mv[t][j]);
+    }
+    float L[2] = {0.f, 0.f}, A[2] = {0.f, 0.f};
+    for (int s0 = 0; s0 < used; s0 += PD_MB) {
+      float mv[2][PD_MB], lv[2][PD_MB], av[2][PD_MB];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < PD_MB; ++j) {
+          const bool in = on[t] && s0 + j < used;
+          const int64_t c = hs[t] + s0 + j;
+          mv[t][j] = in ? __ldcg(part_m + c) : 0.f;
+          lv[t][j] = in ? __ldcg(part_l + c) : 0.f;
+          av[t][j] = in ? __ldcg(part_acc + c * D + dd[t]) : 0.f;
+        }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < PD_MB; ++j) {
+          if (s0 + j >= used) break;
+          const float c = exp2f(mv[t][j] - M[t]);
+          L[t] += lv[t][j] * c;
+          A[t] += av[t][j] * c;
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+      if (on[t])
+        out[h0 * D + i0 + t * 32 * PD_CWARPS] =
+            from_f<TQ>(A[t] / fmaxf(L[t], 1e-30f));
+  }
+  if (ct == 0) tickets[b * Hkv + hk] = 0;  // ready for the next launch
 }
 
-// Pass 2: one CTA per (query head, batch row) merges the row's chunks.
-template <typename TQ>
-__global__ void paged_merge_kernel(const float* __restrict__ part_m,
-                                   const float* __restrict__ part_l,
-                                   const float* __restrict__ part_acc,
-                                   const int* __restrict__ valid,
-                                   TQ* __restrict__ out, int Hq, int D,
-                                   int nsplit, int cap) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int n = min(valid[b], cap);
-  const int used = n > 0 ? (n + PD_CHUNK - 1) / PD_CHUNK : 0;
-  const int64_t hs = ((int64_t)b * Hq + h) * nsplit;
-  float M = -CUDART_INF_F;
-  for (int s = 0; s < used; ++s) M = fmaxf(M, part_m[hs + s]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < used; ++s) {
-      const float c = expf(part_m[hs + s] - M);
-      L += part_l[hs + s] * c;
-      A += part_acc[(hs + s) * D + d] * c;
-    }
-    // a row with no valid position gives 0, as the Pallas kernel does
-    out[((int64_t)b * Hq + h) * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
-  }
+template <typename TKV>
+constexpr CUtensorMapDataType pd_map_type() {
+  return std::is_same<TKV, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<TKV, int8_t>::value
+             ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A 4-D tensor map (D, Hkv, P, num_pages innermost first) over a
+// contiguous pool, in boxes of (D, 1 head, br rows, 1 page): TMA takes a
+// page number from the table as a coordinate, and rows of a box past the
+// page read as zeros. 16-byte aligned base (the wrapper checks it).
+template <typename TKV>
+cudaError_t make_pool_map(CUtensorMap* map, const void* pool, int num_pages,
+                          int P, int Hkv, int D) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t esz = sizeof(TKV);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)P,
+                              (cuuint64_t)num_pages};
+  const cuuint64_t strides[3] = {D * esz, (cuuint64_t)Hkv * D * esz,
+                                 (cuuint64_t)P * Hkv * D * esz};
+  const PdPlan plan = pd_plan(P, D, (int)esz, false);
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)plan.br, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, pd_map_type<TKV>(), 4, const_cast<void*>(pool), dims, strides,
+      box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV, int D>
-cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
+cudaError_t launch_paged(const void* kmap, const void* vmap, const void* q,
                          const float* ks, const float* vs, const int* table,
-                         const int* valid, float* part, void* out, int B,
-                         int Hq, int Hkv, int page_size, int npages,
+                         const int* valid, float* part, int* tickets,
+                         void* out, int B, int Hq, int Hkv, int P, int npages,
                          int nsplit, float scale, cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  if (QUANT != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
+  const PdPlan plan = pd_plan(P, D, (int)sizeof(TKV), QUANT);
+  if (plan.smem > PD_SMEM_MAX) return cudaErrorInvalidValue;
+  const bool pair = Hq / Hkv <= 2;
+  auto kernel = pair ? paged_decode_kernel<TQ, TKV, D, 2>
+                     : paged_decode_kernel<TQ, TKV, D, PD_GMAX>;
+  static std::atomic<bool> smem_set[2][HOPPER_MAX_DEVICES];
+  cudaError_t err = smem_opt_in(kernel, PD_SMEM_MAX, smem_set[pair]);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_k, tm_v;
+  memcpy(&tm_k, kmap, sizeof(CUtensorMap));
+  memcpy(&tm_v, vmap, sizeof(CUtensorMap));
   float* pm = part;
   float* pl = pm + (size_t)B * Hq * nsplit;
   float* pa = pl + (size_t)B * Hq * nsplit;
-  dim3 grid(nsplit, Hkv, B);
-  if (ks != nullptr)
-    paged_chunk_kernel<TQ, TKV, D, true><<<grid, PD_WARPS * 32, 0, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-        static_cast<const TKV*>(vp), ks, vs, table, valid, pm, pl, pa, Hq,
-        Hkv, page_size, npages, nsplit, scale);
-  else
-    paged_chunk_kernel<TQ, TKV, D, false><<<grid, PD_WARPS * 32, 0, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-        static_cast<const TKV*>(vp), nullptr, nullptr, table, valid, pm, pl,
-        pa, Hq, Hkv, page_size, npages, nsplit, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_merge_kernel<TQ><<<dim3(Hq, B), D, 0, stream>>>(
-      pm, pl, pa, valid, static_cast<TQ*>(out), Hq, D, nsplit,
-      npages * page_size);
+  kernel<<<dim3(nsplit, Hkv, B), PD_THREADS, plan.smem, stream>>>(
+      tm_k, tm_v, static_cast<const TQ*>(q), ks, vs, table, valid, pm, pl,
+      pa, tickets, static_cast<TQ*>(out), Hq, Hkv, P, npages, nsplit,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
+struct PagedArgs {
+  const void* kmap;
+  const void* vmap;
+  const void* q;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  const int* valid;
+  float* part;
+  int* tickets;
+  void* out;
+  int B, Hq, Hkv, P, npages, nsplit;
+  float scale;
+};
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_paged_a(const PagedArgs& a, cudaStream_t st) {
+  return launch_paged<TQ, TKV, D>(a.kmap, a.vmap, a.q, a.ks, a.vs, a.table,
+                                  a.valid, a.part, a.tickets, a.out, a.B,
+                                  a.Hq, a.Hkv, a.P, a.npages, a.nsplit,
+                                  a.scale, st);
+}
+
 template <typename TQ, typename TKV>
-cudaError_t launch_paged_d(int D, const void* q, const void* kp,
-                           const void* vp, const float* ks, const float* vs,
-                           const int* table, const int* valid, float* part,
-                           void* out, int B, int Hq, int Hkv, int page_size,
-                           int npages, int nsplit, float scale,
-                           cudaStream_t st) {
+cudaError_t launch_paged_d(int D, const PagedArgs& a, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_paged<TQ, TKV, 16>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
-    case 32: return launch_paged<TQ, TKV, 32>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
-    case 64: return launch_paged<TQ, TKV, 64>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
-    case 128: return launch_paged<TQ, TKV, 128>(q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 16: return launch_paged_a<TQ, TKV, 16>(a, st);
+    case 32: return launch_paged_a<TQ, TKV, 32>(a, st);
+    case 64: return launch_paged_a<TQ, TKV, 64>(a, st);
+    case 128: return launch_paged_a<TQ, TKV, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ>
-cudaError_t launch_paged_kv(int kv_type, int D, const void* q,
-                            const void* kp, const void* vp, const float* ks,
-                            const float* vs, const int* table,
-                            const int* valid, float* part, void* out, int B,
-                            int Hq, int Hkv, int page_size, int npages,
-                            int nsplit, float scale, cudaStream_t st) {
+cudaError_t launch_paged_kv(int kv_type, int D, const PagedArgs& a,
+                            cudaStream_t st) {
   switch (kv_type) {
-    case 0: return launch_paged_d<TQ, float>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
-    case 1: return launch_paged_d<TQ, __nv_bfloat16>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
-    case 2: return launch_paged_d<TQ, int8_t>(D, q, kp, vp, ks, vs, table, valid, part, out, B, Hq, Hkv, page_size, npages, nsplit, scale, st);
+    case 0: return launch_paged_d<TQ, float>(D, a, st);
+    case 1: return launch_paged_d<TQ, __nv_bfloat16>(D, a, st);
+    case 2: return launch_paged_d<TQ, int8_t>(D, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1857,29 +2180,47 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   return launch_flash_any(2, dtype, D, a, stream);
 }
 
-// part: float32 scratch of B*Hq*nsplit*(D + 2) floats, nsplit =
-// ceil(npages*page_size / 128), allocated by the caller
-extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
-                            const void* ks, const void* vs, const void* table,
-                            const void* valid, void* part, void* out,
-                            int q_type, int kv_type, int B, int Hq, int Hkv,
-                            int D, int page_size, int npages, int nsplit,
-                            float scale, void* stream) {
+// One paged decode call, one launch. kmap, vmap: the pools' tensor maps
+// (128 bytes each, from paged_decode_map); part: float32 scratch of
+// B*Hq*nsplit*(D + 2) floats, nsplit = ceil(npages*page_size / 128);
+// tickets: B*Hkv int32, zero before the first launch, and every launch
+// leaves them zero; both allocated by the caller
+extern "C" int paged_decode(const void* kmap, const void* vmap,
+                            const void* q, const void* ks, const void* vs,
+                            const void* table, const void* valid, void* part,
+                            void* tickets, void* out, int q_type, int kv_type,
+                            int B, int Hq, int Hkv, int D, int page_size,
+                            int npages, int nsplit, float scale,
+                            void* stream) {
+  const PagedArgs a{kmap, vmap, q, static_cast<const float*>(ks),
+                    static_cast<const float*>(vs),
+                    static_cast<const int*>(table),
+                    static_cast<const int*>(valid), static_cast<float*>(part),
+                    static_cast<int*>(tickets), out, B, Hq, Hkv, page_size,
+                    npages, nsplit, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* k_s = static_cast<const float*>(ks);
-  const float* v_s = static_cast<const float*>(vs);
-  const int* t = static_cast<const int*>(table);
-  const int* n = static_cast<const int*>(valid);
-  float* p = static_cast<float*>(part);
-  if (q_type == 0)
-    return launch_paged_kv<float>(kv_type, D, q, kp, vp, k_s, v_s, t, n, p,
-                                  out, B, Hq, Hkv, page_size, npages, nsplit,
-                                  scale, st);
-  if (q_type == 1)
-    return launch_paged_kv<__nv_bfloat16>(kv_type, D, q, kp, vp, k_s, v_s, t,
-                                          n, p, out, B, Hq, Hkv, page_size,
-                                          npages, nsplit, scale, st);
+  if (q_type == 0) return launch_paged_kv<float>(kv_type, D, a, st);
+  if (q_type == 1) return launch_paged_kv<__nv_bfloat16>(kv_type, D, a, st);
   return cudaErrorInvalidValue;
+}
+
+// The tensor map of a contiguous (num_pages, page_size, Hkv, D) pool of
+// kv_type (0 float32, 1 bf16, 2 int8) into map (128 bytes); the caller
+// keeps it for as long as the pool lives where it is
+extern "C" int paged_decode_map(void* map, const void* pool, int kv_type,
+                                int num_pages, int page_size, int Hkv,
+                                int D) {
+  CUtensorMap m;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kv_type == 0)
+    err = make_pool_map<float>(&m, pool, num_pages, page_size, Hkv, D);
+  else if (kv_type == 1)
+    err = make_pool_map<__nv_bfloat16>(&m, pool, num_pages, page_size, Hkv,
+                                       D);
+  else if (kv_type == 2)
+    err = make_pool_map<int8_t>(&m, pool, num_pages, page_size, Hkv, D);
+  if (err == cudaSuccess) memcpy(map, &m, sizeof(CUtensorMap));
+  return err;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -23,8 +23,10 @@ read them by TMA.
 Each CUDA wrapper counts its launches in a plain-integer ``launches``
 attribute: ``flash_attention_cuda.launches`` (with or without lse),
 ``flash_dq_cuda.launches``, ``flash_dkv_cuda.launches``,
-``paged_decode_cuda.launches``. One ``paged_decode`` launch is its two CUDA
-kernels: the chunk pass and the merge of each row's chunks.
+``paged_decode_cuda.launches``. One ``paged_decode`` call is one CUDA
+launch: the chunks of a long row merge inside it (a ticket per row and kv
+head), and its pools reach the kernel through TMA tensor maps that are
+encoded once per pool and kept (:func:`_paged_maps`).
 """
 from __future__ import annotations
 
@@ -42,9 +44,14 @@ _F = ctypes.c_float
 _FLASH_ARGS = [_P] * 5 + [_I] * 7 + [_P, _I, _F, _P]
 _DQ_ARGS = [_P] * 7 + [_I] * 7 + [_P, _I, _F, _P]
 _DKV_ARGS = [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P]
-_PAGED_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
+_PAGED_ARGS = [_P] * 10 + [_I] * 9 + [_F, _P]
+_MAP_ARGS = [_P] * 2 + [_I] * 5
 #: positions per CTA of the paged kernel (``PD_CHUNK`` in the source)
 PAGED_CHUNK = 128
+#: page size the paged kernel takes at most: TMA's limit on a box's rows.
+#: The kernel loads a page in boxes of up to 64 rows (``PD_BOX_ROWS``), so
+#: float32 pages past that still fit its shared memory.
+MAX_PAGE_SIZE = 256
 #: head dims the kernels are instantiated for; the others run padded
 HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the paged kernel serves at most
@@ -291,20 +298,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              scale=scale)
 
 
-#: the paged kernel's chunk-state scratch, one buffer per (device, stream),
-#: grown when a call needs more: the launches on one stream run in order,
-#: so they can share it, and a decode step allocates nothing for it
-_PART: dict = {}
+def paged_splits(npages: int, page_size: int) -> int:
+    """CTAs along a row of the paged kernel's grid: chunks of
+    :data:`PAGED_CHUNK` positions over the table's reach, at least one (the
+    first writes a row with no valid position)."""
+    return max(-(-npages * page_size // PAGED_CHUNK), 1)
 
 
-def _part_scratch(device: torch.device, stream: int,
-                  numel: int) -> torch.Tensor:
+#: the paged kernel's scratch, one pair per (device, stream): its chunk
+#: states (m, l, acc), grown when a call needs more, and its tickets, one
+#: int32 per (row, kv head), zeroed once (every launch leaves them zero).
+#: The launches on one stream run in order, so they can share both, and a
+#: decode step allocates nothing for them.
+_SCRATCH: dict = {}
+
+
+def _paged_scratch(device: torch.device, stream: int, part_numel: int,
+                   n_tickets: int):
     key = (device.index, stream)
-    buf = _PART.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.float32, device=device)
-        _PART[key] = buf
-    return buf
+    pair = _SCRATCH.get(key)
+    if (pair is None or pair[0].numel() < part_numel
+            or pair[1].numel() < n_tickets):
+        part, tickets = pair if pair is not None else (None, None)
+        if part is None or part.numel() < part_numel:
+            part = torch.empty(part_numel, dtype=torch.float32,
+                               device=device)
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros(n_tickets, dtype=torch.int32,
+                                  device=device)
+        pair = _SCRATCH[key] = (part, tickets)
+    return pair
+
+
+#: the pools' TMA tensor maps (128 bytes each), by :func:`_paged_map_key`:
+#: (the K map's address, the V map's address, the two buffers). A map
+#: holds only the pool's address, shape and type, so a key that comes back
+#: names the same map even for a pool allocated anew there. The engine's
+#: pools are allocated once and written in place, so its 24 layers need
+#: 24 pairs; a cache past :data:`_MAX_MAPS` pairs starts over.
+_MAPS: dict = {}
+_MAX_MAPS = 256
+
+
+def _paged_map_key(k_pool: torch.Tensor, v_pool: torch.Tensor) -> tuple:
+    """What a pair of tensor maps depends on: both pools' addresses (unique
+    across devices: CUDA gives every device's memory its own range of one
+    virtual address space), and their (shared) shape and dtype."""
+    return k_pool.data_ptr(), v_pool.data_ptr(), k_pool.shape, k_pool.dtype
+
+
+def _paged_maps(k_pool: torch.Tensor, v_pool: torch.Tensor) -> tuple:
+    """The addresses of the K and V pools' tensor maps (and the buffers
+    that hold them), encoded at the first call for a key and kept."""
+    key = _paged_map_key(k_pool, v_pool)
+    maps = _MAPS.get(key)
+    if maps is None:
+        fn = _build.function("flash_attention", "paged_decode_map",
+                             _MAP_ARGS)
+        num_pages, P, Hkv, D = k_pool.shape
+        bufs = tuple(ctypes.create_string_buffer(128) for _ in range(2))
+        for buf, pool in zip(bufs, (k_pool, v_pool)):
+            err = fn(ctypes.addressof(buf), pool.data_ptr(),
+                     _TYPE[pool.dtype], num_pages, P, Hkv, D)
+            _build.check("flash_attention", err, "paged_decode")
+        if len(_MAPS) >= _MAX_MAPS:
+            _MAPS.clear()
+        maps = _MAPS[key] = (ctypes.addressof(bufs[0]),
+                             ctypes.addressof(bufs[1]), bufs)
+    return maps
 
 
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -349,6 +410,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     padded_head_dim(D, what)
     if B > 65535 or Hkv > 65535 or P < 1:
         raise ValueError(f"{what}: unsupported shape")
+    if P > MAX_PAGE_SIZE:
+        raise ValueError(f"{what}: page size {P} past {MAX_PAGE_SIZE}")
     operands = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                 ("page_table", page_table), ("kv_valid_len", kv_valid_len)]
     if quant:
@@ -361,26 +424,32 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned (TMA "
+                             f"reads it)")
     if D not in HEAD_DIMS:
         return call_padded(paged_decode_cuda, (q, k_pool, v_pool),
                            (page_table, kv_valid_len), k_scale=k_scale,
                            v_scale=v_scale, scale=scale)
     scale = D ** -0.5 if scale is None else float(scale)
     npages = page_table.shape[1]
-    nsplit = max(-(-npages * P // PAGED_CHUNK), 1)
+    nsplit = paged_splits(npages, P)
     if nsplit > 2 ** 31 - 1:
         raise ValueError(f"{what}: page table too long")
     out = torch.empty_like(q)
     stream = _build.stream_of(q)
-    # each row's chunk states (m, l, acc), merged by the second kernel
-    part = _part_scratch(q.device, stream, B * Hq * nsplit * (D + 2))
+    kmap, vmap, _ = _paged_maps(k_pool, v_pool)
+    part, tickets = _paged_scratch(q.device, stream,
+                                   B * Hq * nsplit * (D + 2), B * Hkv)
     fn = _build.function("flash_attention", "paged_decode", _PAGED_ARGS)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    err = fn(kmap, vmap, q.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
              page_table.data_ptr(), kv_valid_len.data_ptr(), part.data_ptr(),
-             out.data_ptr(), _TYPE[q.dtype], _TYPE[k_pool.dtype], B, Hq, Hkv,
-             D, P, npages, nsplit, scale, stream)
+             tickets.data_ptr(), out.data_ptr(), _TYPE[q.dtype],
+             _TYPE[k_pool.dtype], B, Hq, Hkv, D, P, npages, nsplit, scale,
+             stream)
     _build.check("flash_attention", err, what)
     paged_decode_cuda.launches += 1
     return out

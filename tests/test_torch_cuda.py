@@ -470,12 +470,16 @@ def test_backward_wrappers_reject_bad_operands(cuda):
         fa_ops.flash_dkv_cuda(q, k, v, do[:, :4], lse, lse)
 
 
-def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0):
-    """A page pool with ragged valid lengths 1..npages*P, each row's pages
-    drawn without repeats, and table entries past valid set to 0."""
+def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0,
+                valid=None):
+    """A page pool with ragged valid lengths (1..npages*P unless ``valid``
+    gives them), each row's pages drawn without repeats, and table entries
+    past valid set to 0."""
     rng = np.random.default_rng(seed)
     num_pages = 1 + B * npages
-    valid = np.linspace(1, npages * P, B).astype(np.int32)
+    if valid is None:
+        valid = np.linspace(1, npages * P, B)
+    valid = np.asarray(valid).astype(np.int32)
     perm = rng.permutation(np.arange(1, num_pages)).reshape(B, npages)
     used = -(-valid // P)
     table = np.where(np.arange(npages)[None] < used[:, None], perm, 0)
@@ -536,6 +540,102 @@ def test_paged_decode_cuda_never_reads_past_valid(cuda):
     after = fa_ops.paged_decode_cuda(q, k2, v2, t, n)
     torch.cuda.synchronize()
     assert torch.equal(before, after)
+
+
+def _paged_plain_check(args, scales):
+    got = fa_ops.paged_decode_cuda(*args, **scales)
+    want = fa_ref.paged_decode(*args, **scales)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _normwise(got.float(), want.float()) <= ATTN_RTOL[got.dtype]
+    return got
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_cuda_chunk_edges(cuda, kv):
+    """Rows of 0, 1, 127, 128, 129 and 256 valid positions: no chunk, one
+    chunk (written by its own CTA), one full chunk, and two (merged by the
+    last ticket). A row with none gives exactly 0."""
+    args, scales = _paged_case(cuda, B=6, Hq=16, Hkv=8, D=128, P=16,
+                               npages=16, kv=kv,
+                               valid=[0, 1, 127, 128, 129, 256])
+    got = _paged_plain_check(args, scales)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+def test_paged_decode_cuda_more_than_8_chunks(cuda, kv):
+    """A table reaching 1,280 positions (80 pages of 16, 10 chunks): the
+    ticket merge takes more than 8 partials."""
+    args, scales = _paged_case(cuda, B=4, Hq=8, Hkv=2, D=64, P=16,
+                               npages=80, kv=kv,
+                               valid=[1280, 1153, 1025, 700])
+    _paged_plain_check(args, scales)
+
+
+def test_paged_decode_cuda_two_launches_bit_equal(cuda):
+    args, scales = _paged_case(cuda, B=8, Hq=16, Hkv=8, D=128, P=16,
+                               npages=64, kv="bf16", seed=4)
+    a = fa_ops.paged_decode_cuda(*args, **scales)
+    b = fa_ops.paged_decode_cuda(*args, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_cuda_row_bits_do_not_depend_on_batch(cuda, kv):
+    """Each row alone (a batch of 1) gives its bits in the batch of 8:
+    the chunk is a constant and the merge order fixed."""
+    (q, k, v, t, n), scales = _paged_case(cuda, B=8, Hq=16, Hkv=8, D=128,
+                                          P=16, npages=64, kv=kv, seed=5)
+    batch = fa_ops.paged_decode_cuda(q, k, v, t, n, **scales)
+    for r in range(8):
+        one = fa_ops.paged_decode_cuda(
+            q[r:r + 1].contiguous(), k, v, t[r:r + 1].contiguous(),
+            n[r:r + 1].contiguous(), **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], batch[r]), r
+
+
+def test_paged_decode_cuda_tickets_reset_between_calls(cuda):
+    """A call at one shape, then calls at others on the same stream: each
+    launch leaves its tickets at 0, or the next would merge early or never
+    (the outputs would be wrong or unwritten)."""
+    for B, Hq, Hkv, D, P, npages, seed in ((8, 16, 8, 128, 16, 64, 0),
+                                           (3, 8, 4, 64, 5, 60, 1),
+                                           (8, 16, 8, 128, 16, 64, 2),
+                                           (16, 4, 2, 32, 16, 20, 3)):
+        args, scales = _paged_case(cuda, B=B, Hq=Hq, Hkv=Hkv, D=D, P=P,
+                                   npages=npages, kv="bf16", seed=seed)
+        _paged_plain_check(args, scales)
+    q = args[0]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, tickets = fa_ops._SCRATCH[(q.device.index, stream)]
+    torch.cuda.synchronize()
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_paged_decode_cuda_rejects_misaligned_pools_and_large_pages(cuda):
+    (q, kp, vp, t, n), _ = _paged_case(cuda, B=2, Hq=4, Hkv=2, D=64, P=5,
+                                       npages=3, kv="bf16")
+    flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=cuda)
+    shifted = flat[1:].view(kp.shape)            # base 2 bytes off
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.paged_decode_cuda(q, shifted, vp, t, n)
+    (q, kp, vp, t, n), _ = _paged_case(cuda, B=2, Hq=4, Hkv=2, D=16, P=257,
+                                       npages=1, kv="bf16")
+    with pytest.raises(ValueError, match="page size 257"):
+        fa_ops.paged_decode_cuda(q, kp, vp, t, n)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+def test_paged_decode_cuda_largest_pages(cuda, kv):
+    """Page size 256, the largest taken: the kernel loads a page in boxes
+    of 64 rows, so float32 pages fit its shared memory too."""
+    args, scales = _paged_case(cuda, B=3, Hq=4, Hkv=2, D=128, P=256,
+                               npages=3, kv=kv)
+    _paged_plain_check(args, scales)
 
 
 def test_attention_wrappers_reject_cpu_and_bad_operands(cuda):

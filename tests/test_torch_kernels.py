@@ -3,6 +3,7 @@
 against the JAX ref, on the same numpy inputs; and the CUDA wrappers' checks
 and chunking. The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_cuda.py."""
+import ctypes
 import math
 
 import jax
@@ -491,6 +492,76 @@ def test_paged_decode_ref_ignores_rows_past_valid():
         pg, row = int(t[b, (nb - 1) // 5]), (nb - 1) % 5
         k2[pg, row + 1:] = v2[pg, row + 1:] = 1e4
     assert torch.equal(before, fa_ref.paged_decode(q, k2, v2, t, n))
+
+
+@pytest.mark.parametrize("npages,P,want", [
+    (64, 16, 8),       # the engine's table: 1,024 positions
+    (80, 16, 10),      # past 8 chunks
+    (205, 5, 9),       # 1,025 positions
+    (8, 16, 1), (9, 16, 2), (1, 1, 1),
+    (0, 16, 1),        # no page: one CTA still writes the zeros
+])
+def test_paged_splits_counts_chunks_of_128_positions(npages, P, want):
+    assert fa_ops.PAGED_CHUNK == 128
+    assert fa_ops.paged_splits(npages, P) == want
+
+
+def test_paged_map_key_names_addresses_shape_and_dtype():
+    (_, k, v, _, _), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
+    key = fa_ops._paged_map_key(k, v)
+    assert key == fa_ops._paged_map_key(k.view(k.shape), v)
+    assert key != fa_ops._paged_map_key(v, k)
+    assert key != fa_ops._paged_map_key(k.clone(), v)
+    assert key != fa_ops._paged_map_key(k.view(torch.int32), v)
+    assert key != fa_ops._paged_map_key(k.view(-1, 5, 2, 16)[:6], v[:6])
+    # the engine's layers: slices of one (layers, pages, P, Hkv, D) pool
+    pool = torch.zeros(3, 7, 5, 2, 16)
+    assert len({fa_ops._paged_map_key(pool[i], pool[i])
+                for i in range(3)}) == 3
+
+
+def test_paged_maps_are_encoded_once_per_key(monkeypatch):
+    """The tensor maps are encoded at a key's first call and then reused;
+    past the cache's bound it starts over."""
+    calls = []
+
+    def encode(buf, ptr, kv_type, num_pages, P, Hkv, D):
+        calls.append((ptr, kv_type, num_pages, P, Hkv, D))
+        return 0
+
+    monkeypatch.setattr(fa_ops, "_MAPS", {})
+    monkeypatch.setattr(fa_ops, "_MAX_MAPS", 2)
+    monkeypatch.setattr(fa_ops._build, "function", lambda *a: encode)
+    pools = [torch.zeros(4, 5, 2, 16, dtype=torch.bfloat16)
+             for _ in range(3)]
+    first = fa_ops._paged_maps(pools[0], pools[1])
+    assert [c[1:] for c in calls] == [(1, 4, 5, 2, 16)] * 2
+    assert [c[0] for c in calls] == [pools[0].data_ptr(),
+                                     pools[1].data_ptr()]
+    kmap, vmap, bufs = first
+    assert [kmap, vmap] == [ctypes.addressof(b) for b in bufs]
+    assert all(len(b) == 128 for b in bufs)
+    assert fa_ops._paged_maps(pools[0], pools[1]) is first
+    assert len(calls) == 2
+    fa_ops._paged_maps(pools[1], pools[2])
+    fa_ops._paged_maps(pools[2], pools[0])          # past the bound
+    assert len(fa_ops._MAPS) == 1 and len(calls) == 6
+
+
+def test_paged_scratch_keeps_zeroed_tickets_and_grows(monkeypatch):
+    monkeypatch.setattr(fa_ops, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    part, tickets = fa_ops._paged_scratch(cpu, 0, 100, 8)
+    assert part.numel() == 100 and part.dtype == torch.float32
+    assert tickets.dtype == torch.int32 and not tickets.any()
+    p2, t2 = fa_ops._paged_scratch(cpu, 0, 50, 4)
+    assert p2 is part and t2 is tickets
+    p3, t3 = fa_ops._paged_scratch(cpu, 0, 200, 8)
+    assert p3.numel() == 200 and t3 is tickets
+    p4, t4 = fa_ops._paged_scratch(cpu, 0, 10, 16)
+    assert p4 is p3 and t4.numel() == 16 and not t4.any()
+    p5, _ = fa_ops._paged_scratch(cpu, 1, 10, 1)   # another stream
+    assert p5 is not p3
 
 
 def test_attention_cuda_wrappers_reject_cpu_tensors():

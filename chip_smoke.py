@@ -22,7 +22,7 @@ What it does, in order; any failure raises and the exit code is not 0:
 4. kernel phase: holds each kernel against its plain PyTorch version on the
    card at the main path's shapes (the Gram kernels see the augmented data
    [X; y], so d+1 rows), at ragged shapes and (prox_loop) above the
-   shared-memory limit, and times kernel, plain version and, for gram,
+   shared-memory ring's limit, and times kernel, plain version and, for gram,
    ``torch.bmm``. ``gram_gather`` runs over the sample-major rows of
    covtype and susy at full size (the launcher's synthetic data) with real
    draws, which repeat rows: the CA block (k=32) and the classical draw
@@ -35,12 +35,28 @@ What it does, in order; any failure raises and the exit code is not 0:
    of G (and R) and 2e-5 over G's off-diagonal entries against their own
    largest magnitude, limits that float32 sums in m-chunks meet (3e-7 and
    1.2e-6 in a float32 model of the kernel's summation order) and TF32
-   products would not (4e-6 and 3.6e-4 in the same model);
+   products would not (4e-6 and 3.6e-4 in the same model). The block prox
+   kernels (``prox_step_block``, ``prox_loop_block``: a k-block of FISTA or
+   proximal Newton updates a launch) run at the CA blocks of covtype (k=32,
+   d=54) and susy (k=32, d=18, Q=5) from ``gram_gather``'s own output, at
+   k = 1, 2 and 7, ragged d = 61 (G from global memory), d = 130 and 160
+   (ring stages of one G_i) and d = 300 (G from global memory), every
+   variant: bitwise their k = 1 instances run k times (FISTA's momentum by
+   the eager ops between), each step within 1e-5 of the plain version's
+   step from the kernel's own previous iterate (a whole chain of 32
+   momentum steps amplifies rounding past that in float32 with no fault:
+   its distance from the plain chain is printed beside the plain chain's
+   own distance from float64); timed with
+   the wrapper's host time, the chain of dependent steps and, as
+   diagnostics, the stepwise route they replace and the same block with
+   its G_i read from global memory instead of the ring. ``prox_step`` is
+   also timed at d = 4096, where one CTA reads all of G;
 5. main path: ``repro_torch.launch.lasso_solve.main`` with T=256, k=32,
    b=0.1, Q=5 on covtype at full size (CA-SFISTA, SFISTA) and on susy at
    full size (CA-SPNM, SPNM). Each run is read for its kernel launches and
-   registry dispatches (zeroed just before it: ``gram_gather`` launched T/k
-   times for CA and T for classical, ``gram`` never), its relative
+   registry dispatches (zeroed just before it: ``gram_gather`` and the
+   rule's block prox kernel launched T/k times for CA and T for classical,
+   ``gram``, ``prox_step`` and ``prox_loop`` never), its relative
    solution error,
    CA == classical (5e-6) and the card's w against the port's plain solve on
    the card with the same draws and step (1e-4). Then the solve wall of
@@ -48,8 +64,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    three timed solves of each in the order CA, classical, classical, CA,
    CA, classical, reported as all six walls and the two medians;
 6. a profiled CA and classical solve of covtype and of susy: device time
-   by kernel and the device's busy share of the wall time; no gather or
-   index kernel may run on the solve (the sampled rows are read in place);
+   by kernel, the launches and the device's busy share of the wall time;
+   no gather or index kernel may run on the solve (the sampled rows are
+   read in place), nor an elementwise update kernel (the momentum is
+   computed in the block kernel), and the block kernel runs T/k or T
+   times;
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
@@ -244,6 +263,8 @@ SSD_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
 #: large terms
 SSD_DA_RTOL = 1e-4
 T, K, B, Q = 256, 32, 0.1, 5
+#: each solver rule's block prox kernel
+BLOCK_OPS = {"fista": "prox_step_block", "pnm": "prox_loop_block"}
 VARIANTS = ("l1", "elastic_net", "box", "none")
 SCAL = (0.05, 0.02, 0.3, -0.1, 0.2)     # [t, lam, mu, lo, hi]
 
@@ -404,6 +425,235 @@ def _tensor_core_line(flops: float, ms: float, bms: float,
              if split_flops else "")
     return (f" achieved={flops / ms / 1e9:.1f}TFLOP/s{split} "
             f"({100 * bms / ms:.1f}% of the bf16 bound; {FLASH_ROUTE})")
+
+
+#: phase 4d's random block shapes (k, d) beside the CA blocks of covtype
+#: and susy: the classical k = 1 (G from global memory), k = 2 (ring stages
+#: of one G_i) and a short block, ragged d = 61 (d^2 not a multiple of 4: G
+#: from global memory), d = 130 and 160 (stages of one G_i near the limit)
+#: and d = 300 (global memory)
+PROX_BLOCK_SHAPES = ((1, 54), (2, 54), (7, 54), (1, 18), (7, 61), (32, 61),
+                     (3, 130), (7, 160), (7, 300), (1, 300))
+
+
+def solve_walls(problem, cfg, rule, draws):
+    """Phase 5's warm solve walls: one untimed CA and classical solve, then
+    CA, classical, classical, CA, CA, classical on the same draws. Returns
+    ({ca: the median of three}, {ca: [seconds, ...]})."""
+    import torch
+    from repro_torch.core import sstep
+
+    def timed_solve(ca):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sstep.solve(problem, cfg, None, rule, name="timed", ca=ca, idx=draws)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed_solve(True)    # warm-up, untimed: first use of these shapes
+    timed_solve(False)
+    walls = {True: [], False: []}
+    for ca in (True, False, False, True, True, False):
+        walls[ca].append(timed_solve(ca))
+    return {ca: sorted(w)[1] for ca, w in walls.items()}, walls
+
+
+def profile_solve(problem, cfg, rule, draws, ca):
+    """Phase 6: one solve under ``torch.profiler``. Returns its wall in
+    seconds and its device kernels as (name, own device us, launches),
+    largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sstep
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sstep.solve(problem, cfg, None, rule, name="profiled", ca=ca,
+                    idx=draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(ev.key, _self_device_us(ev), ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return wall, rows
+
+
+def prox_block_phase(dev, gen, blocks, compare, time_ms):
+    """Phase 4d: ``prox_step_block`` and ``prox_loop_block`` at the CA
+    blocks of covtype (FISTA, k=32, d=54) and susy (PNM, k=32, d=18,
+    Q=5) from ``gram_gather``'s own output, and at PROX_BLOCK_SHAPES, every
+    variant: bitwise the k = 1 instance run k times (FISTA: ``fista_update``,
+    the eager momentum ops and a ``prox_step`` launch a step, as the
+    parent's solves ran it, and the block kernel at k = 1), and each step
+    within KERNEL_RTOL of the plain version's step from the kernel's own
+    previous iterates. The whole block's distance from the plain chain is
+    printed beside the plain float32 chain's own distance from a float64
+    chain, not gated: k steps with FISTA's momentum amplify a rounding
+    difference (at k = 32 with momentum near 1, two float32 chains that
+    sum in different orders can differ by more than KERNEL_RTOL with no
+    fault in either). Then each is timed at its main-path
+    shape, beside the same block with G's base off 16 bytes, which no bulk
+    copy can fill a ring stage from, so its G_i come from global memory
+    (bitwise the same W). Returns the two JSON entries."""
+    import torch
+    from repro_torch.core import update_rules as ur
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.prox_step import ref as prox_ref
+    print("kernel phase: prox_step_block, prox_loop_block")
+    scal = prox_ops.prox_scalars(*SCAL, device=dev)
+    cases = [(name, *blocks[name]) for name in ("covtype", "susy")]
+    for k, d in PROX_BLOCK_SHAPES:
+        A = torch.randn(k, d, d, generator=gen, device=dev)
+        cases.append(("random", (A @ A.transpose(1, 2) / d).contiguous(),
+                      torch.randn(k, d, generator=gen, device=dev)))
+    errs = {"prox_step_block": [], "prox_loop_block": []}
+    chains = {"prox_step_block": [], "prox_loop_block": []}
+
+    def hold(name, shape, got, steps, whole, whole64):
+        """Each step against the plain step from the kernel's own previous
+        iterate (gated); the block against the plain chain, and the block
+        and the plain float32 chain against float64 (printed)."""
+        errs[name].append(compare(name, shape, got, steps))
+        three = tuple(float((a.double() - b).abs().max() / b.abs().max())
+                      for a, b in ((got, whole.double()), (whole, whole64),
+                                   (got, whole64)))
+        chains[name].append(three)
+        print(f"    the whole chain: kernel vs plain {three[0]:.3e}; from "
+              f"float64, plain float32 {three[1]:.3e}, kernel {three[2]:.3e}")
+
+    for label, G, R in cases:
+        k, d = R.shape
+        wp = torch.randn(d, generator=gen, device=dev)
+        w0 = torch.randn(d, generator=gen, device=dev)
+        for vid, variant in enumerate(VARIANTS):
+            j0 = 1 + 32 * vid
+            shape = (label, k, d, variant)
+            W = prox_ops.prox_step_block_cuda(G, R, wp, w0, scal, j0=j0,
+                                              variant=variant)
+            state, rows = ur.IterState(w_prev=wp, w=w0, j=j0), []
+            for i in range(k):
+                state = ur.fista_update(G[i], R[i], state, scal,
+                                        variant=variant)
+                rows.append(state.w)
+            a, b, ones = wp, w0, []
+            for i in range(k):
+                a, b = b, prox_ops.prox_step_block_cuda(
+                    G[i:i + 1], R[i:i + 1], a, b, scal, j0=j0 + i,
+                    variant=variant)[0]
+                ones.append(b)
+            torch.cuda.synchronize()
+            check(torch.equal(W, torch.stack(rows)),
+                  f"prox_step_block{shape}: not bitwise the stepwise route")
+            check(torch.equal(W, torch.stack(ones)),
+                  f"prox_step_block{shape}: not bitwise k launches at k=1")
+            prev = [wp, w0] + list(W)
+            hold("prox_step_block", shape, W, torch.stack([
+                prox_ref.prox_step_block(
+                    G[i:i + 1], R[i:i + 1], prev[i], prev[i + 1], scal,
+                    j0=j0 + i, variant=variant)[0] for i in range(k)]),
+                prox_ref.prox_step_block(G, R, wp, w0, scal, j0=j0,
+                                         variant=variant),
+                prox_ref.prox_step_block(
+                    G.double(), R.double(), wp.double(), w0.double(),
+                    scal.double(), j0=j0, variant=variant))
+            Z = prox_ops.prox_loop_block_cuda(G, R, w0, scal, Q=Q,
+                                              variant=variant)
+            z, zs = w0, []
+            for i in range(k):
+                z = prox_ops.prox_loop_cuda(G[i], R[i], z, scal, Q=Q,
+                                            variant=variant)
+                zs.append(z)
+            torch.cuda.synchronize()
+            check(torch.equal(Z, torch.stack(zs)),
+                  f"prox_loop_block{shape}: not bitwise k launches at k=1")
+            prev = [w0] + list(Z)
+            hold("prox_loop_block", shape + (Q,), Z, torch.stack([
+                prox_ref.prox_loop(G[i], R[i], prev[i], scal, Q=Q,
+                                   variant=variant) for i in range(k)]),
+                prox_ref.prox_loop_block(G, R, w0, scal, Q=Q, variant=variant),
+                prox_ref.prox_loop_block(G.double(), R.double(), w0.double(),
+                                         scal.double(), Q=Q, variant=variant))
+
+    out = {}
+    for name, label in (("prox_step_block", "covtype"),
+                        ("prox_loop_block", "susy")):
+        G, R = blocks[label]
+        k, d = R.shape
+        wp = torch.randn(d, generator=gen, device=dev)
+        w0 = torch.randn(d, generator=gen, device=dev)
+        if name == "prox_step_block":
+            def call(G=G):
+                return prox_ops.prox_step_block_cuda(G, R, wp, w0, scal, j0=1)
+
+            def plain():
+                return prox_ref.prox_step_block(G, R, wp, w0, scal, j0=1)
+
+            def stepwise():   # the parent's route for the block
+                st = ur.IterState(w_prev=wp, w=w0, j=1)
+                for i in range(k):
+                    st = ur.fista_update(G[i], R[i], st, scal)
+            chain, flops = k, k * (2.0 * d * d + 12 * d)
+            shape = [k, d]
+            replaces = "src/repro/kernels/prox_step/kernel.py:89"
+        else:
+            def call(G=G):
+                return prox_ops.prox_loop_block_cuda(G, R, w0, scal, Q=Q)
+
+            def plain():
+                return prox_ref.prox_loop_block(G, R, w0, scal, Q=Q)
+
+            def stepwise():
+                z = w0
+                for i in range(k):
+                    z = ur.pnm_update(G[i], R[i], ur.IterState(z, z, 1),
+                                      scal, Q).w
+            chain, flops = k * Q, k * Q * (2.0 * d * d + 8 * d)
+            shape = [k, d, Q]
+            replaces = "src/repro/kernels/prox_step/kernel.py:77"
+        # G and R read once, the input vectors (w_prev and w; z0) and the
+        # scalars, W written once
+        nvec = 2 if name == "prox_step_block" else 1
+        nbytes = 4.0 * (k * (d * d + d) + nvec * d + 5 + k * d)
+        bms, by = bound_ms(nbytes, flops)
+        Gu = torch.empty(G.numel() + 1, device=dev)[1:].view_as(G).copy_(G)
+        check(torch.equal(call(), call(Gu)),
+              f"{name} {label}: the ring and global memory disagree")
+        ms = time_ms(call, 200)
+        # the ring against global memory, queued (device time), alternating
+        routes = [_event_ms(fn, 200, queued=True)
+                  for fn in (call, lambda: call(Gu)) * 2]
+        queued = routes[0]
+        host = _host_us(call)
+        plain_ms = time_ms(plain, 10)
+        step_ms = time_ms(stepwise, 10)
+        step_host = _host_us(stepwise, 10)
+        print(f"  time {name} {label} {shape}: kernel={ms:.4f}ms back to "
+              f"back, {queued:.4f}ms queued ({1e3 * queued / chain:.3f}us "
+              f"a dependent step, chain of {chain}); wrapper host time "
+              f"{host:.1f}us a call; plain={plain_ms:.4f}ms "
+              f"bound={bms:.7f}ms ({by}; {nbytes / 1e3:.1f} KB); the "
+              f"stepwise route it replaces (a diagnostic): {step_ms:.4f}ms "
+              f"of device time, {step_host:.1f}us of host time a block")
+        print(f"  time {name} {label} {shape}: G through the ring "
+              f"{routes[0]:.4f}ms, {routes[2]:.4f}ms; from global memory "
+              f"{routes[1]:.4f}ms, {routes[3]:.4f}ms (queued, alternating)")
+        out[name] = dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/prox_step.cu",
+                         replaces=replaces, launches=0,
+                         max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         shape=shape)
+    for name, e in errs.items():
+        worst = max(chains[name])
+        print(f"  {name}: max_abs_err over all shapes and variants "
+              f"{max(e):.3e}, each step against the plain step; the whole "
+              f"chain against the plain chain at most {worst[0]:.3e} "
+              f"normwise (there, from float64: the plain float32 chain "
+              f"{worst[1]:.3e}, the kernel {worst[2]:.3e})")
+    return out
 
 
 def attention_kernel_phase(dev):
@@ -1791,8 +2041,9 @@ def main() -> int:
         for name, regs, spill in _ptxas_report(_build.build_log(stem)):
             print(f"  ptxas[{stem}] {name}: {regs} registers, {spill}")
     shared_d, max_d = prox_ops.prox_loop_limits()
-    print(f"prox_loop: G in shared memory up to d={shared_d}, "
-          f"vectors up to d={max_d}")
+    print(f"prox kernels: G through the shared-memory ring up to "
+          f"d={shared_d} (d^2 a multiple of 4), from global memory up to "
+          f"d={max_d}, refused above")
 
     def time_ms(fn, iters):
         for _ in range(3):
@@ -1845,6 +2096,7 @@ def main() -> int:
         return G, R, err
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = {}    # the CA blocks' (G, R) of covtype and susy
     entries = {}   # one per kernel, at its main-path shape, for the JSON line
     timings = []   # every timed shape
 
@@ -1942,6 +2194,8 @@ def main() -> int:
             timings.append(e)
             if k > 1 and dataset == "covtype":
                 entries["gram_gather"] = e
+            if k > 1:
+                blocks[dataset] = (G, R)   # phase 4d's block prox inputs
             del G, R
         del problem, rows, Xy, idx, draws
         torch.cuda.empty_cache()
@@ -1953,8 +2207,9 @@ def main() -> int:
         draws = torch.randint(0, n, (k, m), generator=gen, device=dev)
         hold_gram_gather(shape, rows, rows[:, :r].T, draws, r)
 
-    # 4c. prox_step / prox_loop at d = 54 and 18 for each variant, ragged
-    # d = 61, and prox_loop at d = 300, above the shared-memory limit
+    # 4c. prox_step / prox_loop, the block kernels' k = 1 instances, at
+    # d = 54 and 18 for each variant, ragged d = 61, and d = 300, above the
+    # shared-memory ring
     print("kernel phase: prox_step, prox_loop")
     scal = prox_ops.prox_scalars(*SCAL, device=dev)
     errs = {"prox_step": {}, "prox_loop": {}}
@@ -2002,15 +2257,32 @@ def main() -> int:
     for name in ("prox_step", "prox_loop"):
         print(f"  {name}: max_abs_err over all shapes and variants "
               f"{max(errs[name].values()):.3e}")
+    # one CTA runs a call at any d: prox_step at a large d (a diagnostic)
+    d = 4096
+    A = torch.randn(d, d, generator=gen, device=dev)
+    G = (A @ A.T / d).contiguous()
+    R = torch.randn(d, generator=gen, device=dev)
+    v = torch.randn(d, generator=gen, device=dev)
+    compare("prox_step", (d, "l1"), prox_ops.prox_step_cuda(
+        G, R, v, scal), prox_ref.prox_step(G, R, v, scal))
+    ms = time_ms(lambda: prox_ops.prox_step_cuda(G, R, v, scal), 20)
+    plain = time_ms(lambda: prox_ref.prox_step(G, R, v, scal), 20)
+    bms, by = bound_ms(4.0 * (d * d + 3 * d + 5), 2.0 * d * d + 6 * d)
+    print(f"  time prox_step [{d}] (one CTA, a diagnostic): kernel="
+          f"{ms:.4f}ms plain={plain:.4f}ms bound={bms:.5f}ms ({by})")
+    del A, G
     for e in timings:
         print(f"  time {e['name']:9s} {str(e['shape']):18s} kernel={e['ms']:.4f}ms "
               f"plain={e['plain_ms']:.4f}ms library={e['library_ms']} "
               f"bound={e['bound_ms']:.5f}ms ({e['bound_by']})")
+    entries.update(prox_block_phase(dev, gen, blocks, compare, time_ms))
+    del blocks
 
     # 5. main path
     print(f"main path: lasso_solve T={T} k={K} b={B} Q={Q}")
     profiled = {}
-    total = {"gram": 0, "gram_gather": 0, "prox_step": 0, "prox_loop": 0}
+    total = {"gram": 0, "gram_gather": 0, "prox_step": 0, "prox_loop": 0,
+             "prox_step_block": 0, "prox_loop_block": 0}
     for dataset, scale, (ca_name, cl_name), rule, n_full in (
             ("covtype", "10", ("ca_sfista", "sfista"), sstep.FISTA_RULE,
              581_010),
@@ -2027,7 +2299,7 @@ def main() -> int:
             dispatches = registry.dispatch_counts()
             runs[algo] = run
             ca = algo.startswith("ca_")
-            prox = "prox_step" if rule is sstep.FISTA_RULE else "prox_loop"
+            prox = BLOCK_OPS[rule.name]
             print(f"  {dataset} {algo}: n={run.problem.n} d={run.problem.d} "
                   f"rel_err={run.rel_err:.6f} objective={run.objective:.6f} "
                   f"wall={run.seconds:.4f}s launches={launches} "
@@ -2043,8 +2315,12 @@ def main() -> int:
             check(launches["gram"] == 0,
                   f"{algo}: gram launched {launches['gram']} times on the "
                   f"solve")
-            check(launches[prox] == T,
-                  f"{algo}: {prox} launched {launches[prox]}, want {T}")
+            check(launches[prox] == want_gram,
+                  f"{algo}: {prox} launched {launches[prox]}, want "
+                  f"{want_gram}")
+            check(launches["prox_step"] == launches["prox_loop"] == 0,
+                  f"{algo}: the one-step prox kernels ran on the solve: "
+                  f"{launches}")
             check(math.isfinite(run.rel_err) and run.rel_err < 1.0,
                   f"{algo}: rel_err {run.rel_err}")
             for op in total:
@@ -2069,20 +2345,7 @@ def main() -> int:
             check(diff <= PLAIN_ATOL, f"{dataset} {algo}: vs plain "
                   f"{diff:.3e} > {PLAIN_ATOL}")
 
-        def timed_solve(ca):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sstep.solve(problem, cfg, None, rule, name="timed", ca=ca,
-                        idx=draws)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-
-        timed_solve(True)    # warm-up, untimed: first use of these shapes
-        timed_solve(False)
-        walls = {True: [], False: []}
-        for ca in (True, False, False, True, True, False):
-            walls[ca].append(timed_solve(ca))
-        med = {ca: sorted(w)[1] for ca, w in walls.items()}
+        med, walls = solve_walls(problem, cfg, rule, draws)
         print(f"  {dataset}: warm solve wall, median of 3: {ca_name} "
               f"{med[True]!r}s {walls[True]!r}, {cl_name} {med[False]!r}s "
               f"{walls[False]!r}, classical/CA {med[False] / med[True]!r}")
@@ -2091,37 +2354,41 @@ def main() -> int:
 
     for name, e in list(entries.items()):
         e["launches"] = total[name]
-    for name in ("gram_gather", "prox_step", "prox_loop"):
+    for name in ("gram_gather", "prox_step_block", "prox_loop_block"):
         check(total[name] > 0, f"{name} was not launched on the main path")
-    # gram, the Pallas kernel's pre-gathered counterpart, held in phase 4
-    check(total["gram"] == 0, "gram was launched on the solves")
+    # gram, the Pallas kernel's pre-gathered counterpart, and the block
+    # kernels' k = 1 instances, held in phase 4
+    for name in ("gram", "prox_step", "prox_loop"):
+        check(total[name] == 0, f"{name} was launched on the solves")
 
     # 6. where the time goes: a profiled CA and classical solve of each
     # dataset; the sampled rows are read in place, so no gather or index
     # kernel may run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for dataset, (problem, cfg, draws, rule, names) in profiled.items():
         for ca in (True, False):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                sstep.solve(problem, cfg, None, rule, name="profiled", ca=ca,
-                            idx=draws)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            rows = [(ev.key, _self_device_us(ev), ev.count)
-                    for ev in prof.key_averages()
-                    if ev.device_type == DeviceType.CUDA]
-            rows.sort(key=lambda r: -r[1])
+            wall, rows = profile_solve(problem, cfg, rule, draws, ca)
             busy = sum(r[1] for r in rows) / 1e6
-            print(f"profile {dataset} {names[0] if ca else names[1]}: wall "
+            algo = names[0] if ca else names[1]
+            print(f"profile {dataset} {algo}: wall "
                   f"{wall:.4f}s (profiled), device kernels {busy:.4f}s "
-                  f"({100 * busy / wall:.1f}% busy), {len(rows)} kernel "
-                  f"names")
+                  f"({100 * busy / wall:.1f}% busy), "
+                  f"{sum(r[2] for r in rows)} launches of {len(rows)} "
+                  f"kernel names")
             for key, us, count in rows[:8]:
                 print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+            # the momentum is computed inside the block kernel: no eager
+            # elementwise kernel runs (torch.zeros' fill for w0 is not an
+            # update)
+            eager = [key for key, _, _ in rows
+                     if "elementwise" in key.lower() and "fill" not in
+                     key.lower()]
+            check(not eager, f"{algo}: elementwise kernels ran on the "
+                  f"solve: {eager}")
+            kernel = f"{BLOCK_OPS[rule.name]}_kernel"
+            prox = sum(c for key, _, c in rows if kernel in key)
+            want = cfg.T // cfg.k if ca else cfg.T
+            check(prox == want, f"{algo}: {kernel} ran {prox} times in the "
+                  f"profile, want {want}")
             gathers = [key for key, _, _ in rows
                        if ("gather" in key.lower() or "index" in key.lower())
                        and "gram_gather" not in key]

@@ -8,6 +8,7 @@ Subpackages ported so far:
               CA-SPNM), the shared s-step schedule, the Comet cost model
   kernels     the op registry and the hand-written Hopper kernels
               (``gram``, ``gram_gather``, ``prox_step``, ``prox_loop``,
+              ``prox_step_block``, ``prox_loop_block``,
               ``flash_attention``, ``flash_dq``, ``flash_dkv``,
               ``paged_decode``, ``ssd``, ``ssd_bwd``) beside their plain
               PyTorch versions

@@ -2,8 +2,10 @@
 eq. 7) — the element-wise prox family, and FISTA's momentum."""
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+# FISTA's momentum lives with the prox kernels, which compute it too
+from repro_torch.kernels.prox_step.ref import fista_momentum  # noqa: F401
 
 
 def soft_threshold(w: torch.Tensor, thresh) -> torch.Tensor:
@@ -30,15 +32,3 @@ def prox_elem(x: torch.Tensor, step, variant: str = "l1", lam=0.0, mu=0.0,
         return x
     raise ValueError(f"unknown prox variant {variant!r}; expected one of "
                      "('l1', 'elastic_net', 'box', 'none')")
-
-
-def fista_momentum(j: int) -> float:
-    """Paper's momentum coefficient (j-2)/j (eq. 9), zero-clamped for j < 2.
-
-    ``j`` is the host iteration counter, so no device value is read. The
-    arithmetic is float32, as in the JAX package; the result is returned as
-    a Python float holding that float32 value exactly.
-    """
-    jf = np.float32(j)
-    return float(max((jf - np.float32(2.0)) / max(jf, np.float32(1.0)),
-                     np.float32(0.0)))

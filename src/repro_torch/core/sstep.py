@@ -11,12 +11,15 @@ instantiation of the same skeleton:
      (``problem.block_stats``: one ``gram_gather`` dispatch, which reads
      the sampled rows where they lie);
   4. run the k per-iteration updates of the rule over the block with no
-     further communication (a Python loop; the JAX package's ``lax.scan``).
+     further communication: one dispatch of the rule's block op, a whole
+     k-block of updates in one kernel launch (the JAX package's
+     ``lax.scan``; ``update_rules``).
 
 Only the ``gram`` schedule is ported; BCD's coordinate schedule comes with
 BCD. The step size and the prox scalars are built once per solve as device
 tensors, and the iteration counter lives on the host, so the loop reads
-nothing back from the device.
+nothing back from the device: a solve makes T/k block dispatches (T for
+the classical schedule) and no other update op.
 
 ``host_loop=True`` waits for the device once per block
 (``torch.cuda.synchronize()`` on a CUDA problem) and counts the blocks in
@@ -41,7 +44,8 @@ class UpdateRule:
     """One solver's per-iteration rule, plugged into the shared schedule."""
     name: str
     init: Callable                        # (problem, cfg, w0) -> state
-    step: Callable                        # (problem, cfg, scal, (G, R), state) -> state
+    #: (problem, cfg, scal, (G, R) of a k-block, state) -> (state, W (k, dim))
+    block: Callable
     extract: Callable                     # state -> w
 
 
@@ -130,11 +134,10 @@ def solve(problem, cfg: SolverConfig,
     state = rule.init(problem, cfg, w0)
     hist = []
     for idx_block in draws:
-        G, R = problem.block_stats(idx_block)
-        for j in range(block):
-            state = rule.step(problem, cfg, scal, (G[j], R[j]), state)
-            if collect_history:
-                hist.append(rule.extract(state))
+        state, W = rule.block(problem, cfg, scal,
+                              problem.block_stats(idx_block), state)
+        if collect_history:
+            hist.append(W)
         if host_loop:
             if problem.device.type == "cuda":
                 torch.cuda.synchronize(problem.device)
@@ -142,7 +145,7 @@ def solve(problem, cfg: SolverConfig,
                 syncs.blocks += 1
     w = rule.extract(state)
     if collect_history:
-        return w, torch.stack(hist)
+        return w, torch.cat(hist)
     return w
 
 
@@ -154,21 +157,21 @@ def _fista_init(problem, cfg, w0):
     return ur.init_state(w0)
 
 
-def _fista_step(problem, cfg, scal, stats, state):
-    return ur.fista_update(stats[0], stats[1], state, scal,
-                           variant=problem.prox_params()[0])
+def _fista_block(problem, cfg, scal, stats, state):
+    return ur.fista_block(stats[0], stats[1], state, scal,
+                          variant=problem.prox_params()[0])
 
 
-def _pnm_step(problem, cfg, scal, stats, state):
-    return ur.pnm_update(stats[0], stats[1], state, scal, cfg.Q,
-                         variant=problem.prox_params()[0])
+def _pnm_block(problem, cfg, scal, stats, state):
+    return ur.pnm_block(stats[0], stats[1], state, scal, cfg.Q,
+                        variant=problem.prox_params()[0])
 
 
 def _iter_w(state):
     return state.w
 
 
-FISTA_RULE = UpdateRule("fista", _fista_init, _fista_step, _iter_w)
-PNM_RULE = UpdateRule("pnm", _fista_init, _pnm_step, _iter_w)
+FISTA_RULE = UpdateRule("fista", _fista_init, _fista_block, _iter_w)
+PNM_RULE = UpdateRule("pnm", _fista_init, _pnm_block, _iter_w)
 
 RULES = {r.name: r for r in (FISTA_RULE, PNM_RULE)}

@@ -1,5 +1,6 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd.cu): mbarriers, TMA loads through tensor maps,
+// Hopper building blocks shared by the port's kernels (flash_attention.cu,
+// ssd.cu, prox_step.cu): mbarriers, TMA loads through tensor maps and bulk
+// copies without one,
 // wgmma shared-memory descriptors and instructions (float32 accumulators,
 // bf16 operands), the split of a float32 pair into bf16 hi and lo halves,
 // the tensor-map encoder (cuTensorMapEncodeTiled), and the shared-memory
@@ -50,6 +51,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// `bytes` contiguous bytes from global to shared memory by one bulk copy
+// (TMA without a tensor map: both addresses 16-byte aligned, `bytes` a
+// multiple of 16); they complete a transaction on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // one box of a 4-D tensor map (coordinates innermost first) into shared

@@ -3,7 +3,10 @@
 (backend ``torch``, the ``ref.py`` beside it).
 
   gram/             ``gram``, ``gram_gather``     csrc/gram.cu
-  prox_step/        ``prox_step``, ``prox_loop``  csrc/prox_step.cu
+  prox_step/        ``prox_step_block``,          csrc/prox_step.cu
+                    ``prox_loop_block``, and
+                    their k = 1 instances
+                    ``prox_step``, ``prox_loop``
   flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
                     ``flash_dq``, ``flash_dkv``,
                     ``paged_attention`` (kernel ``paged_decode``)
@@ -33,6 +36,8 @@ def _cuda_wrappers():
             "gram_gather": gram_ops.gram_gather_cuda,
             "prox_step": prox_ops.prox_step_cuda,
             "prox_loop": prox_ops.prox_loop_cuda,
+            "prox_step_block": prox_ops.prox_step_block_cuda,
+            "prox_loop_block": prox_ops.prox_loop_block_cuda,
             "flash_attention": fa_ops.flash_attention_cuda,
             "paged_decode": fa_ops.paged_decode_cuda,
             "flash_dq": fa_ops.flash_dq_cuda,

@@ -4,7 +4,11 @@ oracle the CUDA kernels are held against.
 ``scal`` is the (5,) float32 tensor ``[t, lam, mu, lo, hi]``; ``variant``
 selects the element-wise prox (``l1``, ``elastic_net``, ``box``, ``none``),
 as in ``repro.kernels.prox_step.ref``. No value is read back to the host.
+The block versions loop the one-step versions k times, with FISTA's
+momentum from :func:`fista_momentum` (kept here, below the solvers that
+re-export it, so the kernels import nothing of ``core``).
 """
+import numpy as np
 import torch
 
 VARIANTS = ("l1", "elastic_net", "box", "none")
@@ -40,3 +44,40 @@ def prox_loop(G, R, z0, scal, *, Q: int, variant="l1"):
     for _ in range(Q):
         z = prox(z - scal[0] * (G @ z - R), scal, variant)
     return z
+
+
+def fista_momentum(j: int) -> float:
+    """Paper's momentum coefficient (j-2)/j (eq. 9), zero-clamped for j < 2.
+
+    ``j`` is the host iteration counter, so no device value is read. The
+    arithmetic is float32, as in the JAX package; the result is returned as
+    a Python float holding that float32 value exactly.
+    """
+    jf = np.float32(j)
+    return float(max((jf - np.float32(2.0)) / max(jf, np.float32(1.0)),
+                     np.float32(0.0)))
+
+
+def prox_step_block(G, R, w_prev, w, scal, *, j0: int, variant="l1"):
+    """k FISTA steps against G (k, d, d), R (k, d): step i extrapolates
+    v = w + mom(j0 + i) (w - w_prev), then w_prev, w = w, prox_step(v).
+    Returns the k iterates W (k, d)."""
+    out = []
+    for i in range(G.shape[0]):
+        mom = fista_momentum(j0 + i)
+        v = w + mom * (w - w_prev)
+        w_prev, w = w, prox_step(G[i], R[i], v, scal, variant=variant)
+        out.append(w)
+    return torch.stack(out)
+
+
+def prox_loop_block(G, R, z0, scal, *, Q: int, variant="l1"):
+    """k proximal Newton steps against G (k, d, d), R (k, d), each Q
+    warm-started iterations from the previous step's result. Returns the k
+    iterates W (k, d)."""
+    out = []
+    z = z0
+    for i in range(G.shape[0]):
+        z = prox_loop(G[i], R[i], z, scal, Q=Q, variant=variant)
+        out.append(z)
+    return torch.stack(out)

@@ -3,9 +3,11 @@
 The counterpart of ``repro.kernels.registry``, slimmed to what the port
 runs. Each op registers two implementations:
 
-* ``gram_gather``, ``prox_step``, ``prox_loop`` — the Lasso solvers'
-  kernels, and ``gram``, the Gram matrix of draws already gathered (the
-  Pallas kernel's counterpart);
+* ``gram_gather``, ``prox_step_block``, ``prox_loop_block`` — the Lasso
+  solvers' kernels (a k-block of FISTA or proximal Newton updates a
+  dispatch), ``prox_step`` and ``prox_loop``, their one-step instances,
+  and ``gram``, the Gram matrix of draws already gathered (the Pallas
+  kernel's counterpart);
 * ``flash_attention`` — the model's teacher-forced attention, (B, S, H, D),
   with its per-row lse on request (``return_lse=True``);
 * ``flash_dq``, ``flash_dkv`` — its backward: dq, and dk/dv summed over
@@ -58,7 +60,8 @@ ENV_VAR = "REPRO_TORCH_BACKEND"
 #: registry has no import-time dependency on the kernels that import it)
 _IMPL_MODULES = (
     "repro_torch.kernels.gram.ops",       # registers "gram", "gram_gather"
-    "repro_torch.kernels.prox_step.ops",  # registers "prox_step", "prox_loop"
+    # registers "prox_step", "prox_loop", "prox_step_block", "prox_loop_block"
+    "repro_torch.kernels.prox_step.ops",
     # registers "flash_attention", "flash_dq", "flash_dkv", "paged_attention"
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.ssd.ops",        # registers "ssd", "ssd_bwd"

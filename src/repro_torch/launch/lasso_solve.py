@@ -111,6 +111,11 @@ def main(argv=None) -> Run:
           f"objective={obj:.6f} wall={dt:.3f}s")
     nnz = int((torch.abs(w) > 1e-6).sum())
     print(f"solution support: {nnz}/{problem.d}")
+    # on the card: gram_gather and the rule's block prox kernel
+    # (prox_step_block for FISTA, prox_loop_block for PNM), T/k launches
+    # each for CA, T for classical; none on the CPU (plain versions)
+    print("kernel launches: " + (" ".join(
+        f"{op}={n}" for op, n in launches.items() if n) or "none"))
     cm = CostModel(d=problem.d, n=problem.n, b=args.b, T=iters, k=args.k)
     for P in (64, 1024):
         print(f"  predicted CA speedup at P={P} (Comet model): "

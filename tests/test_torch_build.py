@@ -23,7 +23,7 @@ def test_a_header_edit_changes_the_target_of_every_source_including_it(
     header.write_text(header.read_text() + "\n// edited\n")
     after = {stem: _build._target(stem, csrc) for stem in _build.SOURCES}
     for stem in _build.SOURCES:
-        includes = stem in ("ssd", "flash_attention")
+        includes = stem in ("ssd", "flash_attention", "prox_step")
         assert (after[stem] != before[stem]) == includes, stem
         assert after[stem].name.startswith(f"{stem}-")
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels, solvers, serving and training paths on an NVIDIA
 Hopper card: each kernel against its plain PyTorch version, one draw's Gram
 bits independent of the batch, the attention backward's and the SSD
-scans' bits independent of the launch and the batch, CA == classical
-through the kernels, and at the smoke configs the engine's k-invariance,
+scans' bits independent of the launch and the batch, the block prox
+kernels bitwise their one-step instances, CA == classical through the
+kernels, and at the smoke configs the engine's k-invariance,
 teacher-forced decode against the forward and the train step through the
 backward kernels (internlm2) and through the SSD kernels (mamba2). Every test here
 needs the card and skips without one.
@@ -19,6 +20,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core import SolverConfig, ca_sfista, ca_spnm, sfista, spnm
+from repro_torch.core import update_rules as ur
 from repro_torch.core.sampling import gather_columns
 from repro_torch.data import make_lasso_data
 from repro_torch.kernels import registry
@@ -159,6 +161,102 @@ def test_prox_cuda_matches_plain(cuda, variant, d):
         G, R, v, scal, Q=5, variant=variant), rtol=1e-5, atol=1e-5)
 
 
+def test_prox_wrappers_refuse_d_past_the_shared_memory_limit(cuda):
+    """The kernels keep the iterate in shared memory: the largest d runs,
+    one more is refused by every prox wrapper before any launch."""
+    _, max_d = prox_ops.prox_loop_limits()
+    d = max_d + 1
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    G = torch.randn(d, d, generator=gen, device=cuda) / d
+    R, v = _randn(d, d + 1, cuda), _randn(d, d + 2, cuda)
+    scal = prox_scalars(*SCAL, device=cuda)
+    Gm, Rm, vm = G[:max_d, :max_d].contiguous(), R[:max_d], v[:max_d]
+    assert _normwise(prox_ops.prox_step_cuda(Gm, Rm, vm, scal),
+                     prox_ref.prox_step(Gm, Rm, vm, scal)) <= 1e-5
+    del Gm
+    calls = {
+        "prox_step": lambda: prox_ops.prox_step_cuda(G, R, v, scal),
+        "prox_loop": lambda: prox_ops.prox_loop_cuda(G, R, v, scal, Q=2),
+        "prox_step_block": lambda: prox_ops.prox_step_block_cuda(
+            G[None], R[None], v, v, scal, j0=1),
+        "prox_loop_block": lambda: prox_ops.prox_loop_block_cuda(
+            G[None], R[None], v, scal, Q=2),
+    }
+    kernels.reset_launch_counts()
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name}: d={d} is above "
+                                             f"{max_d}"):
+            call()
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+#: the block prox kernels' card cases (label, k, d): the CA blocks of a
+#: covtype-wide (d = 54: ring stages of 9 G_i) and a susy-wide (d = 18:
+#: stages of 16) problem from gram_gather's own output, then random blocks:
+#: k = 1 (G read from global memory), 2 (stages of one G_i) and 7, ragged
+#: d = 61 (d^2 not a multiple of 4: global memory), d = 130 and 160
+#: (stages of one G_i near the limit) and d = 300 (global memory)
+PROX_BLOCK_CASES = [("gram", 32, 54), ("gram", 32, 18), ("random", 1, 54),
+                    ("random", 2, 54), ("random", 7, 54), ("random", 1, 18),
+                    ("random", 7, 61), ("random", 32, 61),
+                    ("random", 3, 130), ("random", 7, 160),
+                    ("random", 7, 300), ("random", 1, 300)]
+
+
+def _prox_block(label, k, d, device):
+    if label == "gram":
+        problem, _ = make_lasso_data(0, d=d, n=20_000, device=device)
+        gen = torch.Generator(device=device).manual_seed(d)
+        idx = torch.randint(0, problem.n, (k, 2_000), generator=gen,
+                            device=device)
+        G, R = problem.block_stats(idx)
+    else:
+        A = _randn((k, d, d), k + d, device)
+        G = (A @ A.transpose(1, 2) / d).contiguous()
+        R = _randn((k, d), k + d + 1, device)
+    return G, R, _randn(d, d + 2, device), _randn(d, d + 3, device)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("label,k,d", PROX_BLOCK_CASES)
+def test_prox_block_cuda_is_bitwise_its_k1_instance_run_k_times(
+        cuda, label, k, d, variant):
+    """A block launch against k launches of its k = 1 instance: for FISTA
+    the stepwise route the solvers took before the block kernels
+    (fista_update: the eager momentum ops, then prox_step) and the block
+    kernel at k = 1, both bit for bit; for PNM prox_loop k times, bit for
+    bit. Both within 1e-5 of their plain versions, normwise."""
+    G, R, wp, w = _prox_block(label, k, d, cuda)
+    scal = prox_scalars(*SCAL, device=cuda)
+    j0 = 1 + 32 * VARIANTS.index(variant)
+    W = prox_ops.prox_step_block_cuda(G, R, wp, w, scal, j0=j0,
+                                      variant=variant)
+    state, rows = ur.IterState(w_prev=wp, w=w, j=j0), []
+    for i in range(k):
+        state = ur.fista_update(G[i], R[i], state, scal, variant=variant)
+        rows.append(state.w)
+    a, b, ones = wp, w, []
+    for i in range(k):
+        a, b = b, prox_ops.prox_step_block_cuda(
+            G[i:i + 1], R[i:i + 1], a, b, scal, j0=j0 + i,
+            variant=variant)[0]
+        ones.append(b)
+    Z = prox_ops.prox_loop_block_cuda(G, R, w, scal, Q=5, variant=variant)
+    z, zs = w, []
+    for i in range(k):
+        z = prox_ops.prox_loop_cuda(G[i], R[i], z, scal, Q=5, variant=variant)
+        zs.append(z)
+    torch.cuda.synchronize()
+    assert W.shape == Z.shape == (k, d)
+    assert torch.equal(W, torch.stack(rows))
+    assert torch.equal(W, torch.stack(ones))
+    assert torch.equal(Z, torch.stack(zs))
+    assert _normwise(W, prox_ref.prox_step_block(
+        G, R, wp, w, scal, j0=j0, variant=variant)) <= 1e-5
+    assert _normwise(Z, prox_ref.prox_loop_block(
+        G, R, w, scal, Q=5, variant=variant)) <= 1e-5
+
+
 @pytest.mark.parametrize("pair", [(sfista, ca_sfista), (spnm, ca_spnm)],
                          ids=["fista", "pnm"])
 def test_ca_matches_classical_through_the_kernels(cuda, pair):
@@ -169,11 +267,14 @@ def test_ca_matches_classical_through_the_kernels(cuda, pair):
     w_cl = pair[0](problem, cfg, 3)
     w_ca = pair[1](problem, cfg, 3)
     launches = kernels.launch_counts()
+    block = "prox_step_block" if pair[0] is sfista else "prox_loop_block"
     assert launches["gram_gather"] == cfg.T + cfg.T // cfg.k
     assert launches["gram"] == 0
-    assert launches["prox_step"] + launches["prox_loop"] == 2 * cfg.T
+    assert launches[block] == cfg.T + cfg.T // cfg.k
+    assert launches["prox_step"] + launches["prox_loop"] == 0
     assert all(b == "cuda" for _, b in registry.dispatch_counts())
     assert float((w_ca - w_cl).abs().max()) <= 5e-6
+    assert torch.equal(w_ca, w_cl)
     with registry.use("torch"):
         w_plain = pair[0](problem, cfg, 3)
     assert float((w_cl - w_plain).abs().max()) <= 1e-4

@@ -4,6 +4,7 @@ against the JAX ref, on the same numpy inputs; and the CUDA wrappers' checks
 and chunking. The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_cuda.py."""
 import ctypes
+import functools
 import math
 
 import jax
@@ -13,11 +14,13 @@ import pytest
 import torch
 
 from repro.core import gram as jgram_core
+from repro.core import update_rules as jur
 from repro.kernels.gram import ops as jgram_ops, ref as jgram_ref
 from repro.kernels.prox_step import ops as jprox_ops, ref as jprox_ref
 from repro.kernels import registry as jregistry
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.models.attention import attention as j_attention
+from repro_torch.core import update_rules as ur
 from repro_torch.core.gram import augment, augment_rows
 from repro_torch.core.sampling import gather_columns
 from repro_torch.kernels import launch_counts, registry, reset_launch_counts
@@ -209,6 +212,142 @@ def test_prox_ops_reject_unknown_variant_and_bad_operands():
         prox_ops.prox_loop_cuda(G, R, v, prox_scalars(*SCAL), Q=2)
 
 
+# ------------------------------------------------------- prox block ops ---
+#: (k, d) of the block ops' CPU cases: covtype's d = 54, susy's d = 18 and a
+#: ragged d = 61, at k = 1 (the classical schedule), 7 and 32 (the CA block)
+BLOCK_SHAPES = [(k, d) for k in (1, 7, 32) for d in (18, 54, 61)]
+BLOCK_Q = 5
+
+
+def _block_inputs(k, d, seed):
+    """k Gram blocks G_i = A_i A_i^T / d, R (k, d), and w_prev, w (d,)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((k, d, d)).astype(np.float32)
+    G = (A @ A.transpose(0, 2, 1) / d).astype(np.float32)
+    R = rng.standard_normal((k, d)).astype(np.float32)
+    w_prev, w = rng.standard_normal((2, d)).astype(np.float32)
+    return G, R, w_prev, w
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("k,d", BLOCK_SHAPES)
+@pytest.mark.parametrize("rule", ["fista", "pnm"])
+def test_block_ref_is_bitwise_k_stepwise_updates(rule, k, d, variant):
+    """The plain block ops, and the block rules over them, give the bits of
+    k calls of the stepwise rules (the solvers' route before the block
+    kernels): W row for row, and the state they leave."""
+    G, R, wp, w = (torch.from_numpy(a) for a in _block_inputs(k, d, k + d))
+    scal = prox_scalars(*SCAL)
+    state = ur.IterState(w_prev=wp, w=w, j=k)   # j0 = 1 meets mom = 0
+    step, rows = state, []
+    for i in range(k):
+        step = (ur.fista_update(G[i], R[i], step, scal, variant=variant)
+                if rule == "fista" else
+                ur.pnm_update(G[i], R[i], step, scal, BLOCK_Q,
+                              variant=variant))
+        rows.append(step.w)
+    if rule == "fista":
+        W = prox_ref.prox_step_block(G, R, wp, w, scal, j0=k,
+                                     variant=variant)
+        new, W_rule = ur.fista_block(G, R, state, scal, variant=variant)
+    else:
+        W = prox_ref.prox_loop_block(G, R, w, scal, Q=BLOCK_Q,
+                                     variant=variant)
+        new, W_rule = ur.pnm_block(G, R, state, scal, BLOCK_Q,
+                                   variant=variant)
+    assert W.shape == (k, d)
+    assert torch.equal(W, torch.stack(rows)) and torch.equal(W_rule, W)
+    assert torch.equal(new.w, step.w) and torch.equal(new.w_prev, step.w_prev)
+    assert new.j == step.j == k + k
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_update(rule, variant):
+    """The JAX package's update rule, jitted (as its s-step core runs it)
+    with the prox scalars bound; traced under the XLA backend."""
+    t, lam, mu, lo, hi = SCAL
+    if rule == "fista":
+        return jax.jit(lambda G, R, st: jur.fista_update(
+            G, R, st, t, lam, mu, lo, hi, variant=variant))
+    return jax.jit(lambda G, R, st: jur.pnm_update(
+        G, R, st, t, lam, BLOCK_Q, mu, lo, hi, variant=variant))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("k,d", BLOCK_SHAPES)
+@pytest.mark.parametrize("rule", ["fista", "pnm"])
+def test_block_ref_matches_jax_update_rules(rule, k, d, variant):
+    """The plain block ops against k calls of the JAX package's
+    ``fista_update`` / ``pnm_update`` (XLA path) on the same numpy inputs,
+    to the JAX package's own prox tolerance (1e-5: float32 matrix-vector
+    sums in another order, carried through at most 32 x 5 steps)."""
+    G, R, wp, w = _block_inputs(k, d, 1000 + k + d)
+    st = jur.IterState(w_prev=jnp.asarray(wp), w=jnp.asarray(w),
+                       j=jnp.asarray(k, jnp.int32))
+    update, want = _jax_update(rule, variant), []
+    with jregistry.use("xla"):
+        for i in range(k):
+            st = update(jnp.asarray(G[i]), jnp.asarray(R[i]), st)
+            want.append(np.asarray(st.w))
+    Gt, Rt = torch.from_numpy(G), torch.from_numpy(R)
+    scal = prox_scalars(*SCAL)
+    got = (prox_ref.prox_step_block(Gt, Rt, torch.from_numpy(wp),
+                                    torch.from_numpy(w), scal, j0=k,
+                                    variant=variant)
+           if rule == "fista" else
+           prox_ref.prox_loop_block(Gt, Rt, torch.from_numpy(w), scal,
+                                    Q=BLOCK_Q, variant=variant))
+    np.testing.assert_allclose(got.numpy(), np.stack(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _refusals():
+    G, R, wp, w = (torch.from_numpy(a) for a in _block_inputs(3, 8, 0))
+    s = prox_scalars(*SCAL)
+
+    def step(G=G, R=R, wp=wp, w=w, s=s, j0=1, variant="l1"):
+        return lambda: prox_ops.prox_step_block_cuda(G, R, wp, w, s, j0=j0,
+                                                     variant=variant)
+
+    def loop(G=G, R=R, z=w, s=s, Q=2, variant="l1"):
+        return lambda: prox_ops.prox_loop_block_cuda(G, R, z, s, Q=Q,
+                                                     variant=variant)
+    return {
+        "step-variant": (step(variant="l2"), "unknown prox variant"),
+        "loop-variant": (loop(variant="l2"), "unknown prox variant"),
+        "step-cpu": (step(), "must be on a CUDA device"),
+        "loop-cpu": (loop(), "must be on a CUDA device"),
+        "step-G-not-square": (step(G=G[:, :, :7]), r"G must be \(k, d, d\)"),
+        "loop-G-2d": (loop(G=G[0]), r"G must be \(k, d, d\)"),
+        "step-k0": (step(G=G[:0], R=R[:0]), "k >= 1"),
+        "step-R": (step(R=R[:, :7]), r"R must have shape \(3, 8\)"),
+        "loop-R-k": (loop(R=R[:2]), r"R must have shape \(3, 8\)"),
+        "step-w_prev": (step(wp=wp[:7]), "w_prev must have shape"),
+        "loop-z0": (loop(z=torch.ones(9)), "z0 must have shape"),
+        "step-scal": (step(s=s[:4]), "scal must have shape"),
+        "step-j0": (step(j0=-1), "j0 must be in"),
+        "loop-Q": (loop(Q=-1), "Q must be >= 0"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refusals()))
+def test_prox_block_wrappers_refuse_bad_operands(case):
+    call, match = _refusals()[case]
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_prox_block_ops_do_not_fall_back_to_the_plain_versions():
+    G, R, wp, w = (torch.from_numpy(a) for a in _block_inputs(2, 8, 1))
+    with registry.use("cuda"):
+        with pytest.raises(RuntimeError, match="backend 'cuda' cannot run"):
+            registry.dispatch("prox_step_block", G, R, wp, w,
+                              prox_scalars(*SCAL), j0=1)
+        with pytest.raises(RuntimeError, match="backend 'cuda' cannot run"):
+            registry.dispatch("prox_loop_block", G, R, w,
+                              prox_scalars(*SCAL), Q=2)
+
+
 def test_prox_scalars_layout():
     scal = prox_scalars(torch.tensor(0.5), 0.1, mu=0.2, lo=-1.0, hi=1.0)
     assert scal.dtype == torch.float32 and scal.shape == (5,)
@@ -225,6 +364,10 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
                       torch.tensor([[0, 3, 3, 8]]), 6, 0.25)
     registry.dispatch("prox_step", G, R, v, prox_scalars(*SCAL))
     registry.dispatch("prox_loop", G, R, v, prox_scalars(*SCAL), Q=2)
+    registry.dispatch("prox_step_block", G[None], R[None], v, v,
+                      prox_scalars(*SCAL), j0=1)
+    registry.dispatch("prox_loop_block", G[None], R[None], v,
+                      prox_scalars(*SCAL), Q=2)
     q = torch.from_numpy(_xs((1, 4, 2, 16)))
     registry.dispatch("flash_attention", q, q, q, causal=True)
     (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
@@ -239,12 +382,15 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     registry.dispatch("ssd_bwd", x, dt, A, B, B, x, states, None, chunk=4)
     assert registry.dispatch_counts() == {
         ("gram", "torch"): 1, ("gram_gather", "torch"): 1,
-        ("prox_step", "torch"): 1, ("prox_loop", "torch"): 1, ("flash_attention", "torch"): 1,
+        ("prox_step", "torch"): 1, ("prox_loop", "torch"): 1,
+        ("prox_step_block", "torch"): 1, ("prox_loop_block", "torch"): 1,
+        ("flash_attention", "torch"): 1,
         ("paged_attention", "torch"): 1, ("flash_dq", "torch"): 1,
         ("flash_dkv", "torch"): 1, ("ssd", "torch"): 1,
         ("ssd_bwd", "torch"): 1}
     assert launch_counts() == {"gram": 0, "gram_gather": 0, "prox_step": 0,
-                               "prox_loop": 0, "flash_attention": 0,
+                               "prox_loop": 0, "prox_step_block": 0,
+                               "prox_loop_block": 0, "flash_attention": 0,
                                "paged_decode": 0, "flash_dq": 0,
                                "flash_dkv": 0, "ssd": 0, "ssd_bwd": 0}
 

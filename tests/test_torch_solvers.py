@@ -1,7 +1,8 @@
 """The port's solvers against the JAX package's, given the same draws and
 step size: SFISTA, CA-SFISTA, SPNM and CA-SPNM on the paper's Lasso problem,
 the JAX side under ``registry.use("xla")``; and within the port, CA ==
-classical, history, the host loop's block count, validation, the reference
+classical, history, one block prox dispatch a k-block with the bits of the
+stepwise route, the host loop's block count, validation, the reference
 solve, the data generator, the CLI's device default, and that the port
 imports neither JAX nor ``repro``."""
 import dataclasses
@@ -22,9 +23,10 @@ from repro.data import PAPER_DATASETS as J_DATASETS, make_lasso_data
 from repro.core.soft_threshold import fista_momentum as j_fista_momentum
 from repro.kernels import registry as jregistry
 import repro_torch.core as tcore
-from repro_torch.core import sstep
+from repro_torch.core import sstep, update_rules as ur
 from repro_torch.data import PAPER_DATASETS, make_dataset_like
 from repro_torch.kernels import registry
+from repro_torch.kernels.prox_step.ops import prox_scalars
 from repro_torch.launch import lasso_solve
 
 from _torch_port import (SOLVER_ATOL, jax_draws, step_size, to_torch,
@@ -158,6 +160,54 @@ def test_host_loop_counts_T_over_k_vs_T_blocks(problems, rule):
                     host_loop=True, collect_history=True)
 
 
+#: each rule's block op; a solve dispatches no other update op
+BLOCK_OPS = {"fista": "prox_step_block", "pnm": "prox_loop_block"}
+
+
+@pytest.mark.parametrize("ca", [True, False], ids=["ca", "classical"])
+@pytest.mark.parametrize("rule", ["fista", "pnm"])
+def test_solve_dispatches_one_block_op_a_block(problems, cfg, rule, ca):
+    """T/k block dispatches for CA and T for classical (its k = 1
+    instance), one gram_gather each, and never prox_step or prox_loop;
+    collect_history stacks the blocks' iterates to (T, d)."""
+    _, tprob = problems
+    tcfg = to_torch_config(cfg)
+    registry.reset_dispatch_counts()
+    w, hist = sstep.solve(tprob, tcfg, 5, sstep.RULES[rule], name=rule,
+                          ca=ca, collect_history=True)
+    blocks = tcfg.T // tcfg.k if ca else tcfg.T
+    assert registry.dispatch_counts() == {("gram_gather", "torch"): blocks,
+                                          (BLOCK_OPS[rule], "torch"): blocks}
+    assert hist.shape == (tcfg.T, tprob.dim) and torch.equal(hist[-1], w)
+
+
+@pytest.mark.parametrize("ca", [True, False], ids=["ca", "classical"])
+@pytest.mark.parametrize("rule", ["fista", "pnm"])
+def test_block_schedule_is_bitwise_the_stepwise_route(problems, cfg, rule,
+                                                      ca):
+    """A solve's history has the bits of the stepwise route: each block's
+    Gram pair, then k calls of fista_update / pnm_update."""
+    _, tprob = problems
+    tcfg = to_torch_config(cfg)
+    idx = torch.randint(0, tprob.n, (tcfg.T, sstep.draw_size(tprob, tcfg)),
+                        generator=torch.Generator().manual_seed(11))
+    _, hist = sstep.solve(tprob, tcfg, None, sstep.RULES[rule], name=rule,
+                          ca=ca, idx=idx, collect_history=True)
+    variant, lam, mu, lo, hi = tprob.prox_params()
+    scal = prox_scalars(sstep._resolve_step(tprob, tcfg), lam, mu, lo, hi)
+    block = tcfg.k if ca else 1
+    state, rows = ur.init_state(torch.zeros(tprob.dim)), []
+    for draws in idx.reshape(tcfg.T // block, block, -1):
+        G, R = tprob.block_stats(draws)
+        for j in range(block):
+            state = (ur.fista_update(G[j], R[j], state, scal, variant=variant)
+                     if rule == "fista" else
+                     ur.pnm_update(G[j], R[j], state, scal, tcfg.Q,
+                                   variant=variant))
+            rows.append(state.w)
+    assert torch.equal(hist, torch.stack(rows))
+
+
 @pytest.mark.parametrize("name", ["ca_sfista", "ca_spnm"])
 def test_validate_schedule_names_the_solver(problems, name):
     _, tprob = problems
@@ -262,7 +312,8 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     assert 0.0 <= run.rel_err < 1.0
     # the CPU run takes the plain versions: no kernel is launched
     assert run.launches == {"gram": 0, "gram_gather": 0, "prox_step": 0,
-                            "prox_loop": 0, "flash_attention": 0,
+                            "prox_loop": 0, "prox_step_block": 0,
+                            "prox_loop_block": 0, "flash_attention": 0,
                             "paged_decode": 0, "flash_dq": 0, "flash_dkv": 0,
                             "ssd": 0, "ssd_bwd": 0}
 

@@ -4,7 +4,9 @@ Hopper card: the quickest proof that the port builds and runs on the GPU.
 
   python3 chip_smoke.py
 
-It drives four paths of the port: the paper's Lasso solvers (phases 4-6),
+It drives four paths of the port: the paper's Lasso solvers (phases 4-6,
+with the rest of the solver family, the large-d prox route and the
+distributed solvers in 6a-6d),
 serving internlm2-1.8b at full width through the paged engine (phases 7-9),
 training it at full width through the CA train step (phases 10-11), and
 mamba2-780m's forward and training at full width through the SSD kernels
@@ -40,7 +42,7 @@ What it does, in order; any failure raises and the exit code is not 0:
    proximal Newton updates a launch) run at the CA blocks of covtype (k=32,
    d=54) and susy (k=32, d=18, Q=5) from ``gram_gather``'s own output, at
    k = 1, 2 and 7, ragged d = 61 (G from global memory), d = 130 and 160
-   (ring stages of one G_i) and d = 300 (G from global memory), every
+   (ring stages of one G_i) and d = 300 (the rows route), every
    variant: bitwise their k = 1 instances run k times (FISTA's momentum by
    the eager ops between), each step within 1e-5 of the plain version's
    step from the kernel's own previous iterate (a whole chain of 32
@@ -49,8 +51,7 @@ What it does, in order; any failure raises and the exit code is not 0:
    own distance from float64); timed with
    the wrapper's host time, the chain of dependent steps and, as
    diagnostics, the stepwise route they replace and the same block with
-   its G_i read from global memory instead of the ring. ``prox_step`` is
-   also timed at d = 4096, where one CTA reads all of G;
+   its G_i read from global memory instead of the ring;
 5. main path: ``repro_torch.launch.lasso_solve.main`` with T=256, k=32,
    b=0.1, Q=5 on covtype at full size (CA-SFISTA, SFISTA) and on susy at
    full size (CA-SPNM, SPNM). Each run is read for its kernel launches and
@@ -69,6 +70,39 @@ What it does, in order; any failure raises and the exit code is not 0:
    read in place), nor an elementwise update kernel (the momentum is
    computed in the block kernel), and the block kernel runs T/k or T
    times;
+6a. the rows route of the prox ops (``prox_rows_kernel``, above
+   ``ROWS_ABOVE_D``): prox_step_block, prox_loop_block and pdhg_block at
+   d = 4,096 (every variant) and 20,480 (past the one-CTA limit), each
+   block bitwise k launches of its k = 1 instance and each step within
+   1e-5 of the plain step from the kernel's own previous iterate (PDHG's u
+   at the scale max(|u|, sigma |w|)); one step of each timed beside its
+   bound (G read once a dependent product) and the plain version (the one
+   CTA at d = 4,096 as a diagnostic); both routes timed at k = 8 over
+   d = 128..512 with the threshold printed beside the d from which the
+   rows route won;
+6b. PDHG and BCD on covtype at full size: ``pdhg_block`` on the CA block
+   (32, 54), every variant, bitwise its k = 1 instance, each step (w, u)
+   held to the plain step from its own previous iterate, at sigma = 1/t
+   each step held to ISTA's, timed (ring and global memory); CA-PDHG,
+   PDHG, CA-BCD and BCD through ``lasso_solve.main`` (pdhg_block and
+   gram_gather T/k and T; gram T/k and T for BCD; nothing else), CA-PDHG
+   bitwise PDHG, CA-BCD within 2e-5 of BCD, each against its plain solve on
+   the card, warm walls and profiles; ``gram`` at BCD's cross-Gram
+   (r = 160 over 581,010) against its plain version and ``torch.mm``;
+   the elastic net through CA-SFISTA;
+6c. the dual SVM on covtype's first 4,096 samples (labels the sign of y,
+   box [0, 1], the step 1/L scaled by m/d): ``gram`` at r = 4,096 on a
+   real block against its plain version and ``torch.bmm``; CA-PDHG, PDHG
+   and CA-SFISTA, the prox on the rows route (one launch a step), CA-PDHG
+   bitwise PDHG, near its plain solve and descending, CA-SFISTA inside the
+   box;
+6d. ``make_distributed_solver`` in an NCCL group of one in this process
+   (an in-process store), all eight algorithms on covtype (susy for the
+   SPNM pair) with a single-process solve's draws: w bitwise the single
+   process's, T/k and T all-reduces, the gram family's words equal;
+   distributed and single-process warm walls side by side. Each of 6b-6d
+   zeroes the launch counts before its runs and reads them after; every
+   kernel of its path must have run;
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
@@ -293,6 +327,52 @@ def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
+def time_ms(fn, iters: int) -> float:
+    """ms a call of ``fn``, back to back: CUDA events around ``iters``
+    calls after three warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def compare(name, shape, got, want, rtol=KERNEL_RTOL) -> float:
+    """A kernel's output against its plain version, normwise (max |got -
+    want| / max |want|) within ``rtol``; printed. Returns max |got - want|."""
+    import torch
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}{shape}: not finite")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    rel = err / max(scale, 1e-30)
+    print(f"  {name:9s} {str(shape):22s} max_abs_err={err:.3e} "
+          f"normwise_rel={rel:.3e}")
+    check(rel <= rtol, f"{name}{shape}: normwise error {rel:.3e} > "
+          f"{rtol}")
+    return err
+
+
+def compare_offdiag(shape, got, want, name="gram") -> None:
+    """A Gram kernel's off-diagonal entries against their own largest
+    magnitude, within GRAM_OFFDIAG_RTOL; printed."""
+    import torch
+    off = ~torch.eye(got.shape[1], dtype=torch.bool, device=got.device)
+    err = float((got - want).abs()[:, off].max())
+    rel = err / max(float(want.abs()[:, off].max()), 1e-30)
+    print(f"  {name:9s} {str(shape):22s} off-diagonal "
+          f"max_abs_err={err:.3e} normwise_rel={rel:.3e}")
+    check(rel <= GRAM_OFFDIAG_RTOL, f"{name}{shape}: off-diagonal error "
+          f"{rel:.3e} > {GRAM_OFFDIAG_RTOL}")
+
+
 def _self_device_us(ev) -> float:
     """A profiler average's own device time, under either of the names
     torch has given it."""
@@ -431,7 +511,7 @@ def _tensor_core_line(flops: float, ms: float, bms: float,
 #: and susy: the classical k = 1 (G from global memory), k = 2 (ring stages
 #: of one G_i) and a short block, ragged d = 61 (d^2 not a multiple of 4: G
 #: from global memory), d = 130 and 160 (stages of one G_i near the limit)
-#: and d = 300 (global memory)
+#: and d = 300 (the rows route)
 PROX_BLOCK_SHAPES = ((1, 54), (2, 54), (7, 54), (1, 18), (7, 61), (32, 61),
                      (3, 130), (7, 160), (7, 300), (1, 300))
 
@@ -654,6 +734,578 @@ def prox_block_phase(dev, gen, blocks, compare, time_ms):
               f"normwise (there, from float64: the plain float32 chain "
               f"{worst[1]:.3e}, the kernel {worst[2]:.3e})")
     return out
+
+
+#: phase 6a's sizes: the rows route's two d, and the d over which both
+#: routes are timed to read the threshold
+ROWS_D = (4096, 20_480)
+SWEEP_D = (128, 192, 256, 320, 384, 512)
+#: phase 6c's dual SVM: n samples of covtype, T and k of its solves
+SVM_N, SVM_T, SVM_K = 4096, 64, 16
+#: CA-BCD against BCD: the JAX package's tolerance (its in-block replay
+#: reassociates a matrix-vector product)
+BCD_ATOL = 2e-5
+
+
+def _prox_route_block(dev, gen, k, d):
+    """A (k, d, d) block for the rows route: symmetric positive definite
+    up to d = 4096, scaled Gaussian above."""
+    import torch
+    if d <= 4096:
+        A = torch.randn(k, d, d, generator=gen, device=dev)
+        G = (A @ A.transpose(1, 2) / d).contiguous()
+        del A
+    else:
+        G = torch.randn(k, d, d, generator=gen, device=dev) / d ** 0.5
+    return G, torch.randn(k, d, generator=gen, device=dev)
+
+
+def _dual_err(u, want_u, want_w, sigma) -> float:
+    """PDHG's dual iterate against the plain one, normwise at the scale it
+    is computed at: u+ = x - sigma prox(x / sigma) with x near sigma w+, so
+    max(|u+|, sigma |w+|) (at variant "none" u+ is rounding noise around 0
+    and its own maximum no scale)."""
+    scale = max(float(want_u.abs().max()),
+                float(sigma) * float(want_w.abs().max()))
+    return float((u - want_u).abs().max()) / scale
+
+
+def large_d_phase(dev, gen, compare, time_ms):
+    """Phase 6a: the rows route (``prox_rows_kernel``) of prox_step_block,
+    prox_loop_block and pdhg_block at d = 4,096 and 20,480 (past the
+    one-CTA limit): each block bitwise k launches of its k = 1 instance,
+    each step within KERNEL_RTOL of the plain step from the kernel's own
+    previous iterate; one step of each timed beside its bound (G_i read
+    once a dependent product) and the plain version; then both routes
+    timed over SWEEP_D at k = 8, back to back and queued, and the threshold
+    ``ROWS_ABOVE_D`` printed beside the smallest d from which the rows route
+    was faster for all three (by device time, and back to back). Returns
+    the rows route's JSON entry."""
+    import torch
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.prox_step import ref as prox_ref
+    shared_d, max_d = prox_ops.prox_loop_limits()
+    threshold = prox_ops.ROWS_ABOVE_D
+    print(f"phase 6a: the rows route above d={threshold} (one CTA up to "
+          f"d={max_d})")
+    check(threshold <= max_d, f"ROWS_ABOVE_D={threshold} above the one-CTA "
+          f"limit {max_d}")
+    scal = prox_ops.prox_scalars(*SCAL, device=dev)
+    sigma = torch.tensor([0.5 / SCAL[0]], device=dev)
+    errs, entry = [], None
+    for d in ROWS_D:
+        check(prox_ops.rows_route(d), f"d={d} not on the rows route")
+        k = 2
+        G, R = _prox_route_block(dev, gen, k, d)
+        wp = torch.randn(d, generator=gen, device=dev)
+        w = torch.randn(d, generator=gen, device=dev)
+        u = torch.randn(d, generator=gen, device=dev) * 0.01
+        for variant in (VARIANTS if d == ROWS_D[0] else ("l1",)):
+            shape = (k, d, variant)
+            W = prox_ops.prox_step_block_cuda(G, R, wp, w, scal, j0=5,
+                                              variant=variant)
+            Z = prox_ops.prox_loop_block_cuda(G, R, w, scal, Q=Q,
+                                              variant=variant)
+            P, pu = prox_ops.pdhg_block_cuda(G, R, w, u, scal, sigma,
+                                             variant=variant)
+            a, b, z, pd = wp, w, w, [(w, u)]
+            for i in range(k):
+                a, b = b, prox_ops.prox_step_block_cuda(
+                    G[i:i + 1], R[i:i + 1], a, b, scal, j0=5 + i,
+                    variant=variant)[0]
+                z = prox_ops.prox_loop_cuda(G[i], R[i], z, scal, Q=Q,
+                                            variant=variant)
+                x, c = prox_ops.pdhg_block_cuda(G[i:i + 1], R[i:i + 1],
+                                                *pd[-1], scal, sigma,
+                                                variant=variant)
+                pd.append((x[0], c))
+                check(torch.equal(W[i], b) and torch.equal(Z[i], z)
+                      and torch.equal(P[i], x[0]),
+                      f"rows route {shape}: step {i} not bitwise its k = 1 "
+                      f"instance")
+            check(torch.equal(pu, pd[-1][1]), f"rows route {shape}: u")
+            prev, zprev = [wp, w] + list(W), [w] + list(Z)
+            for i in range(k):
+                errs.append(compare("rows fista", shape + (i,), W[i],
+                                    prox_ref.prox_step_block(
+                                        G[i:i + 1], R[i:i + 1], prev[i],
+                                        prev[i + 1], scal, j0=5 + i,
+                                        variant=variant)[0]))
+                errs.append(compare("rows pnm", shape + (i,), Z[i],
+                                    prox_ref.prox_loop(
+                                        G[i], R[i], zprev[i], scal, Q=Q,
+                                        variant=variant)))
+                rw, ru = prox_ref.pdhg_step(G[i], R[i], *pd[i], scal, sigma,
+                                            variant=variant)
+                errs.append(compare("rows pdhg", shape + (i,), pd[i + 1][0],
+                                    rw))
+                e_u = _dual_err(pd[i + 1][1], ru, rw, sigma)
+                print(f"  rows pdhg u {str(shape + (i,)):22s} normwise (at "
+                      f"the scale max(|u|, sigma |w|)) {e_u:.3e}")
+                check(e_u <= KERNEL_RTOL, f"rows pdhg u{shape}: {e_u:.3e}")
+        # one dependent step of each, k = 1: G_i read once a product
+        G1, R1 = G[:1], R[:1]
+        iters = 20 if d == ROWS_D[0] else 5
+        vec = 4.0 * (5 * d + 6)      # R, the vectors in and out, scalars
+        for name, call, plain, reads in (
+                ("fista", lambda: prox_ops.prox_step_block_cuda(
+                    G1, R1, wp, w, scal, j0=5),
+                 lambda: prox_ref.prox_step_block(G1, R1, wp, w, scal, j0=5),
+                 1),
+                ("pnm", lambda: prox_ops.prox_loop_block_cuda(
+                    G1, R1, w, scal, Q=Q),
+                 lambda: prox_ref.prox_loop_block(G1, R1, w, scal, Q=Q), Q),
+                ("pdhg", lambda: prox_ops.pdhg_block_cuda(
+                    G1, R1, w, u, scal, sigma),
+                 lambda: prox_ref.pdhg_block(G1, R1, w, u, scal, sigma), 1)):
+            ms = time_ms(call, iters)
+            queued = _event_ms(call, iters, queued=True)
+            plain_ms = time_ms(plain, iters)
+            bms, by = bound_ms(4.0 * reads * d * d + vec,
+                               reads * (2.0 * d * d + 10 * d))
+            print(f"  time rows {name} d={d} (one step, {reads} product"
+                  f"{'s' if reads > 1 else ''} of G): kernel={ms:.4f}ms back "
+                  f"to back, {queued:.4f}ms queued; plain={plain_ms:.4f}ms "
+                  f"bound={bms:.4f}ms ({by})")
+            if name == "fista" and d == ROWS_D[0]:
+                entry = dict(name="prox_rows", route="cuda",
+                             source="src/repro_torch/csrc/prox_step.cu",
+                             replaces=("src/repro/kernels/prox_step/"
+                                       "kernel.py:89"),
+                             launches=0, max_abs_err=0.0, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=None, shape=[1, d])
+        if d == ROWS_D[0]:   # the one-CTA route at the same d, a diagnostic
+            prox_ops.ROWS_ABOVE_D = max_d
+            one = time_ms(lambda: prox_ops.prox_step_block_cuda(
+                G1, R1, wp, w, scal, j0=5), iters)
+            prox_ops.ROWS_ABOVE_D = threshold
+            print(f"  time one-CTA fista d={d} (one step, a diagnostic): "
+                  f"{one:.4f}ms")
+        del G, R, G1, R1
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = max(errs)
+    # both routes over SWEEP_D, k = 8: where the rows route starts to win
+    faster, faster_b2b = [], []
+    for d in SWEEP_D:
+        k = 8
+        G, R = _prox_route_block(dev, gen, k, d)
+        w = torch.randn(d, generator=gen, device=dev)
+        u = torch.randn(d, generator=gen, device=dev) * 0.01
+        calls = (("fista", lambda: prox_ops.prox_step_block_cuda(
+                     G, R, w, w, scal, j0=5)),
+                 ("pnm", lambda: prox_ops.prox_loop_block_cuda(
+                     G, R, w, scal, Q=Q)),
+                 ("pdhg", lambda: prox_ops.pdhg_block_cuda(
+                     G, R, w, u, scal, sigma)))
+        row, wins, wins_b2b = [], True, True
+        for name, call in calls:
+            t = {}
+            for rows in (False, True, True, False):
+                prox_ops.ROWS_ABOVE_D = 0 if rows else max_d
+                t.setdefault(rows, []).append(
+                    (time_ms(call, 50), _event_ms(call, 50, queued=True)))
+            prox_ops.ROWS_ABOVE_D = threshold
+            cta = tuple(min(x[i] for x in t[False]) for i in (0, 1))
+            rws = tuple(min(x[i] for x in t[True]) for i in (0, 1))
+            wins &= rws[1] < cta[1]
+            wins_b2b &= rws[0] < cta[0]
+            row.append(f"{name} one-CTA {cta[0]:.4f}/{cta[1]:.4f} rows "
+                       f"{rws[0]:.4f}/{rws[1]:.4f}")
+        if wins:
+            faster.append(d)
+        if wins_b2b:
+            faster_b2b.append(d)
+        print(f"  sweep d={d} k={k} (ms back to back/queued): "
+              + "; ".join(row))
+        del G, R
+    print(f"  rows route faster for all three from d="
+          f"{min(faster, default=None)} by device time (queued), from d="
+          f"{min(faster_b2b, default=None)} back to back, in this run's "
+          f"sweep; ROWS_ABOVE_D={threshold}")
+    return entry
+
+
+def family_phase(dev, gen, compare, compare_offdiag, time_ms, problem):
+    """Phase 6b: PDHG and BCD on covtype at full size. ``pdhg_block`` on
+    the CA block (k=32, d=54) from ``gram_gather``'s own output, every
+    variant: bitwise 32 launches of its k = 1 instance, each step (w and u)
+    within KERNEL_RTOL of the plain step from the kernel's own previous
+    iterate, and at sigma = 1/t each step within KERNEL_RTOL of the ISTA
+    step (``prox_step``) from the previous w; timed. Then CA-PDHG, PDHG,
+    CA-BCD and BCD through ``lasso_solve.main``: launches (pdhg_block and
+    gram_gather T/k and T; gram T/k and T for BCD, no prox kernel), CA-PDHG
+    bitwise PDHG, CA-BCD within BCD_ATOL of BCD, each against its plain
+    solve on the card (PLAIN_ATOL), warm walls and a profile of each;
+    ``gram`` at BCD's CA cross-Gram (r = 160 over 581,010) against its plain
+    version, timed beside ``torch.mm``; and ElasticNet through CA-SFISTA.
+    Returns (JSON entries, launches per op)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import ElasticNetProblem, SolverConfig, ca_sfista
+    from repro_torch.core import sstep
+    from repro_torch.core.sampling import sample_index_batch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.prox_step import ref as prox_ref
+    from repro_torch.launch import lasso_solve
+    print("phase 6b: PDHG and BCD on covtype")
+    step = float(problem.default_step(SolverConfig(T=T, k=K, b=B, Q=Q)))
+    cfg = SolverConfig(T=T, k=K, b=B, Q=Q, step_size=step)
+    draws = sample_index_batch(torch.Generator(device=dev).manual_seed(0),
+                               T, problem.n, sstep.draw_size(problem, cfg))
+    G, R = problem.block_stats(draws[:K])
+    k, d = R.shape
+    t = torch.tensor(step, device=dev)
+    out, errs = {}, []
+    w0 = torch.randn(d, generator=gen, device=dev) * 0.1
+    u0 = torch.randn(d, generator=gen, device=dev) * 0.01
+    for variant in VARIANTS:
+        lam, mu, lo, hi = SCAL[1:]
+        scal = prox_ops.prox_scalars(t, lam, mu, lo, hi)
+        sigma = (0.5 / t).reshape(1)
+        W, u = prox_ops.pdhg_block_cuda(G, R, w0, u0, scal, sigma,
+                                        variant=variant)
+        pd = [(w0, u0)]
+        for i in range(k):
+            x, c = prox_ops.pdhg_block_cuda(G[i:i + 1], R[i:i + 1], *pd[-1],
+                                            scal, sigma, variant=variant)
+            pd.append((x[0], c))
+        check(torch.equal(W, torch.stack([p[0] for p in pd[1:]]))
+              and torch.equal(u, pd[-1][1]),
+              f"pdhg_block covtype {variant}: not bitwise k launches at k=1")
+        worst = 0.0
+        for i in range(k):
+            rw, ru = prox_ref.pdhg_step(G[i], R[i], *pd[i], scal, sigma,
+                                        variant=variant)
+            err = float((pd[i + 1][0] - rw).abs().max())
+            for rel in (err / float(rw.abs().max()),
+                        _dual_err(pd[i + 1][1], ru, rw, sigma)):
+                check(rel <= KERNEL_RTOL, f"pdhg_block covtype {variant} "
+                      f"step {i}: {rel:.3e} > {KERNEL_RTOL}")
+                worst = max(worst, rel)
+            errs.append(err)
+        print(f"  pdhg_block covtype (32, 54) {variant}: bitwise 32 "
+              f"launches at k=1; each step (w, u) within {worst:.3e} of the "
+              f"plain step, normwise")
+        # sigma = 1/t, u0 = 0: the ISTA step
+        W, _ = prox_ops.pdhg_block_cuda(G, R, w0, torch.zeros_like(w0), scal,
+                                        (1.0 / t).reshape(1),
+                                        variant=variant)
+        prev = [w0] + list(W)
+        worst = 0.0
+        for i in range(k):
+            want = prox_ops.prox_step_cuda(G[i], R[i], prev[i], scal,
+                                           variant=variant)
+            rel = float((W[i] - want).abs().max() / want.abs().max())
+            check(rel <= KERNEL_RTOL, f"pdhg_block at sigma = 1/t, "
+                  f"{variant}, step {i}: {rel:.3e} from ISTA")
+            worst = max(worst, rel)
+        print(f"  pdhg_block at sigma = 1/t, {variant}: each step within "
+              f"{worst:.3e} of ISTA's (prox_step) from the previous w")
+    scal = prox_ops.prox_scalars(t, problem.lam)
+    sigma = (0.5 / t).reshape(1)
+
+    def call(G=G):
+        return prox_ops.pdhg_block_cuda(G, R, w0, u0, scal, sigma)
+    ms = time_ms(call, 200)
+    queued = _event_ms(call, 200, queued=True)
+    host = _host_us(call)
+    plain_ms = time_ms(lambda: prox_ref.pdhg_block(G, R, w0, u0, scal,
+                                                   sigma), 10)
+    nbytes = 4.0 * (k * (d * d + d) + 2 * d + 6 + k * d + d)
+    bms, by = bound_ms(nbytes, k * (2.0 * d * d + 16 * d))
+    Gu = torch.empty(G.numel() + 1, device=dev)[1:].view_as(G).copy_(G)
+    check(torch.equal(call()[0], call(Gu)[0]),
+          "pdhg_block: the ring and global memory disagree")
+    routes = [_event_ms(fn, 200, queued=True)
+              for fn in (call, lambda: call(Gu)) * 2]
+    print(f"  time pdhg_block covtype [32, 54]: kernel={ms:.4f}ms back to "
+          f"back, {queued:.4f}ms queued ({1e3 * queued / k:.3f}us a "
+          f"dependent step); wrapper host time {host:.1f}us a call; "
+          f"plain={plain_ms:.4f}ms bound={bms:.7f}ms ({by}); G through the "
+          f"ring {routes[0]:.4f}, {routes[2]:.4f}ms, from global memory "
+          f"{routes[1]:.4f}, {routes[3]:.4f}ms (queued, alternating)")
+    out["pdhg_block"] = dict(
+        name="pdhg_block", route="cuda",
+        source="src/repro_torch/csrc/prox_step.cu",
+        replaces="src/repro/kernels/prox_step/kernel.py:89", launches=0,
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape=[k, d])
+    del Gu
+
+    # the four solves through the launcher, each path's counts zeroed first
+    total = {}
+    runs = {}
+    for algo in ("ca_pdhg", "pdhg", "ca_bcd", "bcd"):
+        kernels.reset_launch_counts()
+        registry.reset_dispatch_counts()
+        run = lasso_solve.main([
+            "--dataset", "covtype", "--scale", "10", "--algorithm", algo,
+            "--T", str(T), "--k", str(K), "--b", str(B), "--Q", str(Q),
+            "--seed", "0", "--device", "cuda"])
+        launches = kernels.launch_counts()
+        dispatches = registry.dispatch_counts()
+        runs[algo] = run
+        blocks = T // K if algo.startswith("ca_") else T
+        print(f"  covtype {algo}: rel_err={run.rel_err:.6f} "
+              f"objective={run.objective:.6f} wall={run.seconds:.4f}s "
+              f"launches={ {o: n for o, n in launches.items() if n} }")
+        check(launches == run.launches, "launch counts disagree")
+        check(all(b == "cuda" for (_, b) in dispatches),
+              f"{algo}: a plain version ran: {dispatches}")
+        want = ({"gram_gather": blocks, "pdhg_block": blocks}
+                if "pdhg" in algo else {"gram": blocks})
+        check({o: n for o, n in launches.items() if n} == want,
+              f"{algo}: launches {launches}, want {want}")
+        check(math.isfinite(run.rel_err) and run.rel_err < 1.0,
+              f"{algo}: rel_err {run.rel_err}")
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+    check(torch.equal(runs["ca_pdhg"].w, runs["pdhg"].w),
+          "CA-PDHG is not bitwise PDHG")
+    diff = float((runs["ca_bcd"].w - runs["bcd"].w).abs().max())
+    print(f"  covtype: CA-PDHG bitwise PDHG; |w_ca_bcd - w_bcd|_max = "
+          f"{diff:.3e}")
+    check(diff <= BCD_ATOL, f"CA-BCD vs BCD {diff:.3e} > {BCD_ATOL}")
+    coord = sstep.draws(problem, cfg, torch.Generator(device=dev)
+                        .manual_seed(0), None, "coord")
+    for rule, idx, names in ((sstep.PDHG_RULE, draws, ("ca_pdhg", "pdhg")),
+                             (sstep.BCD_RULE, coord, ("ca_bcd", "bcd"))):
+        with registry.use("torch"):
+            w_plain = sstep.solve(problem, cfg, None, rule, name="plain",
+                                  idx=idx)
+        w_card = sstep.solve(problem, cfg, None, rule, name="card", idx=idx)
+        diff = float((w_card - w_plain).abs().max())
+        print(f"  covtype {names[1]}: |w - w_plain|_max = {diff:.3e}")
+        check(diff <= PLAIN_ATOL, f"{names[1]} vs plain {diff:.3e}")
+        med, walls = solve_walls(problem, cfg, rule, idx)
+        print(f"  covtype: warm solve wall, median of 3: {names[0]} "
+              f"{med[True]!r}s {walls[True]!r}, {names[1]} {med[False]!r}s "
+              f"{walls[False]!r}, classical/CA {med[False] / med[True]!r}")
+        for ca in (True, False):
+            wall, rows = profile_solve(problem, cfg, rule, idx, ca)
+            busy = sum(r[1] for r in rows) / 1e6
+            print(f"profile covtype {names[0] if ca else names[1]}: wall "
+                  f"{wall:.4f}s (profiled), device kernels {busy:.4f}s "
+                  f"({100 * busy / wall:.1f}% busy), "
+                  f"{sum(r[2] for r in rows)} launches of {len(rows)} kernel "
+                  f"names")
+            for key, us, count in rows[:8]:
+                print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # gram at BCD's CA cross-Gram: r = k m_c = 160 over the 581,010 samples
+    BU = problem.X.index_select(0, coord[:K].reshape(-1))
+    shape = (1, BU.shape[0], BU.shape[1])
+    got = gram_ops.gram_cuda(BU[None])
+    want = gram_ref.gram(BU[None])
+    err = compare("gram", shape, got, want, rtol=GRAM_RTOL)
+    compare_offdiag(shape, got, want)
+    ms = time_ms(lambda: gram_ops.gram_cuda(BU[None]), 20)
+    plain_ms = time_ms(lambda: gram_ref.gram(BU[None]), 20)
+    lib = time_ms(lambda: torch.mm(BU, BU.T), 20)
+    r, m = BU.shape
+    bms, by = bound_ms(4.0 * (r * m + r * r), 1.0 * r * (r + 1) * m)
+    print(f"  time gram {list(shape)} (BCD's cross-Gram): kernel={ms:.4f}ms "
+          f"plain={plain_ms:.4f}ms torch.mm={lib:.4f}ms bound={bms:.5f}ms "
+          f"({by}) max_abs_err={err:.3e}")
+    del BU, got, want
+
+    # ElasticNet through CA-SFISTA
+    enet = ElasticNetProblem(X=problem.X, y=problem.y, lam=problem.lam,
+                             mu=0.05)
+    kernels.reset_launch_counts()
+    w = ca_sfista(enet, cfg, idx=draws)
+    launches = kernels.launch_counts()
+    for op, n in launches.items():
+        total[op] = total.get(op, 0) + n
+    check({o: n for o, n in launches.items() if n} == {
+        "gram_gather": T // K, "prox_step_block": T // K},
+        f"elastic net: launches {launches}")
+    with registry.use("torch"):
+        w_plain = ca_sfista(enet, cfg, idx=draws)
+    diff = float((w - w_plain).abs().max())
+    f0 = float(enet.objective(torch.zeros_like(w)))
+    f = float(enet.objective(w))
+    print(f"  covtype elastic net (mu=0.05) CA-SFISTA: objective {f:.6f} "
+          f"(from {f0:.6f} at 0), |w - w_plain|_max = {diff:.3e}")
+    check(diff <= PLAIN_ATOL and f < f0, "elastic net CA-SFISTA")
+    return out, total
+
+
+def svm_phase(dev, compare, time_ms, problem):
+    """Phase 6c: the dual SVM on covtype's first SVM_N samples (labels the
+    sign of y, box [0, 1]): d = n = 4,096 for the prox, the step 1/L
+    scaled by m/d. ``gram`` at r = 4,096 on a real block of draws against
+    its plain version; CA-PDHG, PDHG and CA-SFISTA on the same draws, their
+    prox on the rows route when SVM_N lies above the threshold (one launch
+    a step), CA-PDHG bitwise PDHG and against its plain solve on the card,
+    PDHG's objective below its value at 0 and CA-SFISTA's iterate inside
+    the box. Returns launches per op."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import (DualSVMProblem, SolverConfig, ca_pdhg,
+                                  ca_sfista, pdhg, sstep)
+    from repro_torch.core.sampling import gather_columns
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    X = problem.X[:, :SVM_N].contiguous()
+    labels = torch.where(problem.y[:SVM_N] >= 0, 1.0, -1.0)
+    svm = DualSVMProblem(X=X, y=labels, C=1.0)
+    rows = prox_ops.rows_route(svm.dim)
+    print(f"phase 6c: dual SVM, n={svm.n} (the prox's d), d={svm.d} "
+          f"features; prox route: {'rows' if rows else 'one CTA'}")
+    # the default 1/L is the full Hessian's; the G_j of m of the d features
+    # has a top eigenvalue up to d/m times larger, and with the default
+    # step the stochastic solvers leave the box or grow (the JAX package's
+    # too, at these sizes), so the step is scaled by m/d
+    m = max(int(B * svm.n_units), 1)
+    step = float(svm.default_step(SolverConfig())) * m / svm.n_units
+    cfg = SolverConfig(T=SVM_T, k=SVM_K, b=B, Q=Q, step_size=step)
+    draws = sstep.draws(svm, cfg, torch.Generator(device=dev).manual_seed(0),
+                        None)
+    Bs = gather_columns(svm.Zt, draws[:2])        # (2, n, m)
+    shape = tuple(Bs.shape)
+    got = gram_ops.gram_cuda(Bs)
+    err = compare("gram", shape, got, gram_ref.gram(Bs), rtol=GRAM_RTOL)
+    ms = time_ms(lambda: gram_ops.gram_cuda(Bs), 20)
+    plain_ms = time_ms(lambda: gram_ref.gram(Bs), 5)
+    lib = time_ms(lambda: torch.bmm(Bs, Bs.transpose(1, 2)), 20)
+    k, r, m = shape
+    bms, by = bound_ms(4.0 * (k * r * m + k * r * r),
+                       1.0 * k * r * (r + 1) * m)
+    print(f"  time gram {list(shape)} (the dual SVM's G): kernel={ms:.4f}ms "
+          f"plain={plain_ms:.4f}ms torch.bmm={lib:.4f}ms bound={bms:.5f}ms "
+          f"({by}) max_abs_err={err:.3e}")
+    del Bs, got
+    total, ws = {}, {}
+    f0 = float(svm.objective(torch.zeros(svm.dim, device=dev)))
+    for name, solver in (("ca_pdhg", ca_pdhg), ("pdhg", pdhg),
+                         ("ca_sfista", ca_sfista)):
+        kernels.reset_launch_counts()
+        registry.reset_dispatch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ws[name] = solver(svm, cfg, idx=draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        blocks = cfg.T // cfg.k if name.startswith("ca_") else cfg.T
+        prox = ({"prox_rows": cfg.T} if rows else
+                {("pdhg_block" if "pdhg" in name else "prox_step_block"):
+                 blocks})
+        want = {"gram": blocks, **prox}
+        got_l = {o: n for o, n in launches.items() if n}
+        f = float(svm.objective(ws[name]))
+        print(f"  svm {name}: objective {f:.6f} (from {f0:.6f} at 0), wall "
+              f"{wall:.4f}s, launches {got_l}")
+        check(got_l == want, f"svm {name}: launches {got_l}, want {want}")
+        check(all(b == "cuda" for (_, b) in registry.dispatch_counts()),
+              f"svm {name}: a plain version ran")
+        # PDHG descends at this step; FISTA's momentum does not, but its
+        # box prox keeps every iterate feasible
+        check(math.isfinite(f) and (f < f0 or "pdhg" not in name),
+              f"svm {name}: objective {f}")
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+    check(torch.equal(ws["ca_pdhg"], ws["pdhg"]), "svm: CA-PDHG is not "
+          "bitwise PDHG")
+    a = ws["ca_sfista"]
+    check(float(a.min()) >= 0.0 and float(a.max()) <= 1.0,
+          "svm: CA-SFISTA left the box")
+    with registry.use("torch"):
+        w_plain = ca_pdhg(svm, cfg, idx=draws)
+    diff = float((ws["ca_pdhg"] - w_plain).abs().max())
+    print(f"  svm: CA-PDHG bitwise PDHG; |w - w_plain|_max = {diff:.3e}")
+    check(diff <= PLAIN_ATOL, f"svm CA-PDHG vs plain {diff:.3e}")
+    return total
+
+
+def distributed_phase(dev):
+    """Phase 6d: ``make_distributed_solver`` in an NCCL group of one in
+    this process (an in-process store, no network), all eight algorithms
+    on covtype at full size (susy for the SPNM pair) with the draws of a
+    single-process solve: w bitwise the single-process w, T/k and T
+    all-reduces, the gram family's words equal (T (d^2 + d)); the
+    distributed and single-process warm walls side by side. Returns
+    launches per op."""
+    import torch
+    from repro_torch import core as tcore
+    from repro_torch import kernels
+    from repro_torch.core import SolverConfig, sstep
+    from repro_torch.core.distributed import (COORD_ALGORITHMS,
+                                              CollectiveCount,
+                                              make_distributed_solver,
+                                              shard_problem)
+    from repro_torch.core.sampling import sample_index_batch
+    from repro_torch.data import make_dataset_like
+    from repro_torch.launch import mesh
+    print("phase 6d: distributed solvers, an NCCL group of one")
+    mesh.init("cuda", rank=0, world_size=1)
+    total = {}
+    try:
+        for dataset, scale, algs in (
+                ("covtype", 10, ("ca_sfista", "sfista", "ca_pdhg", "pdhg",
+                                 "ca_bcd", "bcd")),
+                ("susy", 50, ("ca_spnm", "spnm"))):
+            problem, _ = make_dataset_like(dataset, scale=scale, device=dev)
+            step = float(problem.default_step(SolverConfig(T=T, k=K, b=B,
+                                                           Q=Q)))
+            cfg = SolverConfig(T=T, k=K, b=B, Q=Q, step_size=step)
+            gram_idx = sample_index_batch(
+                torch.Generator(device=dev).manual_seed(0), T, problem.n,
+                sstep.draw_size(problem, cfg))
+            coord_idx = sstep.draws(problem, cfg, torch.Generator(
+                device=dev).manual_seed(0), None, "coord")
+            X, y = shard_problem(problem.X, problem.y, 0, 1)
+            w0 = torch.zeros(problem.d, device=dev)
+            words = {}
+            for alg in algs:
+                idx = coord_idx if alg in COORD_ALGORITHMS else gram_idx
+                count = CollectiveCount()
+                solve = make_distributed_solver(alg, cfg, problem.lam,
+                                                counter=count)
+                single = getattr(tcore, alg)
+                kernels.reset_launch_counts()
+                w_d = solve(X, y, w0, step, idx=idx)
+                for op, n in kernels.launch_counts().items():
+                    total[op] = total.get(op, 0) + n
+                w_s = single(problem, cfg, idx=idx)
+                want = T // K if alg.startswith("ca_") else T
+                check(count.all_reduces == want, f"distributed {alg}: "
+                      f"{count.all_reduces} all-reduces, want {want}")
+                check(torch.equal(w_d, w_s), f"distributed {alg} at world "
+                      f"1: not bitwise the single-process w")
+                words[alg] = count.words
+                all_reduces = count.all_reduces
+                walls = {True: [], False: []}
+                for dist_run in (True, False, False, True, True, False):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if dist_run:
+                        solve(X, y, w0, step, idx=idx)
+                    else:
+                        single(problem, cfg, idx=idx)
+                    torch.cuda.synchronize()
+                    walls[dist_run].append(time.perf_counter() - t0)
+                print(f"  {dataset} {alg}: {all_reduces} all-reduces, "
+                      f"{words[alg]} words a solve; bitwise the single-"
+                      f"process w; "
+                      f"warm walls distributed {sorted(walls[True])[1]!r}s "
+                      f"{walls[True]!r}, single-process "
+                      f"{sorted(walls[False])[1]!r}s {walls[False]!r}")
+            for alg in algs:
+                if alg.startswith("ca_") and alg not in COORD_ALGORITHMS:
+                    d = problem.d
+                    check(words[alg] == words[alg[3:]] == T * (d * d + d),
+                          f"{alg}: words {words[alg]} vs {words[alg[3:]]}")
+            del problem, X, y
+            torch.cuda.empty_cache()
+    finally:
+        mesh.shutdown()
+    return total
 
 
 def attention_kernel_phase(dev):
@@ -2041,43 +2693,11 @@ def main() -> int:
         for name, regs, spill in _ptxas_report(_build.build_log(stem)):
             print(f"  ptxas[{stem}] {name}: {regs} registers, {spill}")
     shared_d, max_d = prox_ops.prox_loop_limits()
-    print(f"prox kernels: G through the shared-memory ring up to "
-          f"d={shared_d} (d^2 a multiple of 4), from global memory up to "
-          f"d={max_d}, refused above")
-
-    def time_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
-
-    def compare(name, shape, got, want, rtol=KERNEL_RTOL):
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{name}{shape}: not finite")
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        rel = err / max(scale, 1e-30)
-        print(f"  {name:9s} {str(shape):22s} max_abs_err={err:.3e} "
-              f"normwise_rel={rel:.3e}")
-        check(rel <= rtol, f"{name}{shape}: normwise error {rel:.3e} > "
-              f"{rtol}")
-        return err
-
-    def compare_offdiag(shape, got, want, name="gram"):
-        off = ~torch.eye(got.shape[1], dtype=torch.bool, device=dev)
-        err = float((got - want).abs()[:, off].max())
-        rel = err / max(float(want.abs()[:, off].max()), 1e-30)
-        print(f"  {name:9s} {str(shape):22s} off-diagonal "
-              f"max_abs_err={err:.3e} normwise_rel={rel:.3e}")
-        check(rel <= GRAM_OFFDIAG_RTOL, f"{name}{shape}: off-diagonal error "
-              f"{rel:.3e} > {GRAM_OFFDIAG_RTOL}")
+    print(f"prox kernels: one CTA up to d={prox_ops.ROWS_ABOVE_D}, G "
+          f"through the shared-memory ring up to d={shared_d} (d^2 a "
+          f"multiple of 4), from global memory above; the rows route above "
+          f"d={prox_ops.ROWS_ABOVE_D} (the one-CTA kernels stop at "
+          f"d={max_d})")
 
     def hold_gram_gather(shape, rows, Xy, draws, r):
         """gram_gather against its plain version and, bitwise, against gram
@@ -2257,20 +2877,6 @@ def main() -> int:
     for name in ("prox_step", "prox_loop"):
         print(f"  {name}: max_abs_err over all shapes and variants "
               f"{max(errs[name].values()):.3e}")
-    # one CTA runs a call at any d: prox_step at a large d (a diagnostic)
-    d = 4096
-    A = torch.randn(d, d, generator=gen, device=dev)
-    G = (A @ A.T / d).contiguous()
-    R = torch.randn(d, generator=gen, device=dev)
-    v = torch.randn(d, generator=gen, device=dev)
-    compare("prox_step", (d, "l1"), prox_ops.prox_step_cuda(
-        G, R, v, scal), prox_ref.prox_step(G, R, v, scal))
-    ms = time_ms(lambda: prox_ops.prox_step_cuda(G, R, v, scal), 20)
-    plain = time_ms(lambda: prox_ref.prox_step(G, R, v, scal), 20)
-    bms, by = bound_ms(4.0 * (d * d + 3 * d + 5), 2.0 * d * d + 6 * d)
-    print(f"  time prox_step [{d}] (one CTA, a diagnostic): kernel="
-          f"{ms:.4f}ms plain={plain:.4f}ms bound={bms:.5f}ms ({by})")
-    del A, G
     for e in timings:
         print(f"  time {e['name']:9s} {str(e['shape']):18s} kernel={e['ms']:.4f}ms "
               f"plain={e['plain_ms']:.4f}ms library={e['library_ms']} "
@@ -2395,6 +3001,39 @@ def main() -> int:
             check(not gathers, f"{dataset}: a gather ran on the solve: "
                   f"{gathers}")
     del profiled
+
+    # 6a-6d. the rest of the solver family, the large-d prox route and the
+    # distributed solvers; each path's counts zeroed before it, read after
+    t_phase = time.perf_counter()
+    entries["prox_rows"] = large_d_phase(dev, gen, compare, time_ms)
+    print(f"phase 6a: {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    covtype, _ = make_dataset_like("covtype", scale=10, device=dev)
+    fam_entries, fam = family_phase(dev, gen, compare, compare_offdiag,
+                                    time_ms, covtype)
+    entries.update(fam_entries)
+    print(f"phase 6b: {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    svm = svm_phase(dev, compare, time_ms, covtype)
+    print(f"phase 6c: {time.perf_counter() - t_phase:.1f}s")
+    del covtype
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dist6 = distributed_phase(dev)
+    print(f"phase 6d: {time.perf_counter() - t_phase:.1f}s")
+    for name, e in entries.items():
+        if name in total or name in fam:
+            e["launches"] = (total.get(name, 0) + fam.get(name, 0)
+                             + svm.get(name, 0) + dist6.get(name, 0))
+    for name, counts in (("phase 6b", fam), ("phase 6d", dist6)):
+        for op in (("gram", "gram_gather", "pdhg_block") if name == "phase 6b"
+                   else ("gram", "gram_gather", "prox_step_block",
+                         "prox_loop_block", "pdhg_block")):
+            check(counts.get(op, 0) > 0, f"{op} was not launched in {name}")
+    check(svm.get("gram", 0) > 0, "gram was not launched in phase 6c")
+    print("family launches: 6b " + str({o: n for o, n in fam.items() if n})
+          + ", 6c " + str({o: n for o, n in svm.items() if n}) + ", 6d "
+          + str({o: n for o, n in dist6.items() if n}))
 
     # 7-9. serving internlm2-1.8b at full width
     from repro_torch.configs import get_arch

@@ -42,27 +42,36 @@ def augment_rows(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def augmented_gram_blocks(Xy_rows: torch.Tensor, d: int,
-                          idx_batch: torch.Tensor):
+                          idx_batch: torch.Tensor, m_norm=None, out=None):
     """G (k, d, d) and R (k, d) of k draws idx_batch (k, m) from the
     sample-major augmented data Xy_rows (:func:`augment_rows`): ONE
-    ``gram_gather`` dispatch for the block, scaled by 1/m. (The op takes
-    the scale as an argument, so a distributed solve can pass the global
-    sample count's.)"""
+    ``gram_gather`` dispatch for the block, scaled by 1/m_norm.
+
+    m_norm: the normalization, by default the draw size m. The distributed
+    solvers pass the global sample count, so that the sum of the ranks'
+    local pairs is the pair of the union of their draws. out: a flat
+    float32 buffer of k (d^2 + d) that G and R are written into (G first),
+    so that one all-reduce takes both."""
+    m = idx_batch.shape[1] if m_norm is None else m_norm
     return registry.dispatch("gram_gather", Xy_rows, idx_batch, d + 1,
-                             1.0 / idx_batch.shape[1])
+                             1.0 / m, out=out)
 
 
-def gram_blocks(X: torch.Tensor, y: torch.Tensor, idx_batch: torch.Tensor):
+def gram_blocks(X: torch.Tensor, y: torch.Tensor, idx_batch: torch.Tensor,
+                m_norm=None):
     """k independent Gram blocks at once: G (k, d, d), R (k, d).
 
     The paper's line 6 of Algorithm III. Builds the augmented rows on every
     call; solvers hold them once per problem (``LassoProblem.Xy_rows``) and
     call :func:`augmented_gram_blocks`.
     """
-    return augmented_gram_blocks(augment_rows(X, y), X.shape[0], idx_batch)
+    return augmented_gram_blocks(augment_rows(X, y), X.shape[0], idx_batch,
+                                 m_norm=m_norm)
 
 
-def sampled_gram(X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
-    """One (G_j, R_j) pair from one index draw idx (m,)."""
-    G, R = gram_blocks(X, y, idx.unsqueeze(0))
+def sampled_gram(X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                 m_norm=None):
+    """One (G_j, R_j) pair from one index draw idx (m,); m_norm as in
+    :func:`augmented_gram_blocks`."""
+    G, R = gram_blocks(X, y, idx.unsqueeze(0), m_norm=m_norm)
     return G[0], R[0]

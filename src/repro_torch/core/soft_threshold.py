@@ -1,5 +1,6 @@
 """Soft-thresholding operator S_lambda — the prox of lambda*||.||_1 (paper
-eq. 7) — the element-wise prox family, and FISTA's momentum."""
+eq. 7) — the element-wise prox family, its Moreau dual, and FISTA's
+momentum."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +33,13 @@ def prox_elem(x: torch.Tensor, step, variant: str = "l1", lam=0.0, mu=0.0,
         return x
     raise ValueError(f"unknown prox variant {variant!r}; expected one of "
                      "('l1', 'elastic_net', 'box', 'none')")
+
+
+def moreau_dual_prox(x: torch.Tensor, sigma, variant: str = "l1", lam=0.0,
+                     mu=0.0, lo=0.0, hi=0.0) -> torch.Tensor:
+    """prox of sigma*g^* via the Moreau identity:
+    prox_{sigma g*}(x) = x - sigma * prox_{g/sigma}(x/sigma). Used by the
+    PDHG dual ascent step for every prox variant above."""
+    inv = 1.0 / sigma
+    return x - sigma * prox_elem(x * inv, inv, variant=variant, lam=lam,
+                                 mu=mu, lo=lo, hi=hi)

@@ -69,9 +69,10 @@
 //    G_i do not fit beside the vectors (d > 169 on an H100), and at k = 1,
 //    where nothing would overlap a copy, G_i is read from global memory,
 //    where gram_reduce has just written it (L2);
-//  * the vectors always live in shared memory, so d is bounded by the
-//    card's opt-in shared memory (prox_loop_max_d: 19,368 on an H100), and
-//    a step's matrix-vector product runs on one SM at any d;
+//  * the vectors always live in shared memory, so this route is bounded
+//    by the card's opt-in shared memory (prox_loop_max_d: 19,368 on an
+//    H100); the wrappers take it up to d = 256 (ops.py, ROWS_ABOVE_D) and
+//    the rows route below above that;
 //  * the CUDA cores, not wgmma: at d <= 54 a step is one matrix-vector
 //    product, which fills no wgmma tile (64 rows by at least 8 columns),
 //    and the chain, not the FLOPs, sets the time.
@@ -79,6 +80,39 @@
 // (__fmul_rn / __fsub_rn / __fdiv_rn, no contraction into FMA; nvcc is not
 // given --use_fast_math), so the kernels differ from the plain PyTorch
 // version only in the dot product's summation order.
+//
+// pdhg_block: k PDHG steps (the Loris-Verhoeven form, K = I) in one launch,
+// the FISTA block's design with the momentum off and the dual iterate u in
+// shared memory beside w. Step i, with sigma the dual step and inv = 1/sigma:
+//   q    = w - t (G_i w - R_i)        (the Pallas prox_step at variant "none",
+//   wbar = q - t u                     reached by src/repro/core/
+//   x    = u + sigma wbar              update_rules.py:106, pdhg_update)
+//   u    = x - sigma prox_{g/sigma}(x inv)   (Moreau: prox of sigma g*)
+//   w    = q - t u,  W[i] = w
+// sigma is a device scalar (cfg.sigma, or 0.5 / t computed on the device),
+// so nothing is read back. Its k = 1 instance is the classical solver's
+// step, so CA-PDHG == PDHG bit for bit.
+//
+// The rows route, for large d (prox_rows_kernel): one CTA keeps the whole
+// iterate in shared memory and streams all of G_i through one SM, 0.62 ms
+// at d = 4,096 against 0.02 ms of bytes, and cannot hold the iterate past
+// d = 19,368. Above a threshold on d alone (ops.py, ROWS_ABOVE_D = 256,
+// where the two routes' measured times cross), every prox op takes a grid
+// of CTAs over
+// row blocks of G_i instead: 4 warps a CTA, 4 rows a warp side by side as
+// above, one launch a dependent step. Each CTA rebuilds the step's point x
+// (FISTA's extrapolated v from the previous two iterates, PNM's z, PDHG's
+// w) from global memory, a tile of kTile elements at a time through shared
+// memory, sums its rows' dot products in the one fixed order (lane l over
+// j = l, l + 32, ..., then the butterfly), and writes its rows of W[i] (and
+// of u). A FISTA or PDHG block is k launches, a PNM block k Q: every inner
+// iteration needs all of the previous z, and a grid-wide barrier would need
+// every CTA co-resident (640 CTAs at d = 20,480, more than the card holds
+// at once) for a saving of a launch gap (a few us) against a step that
+// reads d^2 floats (0.5 ms at d = 20,480). The route is chosen by d alone,
+// so a k-block and its k = 1 instance, CA and classical, take the same one
+// and keep the same bits. Its bound is bytes: G_i read once a dependent
+// product.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,6 +160,12 @@ __device__ __forceinline__ float shrink(float x, float th) {
   return x > 0.f ? r : (x < 0.f ? -r : 0.f);  // sign(x) * r
 }
 
+// the products a prox at step `step` forms, for PDHG's dual prox at 1/sigma
+__device__ __forceinline__ Scal load_scal_at(const float* s, float step) {
+  return {step, __fmul_rn(s[1], step),
+          __fadd_rn(1.f, __fmul_rn(s[2], step)), s[3], s[4]};
+}
+
 template <int V>
 __device__ __forceinline__ float prox(float x, Scal c) {
   if constexpr (V == 0) {
@@ -144,6 +184,26 @@ template <int V>
 __device__ __forceinline__ float update(float xi, float dot, float ri,
                                         Scal c) {
   return prox<V>(__fsub_rn(xi, __fmul_rn(c.t, __fsub_rn(dot, ri))), c);
+}
+
+// PDHG's step after q = w - t (G w - R): the dual ascent through the
+// Moreau identity and the primal correction, each op rounded as the plain
+// version's eager op (moreau_dual_prox, pdhg_update)
+struct WU {
+  float w, u;
+};
+
+template <int V>
+__device__ __forceinline__ WU pdhg_tail(float q, float u, float t,
+                                        float sigma, Scal dual) {
+  const float wbar = __fsub_rn(q, __fmul_rn(t, u));
+  const float x = __fadd_rn(u, __fmul_rn(sigma, wbar));
+  const float y = prox<V>(__fmul_rn(x, dual.t), dual);
+  const float u_new = __fsub_rn(x, __fmul_rn(sigma, y));
+  WU r;
+  r.w = __fsub_rn(q, __fmul_rn(t, u_new));
+  r.u = u_new;
+  return r;
 }
 
 // FISTA's momentum (j - 2) / j, zero-clamped, as fista_momentum rounds it
@@ -400,6 +460,159 @@ prox_loop_block_kernel(const float* __restrict__ G,
   }
 }
 
+// element j of a vector in shared memory, for dot_rows (a functor: nvcc
+// 12.8's front end fails with an internal error, "i_copy_expr_tree", on a
+// lambda capturing the iterate in pdhg_block_kernel)
+struct SharedVec {
+  const float* p;
+  __device__ __forceinline__ float operator()(int j) const { return p[j]; }
+};
+
+template <int V, bool RING>
+__global__ void __launch_bounds__(kThreads)
+pdhg_block_kernel(const float* __restrict__ G, const float* __restrict__ R,
+                  const float* __restrict__ w0, const float* __restrict__ u0,
+                  const float* __restrict__ scal,
+                  const float* __restrict__ sig, float* __restrict__ W,
+                  float* __restrict__ u_out, int d, int k, Plan plan) {
+  // [bars | ring | w (d) | w next (d) | u (d) | R?]
+  extern __shared__ __align__(128) unsigned char sm[];
+  float* stage = reinterpret_cast<float*>(sm + kBarBytes);
+  float* w = stage + 2 * (int64_t)plan.per * d * d;
+  float* wn = w + d;
+  float* u = wn + d;
+  float* rs = u + d;
+  const Ring<RING> ring{G, stage, smem_addr(sm), (int64_t)d * d, plan.per, k};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const Scal sc = load_scal(scal);
+  const float sigma = sig[0];
+  const Scal dual = load_scal_at(scal, __fdiv_rn(1.f, sigma));
+  ring.init();
+  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+    w[e] = w0[e];
+    u[e] = u0[e];
+  }
+  const float* r = R;
+  if (plan.r_shared) {
+    for (int64_t e = threadIdx.x; e < (int64_t)k * d; e += blockDim.x)
+      rs[e] = R[e];
+    r = rs;
+  }
+  __syncthreads();  // the barriers' init, before any copy counts on them
+  ring.start();
+  __syncthreads();
+
+  for (int i = 0, chunk = 0, pos = 0; i < k; ++i, ring.next(chunk, pos)) {
+    ring.top(chunk, pos);
+    const float* g = ring.at(i, chunk, pos);
+    const float* ri = r + (int64_t)i * d;
+    float* wi = W + (int64_t)i * d;
+    for (int r0 = warp; r0 < d; r0 += kRows * warps) {
+      const int row = r0 + lane * warps;
+      const bool own = lane < kRows && row < d;
+      const int at = own ? row : r0;
+      // u[row] is read and written only by its row's owner
+      const float w_row = w[at], r_row = ri[at], u_row = u[at];
+      const float sum = dot_rows(g, d, r0, warps, SharedVec{w}, lane);
+      if (own) {
+        const float q = update<3>(w_row, sum, r_row, sc);
+        const WU nx = pdhg_tail<V>(q, u_row, sc.t, sigma, dual);
+        wi[row] = nx.w;
+        wn[row] = nx.w;
+        u[row] = nx.u;
+        if (i == k - 1) u_out[row] = nx.u;
+      }
+    }
+    ring.bottom(chunk, pos);
+    __syncthreads();
+    float* t = w;
+    w = wn;
+    wn = t;
+  }
+}
+
+// The rows route: a grid of CTAs over row blocks of one G_i, a dependent
+// step a launch. x (the step's point) is formed from global memory: x_cur
+// as it is, or FISTA's extrapolation from x_cur and x_prev with the
+// momentum of iteration j (momentum != 0). PDHG also reads u_in and writes
+// u_out. Owners write out[row].
+constexpr int kRowsWarps = 4;                    // warps a CTA
+constexpr int kRowsPerCta = kRows * kRowsWarps;  // rows a CTA
+constexpr int kRowsThreads = 32 * kRowsWarps;    // threads a CTA
+constexpr int kTile = 2048;                      // x elements a pass
+
+// element e of a rows-route step's point: x_cur, or FISTA's extrapolation
+__device__ __forceinline__ float point(const float* x_cur,
+                                       const float* x_prev, int64_t e,
+                                       bool on, float mom) {
+  return on ? extrapolate(x_cur[e], x_prev[e], mom) : x_cur[e];
+}
+
+template <int V, bool PDHG>
+__global__ void __launch_bounds__(kRowsThreads)
+prox_rows_kernel(const float* __restrict__ G, const float* __restrict__ R,
+                 const float* __restrict__ x_cur,
+                 const float* __restrict__ x_prev, int j, int momentum,
+                 const float* __restrict__ u_in, float* __restrict__ u_out,
+                 const float* __restrict__ scal,
+                 const float* __restrict__ sig, float* __restrict__ out,
+                 int d) {
+  __shared__ float xs[kTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t base = (int64_t)blockIdx.x * kRowsPerCta + warp * kRows;
+  const bool on = momentum != 0;
+  const float mom = on ? fista_mom(j) : 0.f;
+  const float* gr[kRows];
+  float acc[kRows];
+#pragma unroll
+  for (int t = 0; t < kRows; ++t) {
+    int64_t row = base + t < d ? base + t : base;
+    row = row < d ? row : d - 1;  // a warp past d reads a row and drops it
+    gr[t] = G + row * d;
+    acc[t] = 0.f;
+  }
+  const int64_t row = base + lane;
+  const bool own = lane < kRows && row < d;
+  const int64_t at = own ? row : 0;
+  const float x_row = point(x_cur, x_prev, at, on, mom), r_row = R[at];
+  const float u_row = PDHG ? u_in[at] : 0.f;
+  for (int64_t j0 = 0; j0 < d; j0 += kTile) {
+    const int n = d - j0 < kTile ? (int)(d - j0) : kTile;
+    __syncthreads();  // the last tile has been read
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      xs[e] = point(x_cur, x_prev, j0 + e, on, mom);
+    __syncthreads();
+    for (int c = lane; c < n; c += 32) {
+      const float xc = xs[c];
+#pragma unroll
+      for (int t = 0; t < kRows; ++t)
+        acc[t] = fmaf(gr[t][j0 + c], xc, acc[t]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int t = 0; t < kRows; ++t)
+      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
+  }
+  float mine = acc[0];
+#pragma unroll
+  for (int t = 1; t < kRows; ++t) mine = lane == t ? acc[t] : mine;
+  if (!own) return;
+  const Scal sc = load_scal(scal);
+  if (PDHG) {
+    const float sigma = sig[0];
+    const Scal dual = load_scal_at(scal, __fdiv_rn(1.f, sigma));
+    const float q = update<3>(x_row, mine, r_row, sc);
+    const WU nx = pdhg_tail<V>(q, u_row, sc.t, sigma, dual);
+    out[row] = nx.w;
+    u_out[row] = nx.u;
+  } else {
+    out[row] = update<V>(x_row, mine, r_row, sc);
+  }
+}
+
 int max_optin_smem() {
   static int cached[HOPPER_MAX_DEVICES] = {};
   int dev = 0;
@@ -463,6 +676,111 @@ int launch_loop(const float* G, const float* R, const float* z0,
   if (e != cudaSuccess) return (int)e;
   prox_loop_block_kernel<V, RING><<<1, p.threads, p.bytes, st>>>(
       G, R, z0, scal, W, d, k, Q, p);
+  return 0;
+}
+
+template <int V, bool RING>
+int launch_pdhg(const float* G, const float* R, const float* w0,
+                const float* u0, const float* scal, const float* sig,
+                float* W, float* u_out, int d, int k, const Plan& p,
+                cudaStream_t st) {
+  static std::atomic<bool> set[HOPPER_MAX_DEVICES];
+  cudaError_t e = smem_opt_in(pdhg_block_kernel<V, RING>,
+                              (size_t)max_optin_smem(), set);
+  if (e != cudaSuccess) return (int)e;
+  pdhg_block_kernel<V, RING><<<1, p.threads, p.bytes, st>>>(
+      G, R, w0, u0, scal, sig, W, u_out, d, k, p);
+  return 0;
+}
+
+template <int V>
+int pdhg_variant(const float* G, const float* R, const float* w0,
+                 const float* u0, const float* scal, const float* sig,
+                 float* W, float* u_out, int d, int k, cudaStream_t st) {
+  const Plan p = make_plan(G, d, k, 3, 0);
+  if (p.bytes > (size_t)max_optin_smem()) return (int)cudaErrorInvalidValue;
+  return p.per > 0 ? launch_pdhg<V, true>(G, R, w0, u0, scal, sig, W, u_out,
+                                          d, k, p, st)
+                   : launch_pdhg<V, false>(G, R, w0, u0, scal, sig, W,
+                                           u_out, d, k, p, st);
+}
+
+// one launch of the rows route: the step whose point is x_cur (extrapolated
+// from x_prev with the momentum of iteration j when momentum != 0)
+template <int V, bool PDHG>
+int launch_rows(const float* G, const float* R, const float* x_cur,
+                const float* x_prev, int j, int momentum, const float* u_in,
+                float* u_out, const float* scal, const float* sig,
+                float* out, int d, cudaStream_t st) {
+  const int64_t ctas = ((int64_t)d + kRowsPerCta - 1) / kRowsPerCta;
+  prox_rows_kernel<V, PDHG><<<(unsigned)ctas, kRowsThreads, 0, st>>>(
+      G, R, x_cur, x_prev, j, momentum, u_in, u_out, scal, sig, out, d);
+  return (int)cudaGetLastError();
+}
+
+// k FISTA steps on the rows route (momentum off: k ISTA steps from w)
+template <int V>
+int rows_step(const float* G, const float* R, const float* w_prev,
+              const float* w, const float* scal, float* W, int d, int k,
+              int j0, int momentum, cudaStream_t st) {
+  const int64_t dd = (int64_t)d * d;
+  for (int i = 0; i < k; ++i) {
+    const float* cur = i == 0 ? w : W + (int64_t)(i - 1) * d;
+    const float* prev =
+        i == 0 ? w_prev : (i == 1 ? w : W + (int64_t)(i - 2) * d);
+    const int e = launch_rows<V, false>(G + i * dd, R + (int64_t)i * d, cur,
+                                        prev, j0 + i, momentum, nullptr,
+                                        nullptr, scal, nullptr,
+                                        W + (int64_t)i * d, d, st);
+    if (e) return e;
+  }
+  return 0;
+}
+
+// k proximal Newton steps of Q on the rows route: a launch an inner
+// iteration, z ping-ponging through scratch (2 d floats)
+template <int V>
+int rows_loop(const float* G, const float* R, const float* z0,
+              const float* scal, float* W, float* scratch, int d, int k,
+              int Q, cudaStream_t st) {
+  const int64_t dd = (int64_t)d * d;
+  for (int i = 0; i < k; ++i) {
+    float* wi = W + (int64_t)i * d;
+    const float* from = i == 0 ? z0 : W + (int64_t)(i - 1) * d;
+    if (Q == 0) {  // no iteration: the step returns its warm start
+      cudaError_t e = cudaMemcpyAsync(wi, from, (size_t)d * sizeof(float),
+                                      cudaMemcpyDeviceToDevice, st);
+      if (e != cudaSuccess) return (int)e;
+      continue;
+    }
+    for (int q = 0; q < Q; ++q) {
+      const float* src = q == 0 ? from : scratch + ((q - 1) & 1) * (int64_t)d;
+      float* dst = q == Q - 1 ? wi : scratch + (q & 1) * (int64_t)d;
+      const int e = launch_rows<V, false>(G + i * dd, R + (int64_t)i * d,
+                                          src, src, 0, 0, nullptr, nullptr,
+                                          scal, nullptr, dst, d, st);
+      if (e) return e;
+    }
+  }
+  return 0;
+}
+
+// k PDHG steps on the rows route, u ping-ponging through scratch (2 d
+// floats) into u_out at the last step
+template <int V>
+int rows_pdhg(const float* G, const float* R, const float* w0,
+              const float* u0, const float* scal, const float* sig, float* W,
+              float* u_out, float* scratch, int d, int k, cudaStream_t st) {
+  const int64_t dd = (int64_t)d * d;
+  for (int i = 0; i < k; ++i) {
+    const float* w = i == 0 ? w0 : W + (int64_t)(i - 1) * d;
+    const float* u = i == 0 ? u0 : scratch + ((i - 1) & 1) * (int64_t)d;
+    float* un = i == k - 1 ? u_out : scratch + (i & 1) * (int64_t)d;
+    const int e = launch_rows<V, true>(G + i * dd, R + (int64_t)i * d, w, w,
+                                       0, 0, u, un, scal, sig,
+                                       W + (int64_t)i * d, d, st);
+    if (e) return e;
+  }
   return 0;
 }
 
@@ -566,6 +884,70 @@ int prox_loop_max_d(void) {
   return largest_d([](int d, size_t limit) {
     return plan_bytes(d, 1, 3, 2, 0, false) <= limit;
   });
+}
+
+// G (k, d, d), R (k, d), w, u (d,), scal (5,), sig (1,) = [sigma], W (k, d),
+// u_out (d,): k PDHG steps in one launch (one CTA)
+int pdhg_block_f32(const float* G, const float* R, const float* w,
+                   const float* u, const float* scal, const float* sig,
+                   float* W, float* u_out, int d, int k, int variant,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  switch (variant) {
+    case 0: err = pdhg_variant<0>(G, R, w, u, scal, sig, W, u_out, d, k, st); break;
+    case 1: err = pdhg_variant<1>(G, R, w, u, scal, sig, W, u_out, d, k, st); break;
+    case 2: err = pdhg_variant<2>(G, R, w, u, scal, sig, W, u_out, d, k, st); break;
+    case 3: err = pdhg_variant<3>(G, R, w, u, scal, sig, W, u_out, d, k, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// The rows route, a launch a dependent step. As prox_step_block_f32
+// (momentum 0: k ISTA steps from w, w_prev unread) ...
+int prox_rows_step_f32(const float* G, const float* R, const float* w_prev,
+                       const float* w, const float* scal, float* W, int d,
+                       int k, int j0, int momentum, int variant,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return rows_step<0>(G, R, w_prev, w, scal, W, d, k, j0, momentum, st);
+    case 1: return rows_step<1>(G, R, w_prev, w, scal, W, d, k, j0, momentum, st);
+    case 2: return rows_step<2>(G, R, w_prev, w, scal, W, d, k, j0, momentum, st);
+    case 3: return rows_step<3>(G, R, w_prev, w, scal, W, d, k, j0, momentum, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ... as prox_loop_block_f32, scratch (2 d floats) ...
+int prox_rows_loop_f32(const float* G, const float* R, const float* z0,
+                       const float* scal, float* W, float* scratch, int d,
+                       int k, int Q, int variant, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return rows_loop<0>(G, R, z0, scal, W, scratch, d, k, Q, st);
+    case 1: return rows_loop<1>(G, R, z0, scal, W, scratch, d, k, Q, st);
+    case 2: return rows_loop<2>(G, R, z0, scal, W, scratch, d, k, Q, st);
+    case 3: return rows_loop<3>(G, R, z0, scal, W, scratch, d, k, Q, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ... and as pdhg_block_f32, scratch (2 d floats)
+int prox_rows_pdhg_f32(const float* G, const float* R, const float* w,
+                       const float* u, const float* scal, const float* sig,
+                       float* W, float* u_out, float* scratch, int d, int k,
+                       int variant, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return rows_pdhg<0>(G, R, w, u, scal, sig, W, u_out, scratch, d, k, st);
+    case 1: return rows_pdhg<1>(G, R, w, u, scal, sig, W, u_out, scratch, d, k, st);
+    case 2: return rows_pdhg<2>(G, R, w, u, scal, sig, W, u_out, scratch, d, k, st);
+    case 3: return rows_pdhg<3>(G, R, w, u, scal, sig, W, u_out, scratch, d, k, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* cuda_error_string(int err) {

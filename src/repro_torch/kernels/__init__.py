@@ -6,7 +6,10 @@
   prox_step/        ``prox_step_block``,          csrc/prox_step.cu
                     ``prox_loop_block``, and
                     their k = 1 instances
-                    ``prox_step``, ``prox_loop``
+                    ``prox_step``, ``prox_loop``;
+                    ``pdhg_block``; for large d
+                    all of them take the rows
+                    route (kernel ``prox_rows``)
   flash_attention/  ``flash_attention``,          csrc/flash_attention.cu
                     ``flash_dq``, ``flash_dkv``,
                     ``paged_attention`` (kernel ``paged_decode``)
@@ -38,6 +41,8 @@ def _cuda_wrappers():
             "prox_loop": prox_ops.prox_loop_cuda,
             "prox_step_block": prox_ops.prox_step_block_cuda,
             "prox_loop_block": prox_ops.prox_loop_block_cuda,
+            "pdhg_block": prox_ops.pdhg_block_cuda,
+            "prox_rows": prox_ops.prox_rows_cuda,
             "flash_attention": fa_ops.flash_attention_cuda,
             "paged_decode": fa_ops.paged_decode_cuda,
             "flash_dq": fa_ops.flash_dq_cuda,

@@ -8,8 +8,9 @@ Pallas kernel ``repro.kernels.gram.kernel.gram``); ``torch`` is
 ``gram_gather``: the same over the draws idx (k, m) of a sample-major copy
 of the data, Xy_rows (n, r_pad), read in place by the kernel, scaled by
 inv_m and split into G (k, r-1, r-1) and R (k, r-1), R the last column: the
-Lasso solvers' block statistics in one launch pair. ``torch`` is
-:func:`ref.gram_gather`.
+Lasso solvers' block statistics in one launch pair, optionally into one
+flat buffer ``out`` (G, then R) that a distributed solve all-reduces in one
+collective. ``torch`` is :func:`ref.gram_gather`.
 
 Both kernels split the m axis into chunks fixed by m alone
 (:func:`chunking`), write one partial triangle per chunk into scratch the
@@ -84,7 +85,7 @@ gram_cuda.launches = 0
 
 
 def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
-                     inv_m: float):
+                     inv_m: float, out=None):
     """G (k, d, d) and R (k, d), d = r - 1, of the draws idx (k, m) over the
     rows of Xy_rows (n, r_pad), both times inv_m, by the Hopper kernel:
     entry (i, j) of the draw b is inv_m * sum_s Xy_rows[idx[b, s], i] *
@@ -95,7 +96,7 @@ def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
     idx is int64, contiguous, on the same card, read in place; a row drawn
     twice counts twice. The indices are not range-checked on the card (that
     would cost a host sync): each must lie in [0, n), as the solvers draw
-    them."""
+    them. ``out``: see :func:`ref.split_out`."""
     what = "gram_gather"
     for name, t, dtype in (("Xy_rows", Xy_rows, torch.float32),
                            ("idx", idx, torch.int64)):
@@ -123,8 +124,7 @@ def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
     dev = Xy_rows.device
     part = torch.empty(k * nchunks * _triangle(r), dtype=torch.float32,
                        device=dev)
-    G = torch.empty(k, r - 1, r - 1, dtype=torch.float32, device=dev)
-    R = torch.empty(k, r - 1, dtype=torch.float32, device=dev)
+    G, R = ref.split_out(out, k, r - 1, dev)
     fn = _build.function("gram", "gram_gather_f32", _GATHER_ARGS)
     err = fn(Xy_rows.data_ptr(), idx.data_ptr(), part.data_ptr(),
              G.data_ptr(), R.data_ptr(), k, r, r_pad, m, chunk, nchunks,

@@ -4,8 +4,9 @@ oracle the CUDA kernels are held against.
 ``scal`` is the (5,) float32 tensor ``[t, lam, mu, lo, hi]``; ``variant``
 selects the element-wise prox (``l1``, ``elastic_net``, ``box``, ``none``),
 as in ``repro.kernels.prox_step.ref``. No value is read back to the host.
-The block versions loop the one-step versions k times, with FISTA's
-momentum from :func:`fista_momentum` (kept here, below the solvers that
+The block versions loop the one-step versions k times (PDHG's,
+:func:`pdhg_step`, is the JAX package's ``pdhg_update`` op for op), with
+FISTA's momentum from :func:`fista_momentum` (kept here, below the solvers that
 re-export it, so the kernels import nothing of ``core``).
 """
 import numpy as np
@@ -18,8 +19,12 @@ def _shrink(x, thresh):
     return torch.sign(x) * torch.clamp_min(torch.abs(x) - thresh, 0.0)
 
 
-def prox(x: torch.Tensor, scal: torch.Tensor, variant: str) -> torch.Tensor:
+def prox(x: torch.Tensor, scal: torch.Tensor, variant: str,
+         step=None) -> torch.Tensor:
+    """The element-wise prox of g at step ``step`` (default t, scal[0])."""
     t, lam, mu, lo, hi = scal.unbind()
+    if step is not None:
+        t = step
     if variant == "l1":
         return _shrink(x, lam * t)
     if variant == "elastic_net":
@@ -81,3 +86,28 @@ def prox_loop_block(G, R, z0, scal, *, Q: int, variant="l1"):
         z = prox_loop(G[i], R[i], z, scal, Q=Q, variant=variant)
         out.append(z)
     return torch.stack(out)
+
+
+def pdhg_step(G, R, w, u, scal, sigma, *, variant="l1"):
+    """One PDHG step (the Loris-Verhoeven form, K = I), op for op the JAX
+    package's ``pdhg_update``: q = w - t (G w - R), wbar = q - t u,
+    u+ = x - sigma prox_{g/sigma}(x / sigma) with x = u + sigma wbar (the
+    Moreau identity), w+ = q - t u+. Returns (w+, u+)."""
+    t, sigma = scal[0], sigma.reshape(())
+    q = prox_step(G, R, w, scal, variant="none")
+    wbar = q - t * u
+    x = u + sigma * wbar
+    inv = 1.0 / sigma
+    u_new = x - sigma * prox(x * inv, scal, variant, step=inv)
+    return q - t * u_new, u_new
+
+
+def pdhg_block(G, R, w, u, scal, sigma, *, variant="l1"):
+    """k PDHG steps against G (k, d, d), R (k, d): k calls of
+    :func:`pdhg_step`. Returns the k primal iterates W (k, d) and the last
+    dual iterate u."""
+    out = []
+    for i in range(G.shape[0]):
+        w, u = pdhg_step(G[i], R[i], w, u, scal, sigma, variant=variant)
+        out.append(w)
+    return torch.stack(out), u

@@ -4,7 +4,7 @@
       --scale 10 --algorithm ca_sfista --k 32 --b 0.1 --T 256
 
 The flags and defaults are the JAX launcher's (``repro.launch.lasso_solve``)
-for the ported solvers, plus ``--device`` (default ``cuda``; ``cpu`` runs
+for its eight solvers, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain versions on the CPU). ``--scale 10`` is covtype at its
 full 581,010 rows and ``--scale 50`` susy at 5,000,000.
 """
@@ -18,13 +18,14 @@ import torch
 
 from repro_torch import kernels, resolve_device
 from repro_torch.core import (SolverConfig, sfista, ca_sfista, spnm, ca_spnm,
-                              solve_reference, relative_solution_error,
-                              lasso_objective)
+                              pdhg, ca_pdhg, bcd, ca_bcd, solve_reference,
+                              relative_solution_error, lasso_objective)
 from repro_torch.core.cost_model import CostModel, MachineParams
 from repro_torch.core.problem import LassoProblem
 from repro_torch.data import make_dataset_like
 
-SOLVERS = dict(sfista=sfista, ca_sfista=ca_sfista, spnm=spnm, ca_spnm=ca_spnm)
+SOLVERS = dict(sfista=sfista, ca_sfista=ca_sfista, spnm=spnm, ca_spnm=ca_spnm,
+               pdhg=pdhg, ca_pdhg=ca_pdhg, bcd=bcd, ca_bcd=ca_bcd)
 
 
 class Run(NamedTuple):
@@ -112,8 +113,9 @@ def main(argv=None) -> Run:
     nnz = int((torch.abs(w) > 1e-6).sum())
     print(f"solution support: {nnz}/{problem.d}")
     # on the card: gram_gather and the rule's block prox kernel
-    # (prox_step_block for FISTA, prox_loop_block for PNM), T/k launches
-    # each for CA, T for classical; none on the CPU (plain versions)
+    # (prox_step_block for FISTA, prox_loop_block for PNM, pdhg_block for
+    # PDHG), T/k launches each for CA, T for classical; for BCD, gram T/k or
+    # T times; none on the CPU (plain versions)
     print("kernel launches: " + (" ".join(
         f"{op}={n}" for op, n in launches.items() if n) or "none"))
     cm = CostModel(d=problem.d, n=problem.n, b=args.b, T=iters, k=args.k)

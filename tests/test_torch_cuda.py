@@ -2,8 +2,10 @@
 Hopper card: each kernel against its plain PyTorch version, one draw's Gram
 bits independent of the batch, the attention backward's and the SSD
 scans' bits independent of the launch and the batch, the block prox
-kernels bitwise their one-step instances, CA == classical through the
-kernels, and at the smoke configs the engine's k-invariance,
+kernels (``pdhg_block`` too, and the rows route at large d) bitwise their
+one-step instances, CA == classical through the kernels (PDHG and BCD
+too), the distributed solvers in an NCCL group of one, and at the smoke
+configs the engine's k-invariance,
 teacher-forced decode against the forward and the train step through the
 backward kernels (internlm2) and through the SSD kernels (mamba2). Every test here
 needs the card and skips without one.
@@ -20,7 +22,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core import SolverConfig, ca_sfista, ca_spnm, sfista, spnm
-from repro_torch.core import update_rules as ur
+from repro_torch.core import sstep, update_rules as ur
 from repro_torch.core.sampling import gather_columns
 from repro_torch.data import make_lasso_data
 from repro_torch.kernels import registry
@@ -161,33 +163,100 @@ def test_prox_cuda_matches_plain(cuda, variant, d):
         G, R, v, scal, Q=5, variant=variant), rtol=1e-5, atol=1e-5)
 
 
-def test_prox_wrappers_refuse_d_past_the_shared_memory_limit(cuda):
-    """The kernels keep the iterate in shared memory: the largest d runs,
-    one more is refused by every prox wrapper before any launch."""
-    _, max_d = prox_ops.prox_loop_limits()
-    d = max_d + 1
-    gen = torch.Generator(device=cuda).manual_seed(d)
-    G = torch.randn(d, d, generator=gen, device=cuda) / d
-    R, v = _randn(d, d + 1, cuda), _randn(d, d + 2, cuda)
+def _dual_err(u, want_u, want_w, sigma):
+    """PDHG's dual iterate against the plain one, normwise at the scale it
+    is computed at: u+ = x - sigma prox(x / sigma) with x near sigma w+, so
+    max(|u+|, sigma |w+|) (at variant "none" u+ is rounding noise around 0
+    and its own maximum no scale)."""
+    scale = max(float(want_u.abs().max()),
+                float(sigma) * float(want_w.abs().max()))
+    return float((u - want_u).abs().max()) / scale
+
+
+def _rows_block(k, d, seed, device):
+    """A (k, d, d) block for the rows route: symmetric positive definite up
+    to d = 4096, scaled Gaussian above (any G holds the arithmetic)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if d <= 4096:
+        A = torch.randn(k, d, d, generator=gen, device=device)
+        G = (A @ A.transpose(1, 2) / d).contiguous()
+        del A
+    else:
+        G = torch.randn(k, d, d, generator=gen, device=device) / d ** 0.5
+    vecs = [torch.randn(d, generator=gen, device=device) for _ in range(3)]
+    return G, torch.randn(k, d, generator=gen, device=device), vecs
+
+
+@pytest.mark.parametrize("d", [4096, 20_480])
+def test_rows_route_is_bitwise_its_k1_instance_and_matches_plain(cuda, d):
+    """Above the threshold every prox op takes the rows route, past the
+    one-CTA limit too (d = 20,480 > 19,368): a block is bitwise k launches
+    of its k = 1 instance, and each step within 1e-5 of the plain step
+    from the kernel's own previous iterate, normwise."""
+    assert prox_ops.rows_route(d)
+    k = 2
+    G, R, (wp, w, u) = _rows_block(k, d, d, cuda)
+    u = u * 0.01
     scal = prox_scalars(*SCAL, device=cuda)
-    Gm, Rm, vm = G[:max_d, :max_d].contiguous(), R[:max_d], v[:max_d]
-    assert _normwise(prox_ops.prox_step_cuda(Gm, Rm, vm, scal),
-                     prox_ref.prox_step(Gm, Rm, vm, scal)) <= 1e-5
-    del Gm
-    calls = {
-        "prox_step": lambda: prox_ops.prox_step_cuda(G, R, v, scal),
-        "prox_loop": lambda: prox_ops.prox_loop_cuda(G, R, v, scal, Q=2),
-        "prox_step_block": lambda: prox_ops.prox_step_block_cuda(
-            G[None], R[None], v, v, scal, j0=1),
-        "prox_loop_block": lambda: prox_ops.prox_loop_block_cuda(
-            G[None], R[None], v, scal, Q=2),
-    }
+    sigma = torch.tensor([0.5 / SCAL[0]], device=cuda)
+    variants = VARIANTS if d <= 4096 else ("l1",)
+    for variant in variants:
+        kernels.reset_launch_counts()
+        W = prox_ops.prox_step_block_cuda(G, R, wp, w, scal, j0=5,
+                                          variant=variant)
+        Z = prox_ops.prox_loop_block_cuda(G, R, w, scal, Q=3,
+                                          variant=variant)
+        P, pu = prox_ops.pdhg_block_cuda(G, R, w, u, scal, sigma,
+                                         variant=variant)
+        launches = kernels.launch_counts()
+        assert launches["prox_rows"] == k + k * 3 + k
+        assert launches["prox_step_block"] + launches["prox_loop_block"] \
+            + launches["pdhg_block"] == 0
+        a, b, z, x, c, pd = wp, w, w, w, u, [(w, u)]
+        for i in range(k):
+            a, b = b, prox_ops.prox_step_block_cuda(
+                G[i:i + 1], R[i:i + 1], a, b, scal, j0=5 + i,
+                variant=variant)[0]
+            z = prox_ops.prox_loop_cuda(G[i], R[i], z, scal, Q=3,
+                                        variant=variant)
+            x1, c = prox_ops.pdhg_block_cuda(G[i:i + 1], R[i:i + 1], x, c,
+                                             scal, sigma, variant=variant)
+            x = x1[0]
+            pd.append((x, c))
+            assert torch.equal(W[i], b) and torch.equal(Z[i], z)
+            assert torch.equal(P[i], x)
+        assert torch.equal(pu, c)
+        prev, zprev = [wp, w] + list(W), [w] + list(Z)
+        for i in range(k):
+            assert _normwise(W[i], prox_ref.prox_step_block(
+                G[i:i + 1], R[i:i + 1], prev[i], prev[i + 1], scal,
+                j0=5 + i, variant=variant)[0]) <= 1e-5
+            assert _normwise(Z[i], prox_ref.prox_loop(
+                G[i], R[i], zprev[i], scal, Q=3, variant=variant)) <= 1e-5
+            rw, ru = prox_ref.pdhg_step(G[i], R[i], *pd[i], scal, sigma,
+                                        variant=variant)
+            assert _normwise(pd[i + 1][0], rw) <= 1e-5
+            assert _dual_err(pd[i + 1][1], ru, rw, sigma) <= 1e-5
+
+
+def test_prox_wrappers_take_d_past_the_one_cta_limit(cuda):
+    """The one-CTA kernels keep the iterate in shared memory and stop at
+    prox_loop_limits()[1]; the wrappers take the rows route above the
+    threshold, so no prox op refuses a d that fits the card's memory."""
+    _, max_d = prox_ops.prox_loop_limits()
+    assert prox_ops.ROWS_ABOVE_D <= max_d
+    d = 20_480
+    assert d > max_d
+    G, R, (v, _, _) = _rows_block(1, d, 1, cuda)
+    scal = prox_scalars(*SCAL, device=cuda)
     kernels.reset_launch_counts()
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=f"{name}: d={d} is above "
-                                             f"{max_d}"):
-            call()
-    assert all(n == 0 for n in kernels.launch_counts().values())
+    got = prox_ops.prox_step_cuda(G[0], R[0], v, scal)
+    loop = prox_ops.prox_loop_cuda(G[0], R[0], v, scal, Q=2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["prox_rows"] == 3
+    assert _normwise(got, prox_ref.prox_step(G[0], R[0], v, scal)) <= 1e-5
+    assert _normwise(loop, prox_ref.prox_loop(G[0], R[0], v, scal,
+                                              Q=2)) <= 1e-5
 
 
 #: the block prox kernels' card cases (label, k, d): the CA blocks of a
@@ -195,7 +264,7 @@ def test_prox_wrappers_refuse_d_past_the_shared_memory_limit(cuda):
 #: stages of 16) problem from gram_gather's own output, then random blocks:
 #: k = 1 (G read from global memory), 2 (stages of one G_i) and 7, ragged
 #: d = 61 (d^2 not a multiple of 4: global memory), d = 130 and 160
-#: (stages of one G_i near the limit) and d = 300 (global memory)
+#: (stages of one G_i near the limit) and d = 300 (the rows route)
 PROX_BLOCK_CASES = [("gram", 32, 54), ("gram", 32, 18), ("random", 1, 54),
                     ("random", 2, 54), ("random", 7, 54), ("random", 1, 18),
                     ("random", 7, 61), ("random", 32, 61),
@@ -255,6 +324,110 @@ def test_prox_block_cuda_is_bitwise_its_k1_instance_run_k_times(
         G, R, wp, w, scal, j0=j0, variant=variant)) <= 1e-5
     assert _normwise(Z, prox_ref.prox_loop_block(
         G, R, w, scal, Q=5, variant=variant)) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("label,k,d", [c for c in PROX_BLOCK_CASES
+                                       if c[2] <= prox_ops.ROWS_ABOVE_D])
+def test_pdhg_block_cuda_is_bitwise_its_k1_instance_and_matches_plain(
+        cuda, label, k, d, variant):
+    """pdhg_block against k launches of its k = 1 instance, bit for bit (w
+    and u), and each step within 1e-5 of the plain step (k calls of the
+    stepwise pdhg_update's arithmetic) from the kernel's own previous
+    iterate, normwise; at sigma = 1/t each step is ISTA's."""
+    G, R, _, w = _prox_block(label, k, d, cuda)
+    u = _randn(d, d + 4, cuda) * 0.01
+    scal = prox_scalars(*SCAL, device=cuda)
+    for sigma in (torch.tensor([0.5 / SCAL[0]], device=cuda),
+                  torch.tensor([1.0 / SCAL[0]], device=cuda)):
+        W, u_out = prox_ops.pdhg_block_cuda(G, R, w, u, scal, sigma,
+                                            variant=variant)
+        x, c, states = w, u, []
+        for i in range(k):
+            x1, c = prox_ops.pdhg_block_cuda(G[i:i + 1], R[i:i + 1], x, c,
+                                             scal, sigma, variant=variant)
+            x = x1[0]
+            states.append((x, c))
+        torch.cuda.synchronize()
+        assert torch.equal(W, torch.stack([s[0] for s in states]))
+        assert torch.equal(u_out, c)
+        pw, pu = w, u
+        for i in range(k):
+            rw, ru = prox_ref.pdhg_step(G[i], R[i], pw, pu, scal, sigma,
+                                        variant=variant)
+            assert _normwise(W[i], rw) <= 1e-5
+            assert _dual_err(states[i][1], ru, rw, sigma) <= 1e-5
+            pw, pu = states[i]
+    # sigma = 1/t, u0 = 0: each step is the ISTA step from the previous w
+    sigma = torch.tensor([1.0 / SCAL[0]], device=cuda)
+    W, _ = prox_ops.pdhg_block_cuda(G, R, w, torch.zeros_like(w), scal,
+                                    sigma, variant=variant)
+    prev = [w] + list(W)
+    for i in range(k):
+        assert _normwise(W[i], prox_ref.prox_step(
+            G[i], R[i], prev[i], scal, variant=variant)) <= 1e-5
+
+
+@pytest.mark.parametrize("k,r,m", [(2, 4096, 5), (1, 160, 200_000),
+                                   (4, 160, 58_101)])
+def test_gram_cuda_at_the_family_shapes(cuda, k, r, m):
+    """gram at BCD's cross-Gram (r = k m_c = 160) and the dual SVM's G
+    (r = n = 4,096, m = b d features): against the plain version."""
+    Xs = _randn((k, r, m), k + r, cuda)
+    got = gram_ops.gram_cuda(Xs)
+    torch.cuda.synchronize()
+    assert _normwise(got, gram_ref.gram(Xs)) <= GRAM_RTOL
+    assert torch.equal(got[-1], gram_ops.gram_cuda(Xs[-1]))
+
+
+def test_family_ca_matches_classical_through_the_kernels(cuda):
+    """CA-PDHG is PDHG bit for bit (pdhg_block T/k and T times,
+    gram_gather as often); CA-BCD is BCD to the JAX package's tolerance
+    (gram T/k and T times); both near their plain solves."""
+    from repro_torch.core import bcd, ca_bcd, ca_pdhg, pdhg
+    problem, _ = make_lasso_data(0, d=54, n=20_000, device=cuda)
+    cfg = SolverConfig(T=64, k=16, b=0.1, step_size=0.5)
+    for cl, ca, op, atol in ((pdhg, ca_pdhg, "pdhg_block", 0.0),
+                             (bcd, ca_bcd, "gram", 2e-5)):
+        kernels.reset_launch_counts()
+        w_cl, w_ca = cl(problem, cfg, 3), ca(problem, cfg, 3)
+        launches = kernels.launch_counts()
+        assert launches[op] == cfg.T + cfg.T // cfg.k
+        if atol == 0.0:
+            assert torch.equal(w_ca, w_cl)
+            assert launches["gram_gather"] == cfg.T + cfg.T // cfg.k
+        else:
+            assert float((w_ca - w_cl).abs().max()) <= atol
+        with registry.use("torch"):
+            w_plain = cl(problem, cfg, 3)
+        assert float((w_cl - w_plain).abs().max()) <= 1e-4
+
+
+def test_distributed_world_one_nccl_is_bitwise_the_single_process(cuda):
+    """An NCCL group of one in this process (an in-process store): the
+    distributed CA-SFISTA and CA-BCD keep the single-process bits, with
+    T/k all-reduces."""
+    from repro_torch.core import ca_bcd
+    from repro_torch.core.distributed import (CollectiveCount,
+                                              make_distributed_solver)
+    from repro_torch.launch import mesh
+    problem, _ = make_lasso_data(0, d=54, n=20_000, device=cuda)
+    cfg = SolverConfig(T=64, k=16, b=0.1, step_size=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        for alg, single in (("ca_sfista", ca_sfista), ("ca_bcd", ca_bcd)):
+            schedule = "coord" if alg == "ca_bcd" else "gram"
+            idx = sstep.draws(problem, cfg, gen, None, schedule)
+            count = CollectiveCount()
+            w = make_distributed_solver(alg, cfg, problem.lam,
+                                        counter=count)(
+                problem.X, problem.y, torch.zeros(54, device=cuda), 0.5,
+                idx=idx)
+            assert count.all_reduces == cfg.T // cfg.k
+            assert torch.equal(w, single(problem, cfg, idx=idx))
+    finally:
+        mesh.shutdown()
 
 
 @pytest.mark.parametrize("pair", [(sfista, ca_sfista), (spnm, ca_spnm)],

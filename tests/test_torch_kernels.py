@@ -346,6 +346,9 @@ def test_prox_block_ops_do_not_fall_back_to_the_plain_versions():
         with pytest.raises(RuntimeError, match="backend 'cuda' cannot run"):
             registry.dispatch("prox_loop_block", G, R, w,
                               prox_scalars(*SCAL), Q=2)
+        with pytest.raises(RuntimeError, match="backend 'cuda' cannot run"):
+            registry.dispatch("pdhg_block", G, R, w, w, prox_scalars(*SCAL),
+                              torch.ones(1))
 
 
 def test_prox_scalars_layout():
@@ -368,6 +371,8 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
                       prox_scalars(*SCAL), j0=1)
     registry.dispatch("prox_loop_block", G[None], R[None], v,
                       prox_scalars(*SCAL), Q=2)
+    registry.dispatch("pdhg_block", G[None], R[None], v, v,
+                      prox_scalars(*SCAL), torch.ones(1))
     q = torch.from_numpy(_xs((1, 4, 2, 16)))
     registry.dispatch("flash_attention", q, q, q, causal=True)
     (pq, kp, vp, t, n), _ = _paged_inputs(2, 4, 2, 16, 5, 3, "f32")
@@ -384,13 +389,14 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
         ("gram", "torch"): 1, ("gram_gather", "torch"): 1,
         ("prox_step", "torch"): 1, ("prox_loop", "torch"): 1,
         ("prox_step_block", "torch"): 1, ("prox_loop_block", "torch"): 1,
-        ("flash_attention", "torch"): 1,
+        ("pdhg_block", "torch"): 1, ("flash_attention", "torch"): 1,
         ("paged_attention", "torch"): 1, ("flash_dq", "torch"): 1,
         ("flash_dkv", "torch"): 1, ("ssd", "torch"): 1,
         ("ssd_bwd", "torch"): 1}
     assert launch_counts() == {"gram": 0, "gram_gather": 0, "prox_step": 0,
                                "prox_loop": 0, "prox_step_block": 0,
-                               "prox_loop_block": 0, "flash_attention": 0,
+                               "prox_loop_block": 0, "pdhg_block": 0,
+                               "prox_rows": 0, "flash_attention": 0,
                                "paged_decode": 0, "flash_dq": 0,
                                "flash_dkv": 0, "ssd": 0, "ssd_bwd": 0}
 

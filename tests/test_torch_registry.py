@@ -21,8 +21,9 @@ def clean_policy(monkeypatch):
 def test_ops_table():
     assert registry.ops() == ["flash_attention", "flash_dkv", "flash_dq",
                               "gram", "gram_gather", "paged_attention",
-                              "prox_loop", "prox_loop_block", "prox_step",
-                              "prox_step_block", "ssd", "ssd_bwd"]
+                              "pdhg_block", "prox_loop", "prox_loop_block",
+                              "prox_step", "prox_step_block", "ssd",
+                              "ssd_bwd"]
 
 
 def test_policy_precedence(monkeypatch):

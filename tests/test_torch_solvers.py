@@ -313,7 +313,8 @@ def test_lasso_solve_cli_on_cpu(capsys, algorithm):
     # the CPU run takes the plain versions: no kernel is launched
     assert run.launches == {"gram": 0, "gram_gather": 0, "prox_step": 0,
                             "prox_loop": 0, "prox_step_block": 0,
-                            "prox_loop_block": 0, "flash_attention": 0,
+                            "prox_loop_block": 0, "pdhg_block": 0,
+                            "prox_rows": 0, "flash_attention": 0,
                             "paged_decode": 0, "flash_dq": 0, "flash_dkv": 0,
                             "ssd": 0, "ssd_bwd": 0}
 
@@ -360,3 +361,219 @@ print("ISOLATED", run.rel_err)
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "ISOLATED" in out.stdout
+
+
+# ------------------------------------- the rest of the family: PDHG, BCD --
+#: the JAX package's problems of tests/test_sstep.py, one of each family
+def _family():
+    jnp = jax.numpy
+    kX, kw, kn = jax.random.split(KEY, 3)
+    X = jax.random.normal(kX, (16, 256))
+    w_true = jax.random.normal(kw, (16,))
+    y = X.T @ w_true + 0.1 * jax.random.normal(kn, (256,))
+    labels = jnp.sign(X.T @ w_true + 1e-3)
+    return {"lasso": jcore.LassoProblem(X, y, lam=0.05),
+            "enet": jcore.ElasticNetProblem(X, y, lam=0.05, mu=0.05),
+            "svm": jcore.DualSVMProblem(X, labels, C=1.0)}
+
+
+FAMILY = _family()
+FAMILY_SOLVERS = ["pdhg", "ca_pdhg", "bcd", "ca_bcd"]
+#: the JAX package's tolerances (tests/test_sstep.py): BCD's in-block
+#: replay reassociates a matrix-vector product
+FAMILY_ATOL = {"pdhg": SOLVER_ATOL, "bcd": 2e-5}
+
+
+def _family_case(name, cfg=None):
+    """(JAX problem, port problem, cfg with the JAX package's step t)."""
+    jprob = FAMILY[name]
+    base = cfg or jcore.SolverConfig(T=64, k=8, b=0.25)
+    t = float(jprob.default_step(base))
+    return (jprob, to_torch_problem(jprob),
+            dataclasses.replace(base, step_size=t))
+
+
+def _schedule(solver):
+    return "coord" if solver.endswith("bcd") else "gram"
+
+
+@pytest.mark.parametrize("variant", ["l1", "elastic_net", "box", "none"])
+def test_moreau_dual_prox_matches_jax(variant):
+    from repro.core.soft_threshold import moreau_dual_prox
+    x = np.random.default_rng(1).standard_normal(64).astype(np.float32)
+    kw = dict(lam=0.3, mu=0.5, lo=-0.4, hi=0.6)
+    for sigma in (0.25, 1.7):
+        np.testing.assert_allclose(
+            _np(tcore.moreau_dual_prox(to_torch(x), sigma, variant, **kw)),
+            np.asarray(moreau_dual_prox(jax.numpy.asarray(x), sigma,
+                                        variant, **kw)), rtol=1e-6,
+            atol=1e-7)
+
+
+@pytest.mark.parametrize("solver", FAMILY_SOLVERS)
+@pytest.mark.parametrize("problem", ["lasso", "enet", "svm"])
+def test_family_matches_jax_given_same_draws_and_step(problem, solver):
+    """PDHG, CA-PDHG, BCD and CA-BCD on each problem family: the port's
+    history against the JAX package's (XLA backend), the same draws and
+    step, at the JAX package's own tolerances."""
+    jprob, tprob, cfg = _family_case(problem)
+    with jregistry.use("xla"):
+        _, h_jax = getattr(jcore, solver)(jprob, cfg, KEY,
+                                          collect_history=True)
+    idx = jax_draws(KEY, cfg, jprob, _schedule(solver))
+    w, h = getattr(tcore, solver)(tprob, to_torch_config(cfg), idx=idx,
+                                  collect_history=True)
+    atol = FAMILY_ATOL[solver.removeprefix("ca_")]
+    assert h.shape == (cfg.T, tprob.dim) and torch.equal(h[-1], w)
+    np.testing.assert_allclose(_np(h), np.asarray(h_jax), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("pair", ["pdhg", "bcd"])
+@pytest.mark.parametrize("problem", ["lasso", "enet", "svm"])
+def test_family_ca_matches_classical(problem, pair):
+    """Same draws: CA-PDHG is PDHG bit for bit (one pdhg_block a k-block,
+    its k = 1 instance per step); CA-BCD is BCD to the JAX package's
+    tolerance (the in-block replay reassociates C_j @ delta)."""
+    _, tprob, cfg = _family_case(problem)
+    tcfg = to_torch_config(cfg)
+    idx = sstep.draws(tprob, tcfg, 9, None,
+                      "coord" if pair == "bcd" else "gram")
+    w_cl, h_cl = getattr(tcore, pair)(tprob, tcfg, idx=idx,
+                                      collect_history=True)
+    w_ca, h_ca = getattr(tcore, "ca_" + pair)(tprob, tcfg, idx=idx,
+                                              collect_history=True)
+    if pair == "pdhg":
+        assert torch.equal(h_ca, h_cl) and torch.equal(w_ca, w_cl)
+    else:
+        np.testing.assert_allclose(_np(h_ca), _np(h_cl),
+                                   atol=FAMILY_ATOL["bcd"], rtol=0)
+    if problem == "svm" and pair == "bcd":
+        # the box prox keeps every BCD iterate dual-feasible (PDHG's primal
+        # iterate q - t u is not a prox output)
+        assert float(h_ca.min()) >= 0.0 and float(h_ca.max()) <= 1.0 + 1e-6
+
+
+def test_pdhg_sigma_inv_t_collapses_to_ista():
+    """At sigma = 1/t (and u0 = 0) each PDHG iteration is the ISTA step
+    prox_{t g}(q): against a hand-rolled ISTA on the same Gram pairs, at
+    the JAX package's tolerance for this oracle (tests/test_sstep.py)."""
+    _, tprob, cfg = _family_case("lasso", jcore.SolverConfig(T=32, k=8,
+                                                             b=0.25))
+    tcfg = dataclasses.replace(to_torch_config(cfg),
+                               sigma=1.0 / cfg.step_size)
+    idx = sstep.draws(tprob, tcfg, 4, None)
+    _, hist = tcore.ca_pdhg(tprob, tcfg, idx=idx, collect_history=True)
+    t = torch.tensor(cfg.step_size)
+    w = torch.zeros(tprob.d)
+    for j in range(tcfg.T):
+        G, R = tprob.block_stats(idx[j:j + 1])
+        w = tcore.prox_elem(w - t * (G[0] @ w - R[0]), t, "l1",
+                            lam=tprob.lam)
+        np.testing.assert_allclose(_np(hist[j]), _np(w), atol=1e-4)
+
+
+@pytest.mark.parametrize("ca", [True, False], ids=["ca", "classical"])
+@pytest.mark.parametrize("problem", ["lasso", "svm"])
+def test_pdhg_block_is_bitwise_the_stepwise_route(problem, ca):
+    """A PDHG solve's history has the bits of the stepwise route: each
+    block's Gram pairs, then k calls of pdhg_update; one gram_gather (gram
+    for the dual SVM) and one pdhg_block dispatch a block."""
+    _, tprob, cfg = _family_case(problem)
+    tcfg = to_torch_config(cfg)
+    idx = sstep.draws(tprob, tcfg, 11, None)
+    registry.reset_dispatch_counts()
+    _, hist = tcore.ca_pdhg(tprob, tcfg, idx=idx, collect_history=True) \
+        if ca else tcore.pdhg(tprob, tcfg, idx=idx, collect_history=True)
+    blocks = tcfg.T // tcfg.k if ca else tcfg.T
+    stats = "gram" if problem == "svm" else "gram_gather"
+    assert registry.dispatch_counts() == {(stats, "torch"): blocks,
+                                          ("pdhg_block", "torch"): blocks}
+    variant, lam, mu, lo, hi = tprob.prox_params()
+    scal = prox_scalars(torch.tensor(tcfg.step_size), lam, mu, lo, hi)
+    sigma = ur.pdhg_sigma(None, scal[0])
+    block = tcfg.k if ca else 1
+    state, rows = ur.init_pdhg_state(torch.zeros(tprob.dim)), []
+    for draws in idx.reshape(tcfg.T // block, block, -1):
+        G, R = tprob.block_stats(draws)
+        for j in range(block):
+            state = ur.pdhg_update(G[j], R[j], state, scal, sigma,
+                                   variant=variant)
+            rows.append(state.w)
+    assert torch.equal(hist, torch.stack(rows))
+
+
+@pytest.mark.parametrize("problem", ["lasso", "svm"])
+def test_bcd_dispatches_one_gram_a_block(problem):
+    _, tprob, cfg = _family_case(problem)
+    tcfg = to_torch_config(cfg)
+    for solver, blocks in ((tcore.ca_bcd, tcfg.T // tcfg.k),
+                           (tcore.bcd, tcfg.T)):
+        registry.reset_dispatch_counts()
+        solver(tprob, tcfg, 2)
+        assert registry.dispatch_counts() == {("gram", "torch"): blocks}
+
+
+@pytest.mark.parametrize("rule", ["pdhg", "bcd"])
+def test_host_loop_counts_T_over_k_vs_T_blocks_for_the_family(problems,
+                                                              rule):
+    _, tprob = problems
+    tcfg = tcore.SolverConfig(T=32, k=8, b=0.25, step_size=0.5)
+    ca_syncs, cl_syncs = sstep.HostSyncs(), sstep.HostSyncs()
+    w_ca = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=f"ca_{rule}",
+                       ca=True, host_loop=True, syncs=ca_syncs)
+    w_cl = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=rule,
+                       host_loop=True, syncs=cl_syncs)
+    assert (ca_syncs.blocks, cl_syncs.blocks) == (tcfg.T // tcfg.k, tcfg.T)
+    w = sstep.solve(tprob, tcfg, 7, sstep.RULES[rule], name=rule)
+    assert torch.equal(w_cl, w)
+    np.testing.assert_allclose(_np(w_ca), _np(w_cl), atol=2e-5)
+
+
+def test_problem_statistics_match_jax():
+    """Each family's sampled pair (with and without the global m_norm), its
+    full-batch pair and its coordinate view, against the JAX package's."""
+    idx = np.array([[3, 17, 17, 200], [0, 5, 9, 255]])
+    for name in ("lasso", "enet", "svm"):
+        jprob = FAMILY[name]
+        tprob = to_torch_problem(jprob)
+        units = jprob.n_units
+        jidx = idx % units
+        for m_norm in (None, 37):
+            G, R = tprob.block_stats(torch.from_numpy(jidx), m_norm=m_norm)
+            for j in range(2):
+                with jregistry.use("xla"):
+                    jG, jR = jprob.gram_stats(jax.numpy.asarray(jidx[j]),
+                                              m_norm=m_norm)
+                np.testing.assert_allclose(_np(G[j]), np.asarray(jG),
+                                           rtol=1e-5, atol=1e-6)
+                np.testing.assert_allclose(_np(R[j]), np.asarray(jR),
+                                           rtol=1e-5, atol=1e-6)
+        for got, want in zip(tprob.full_stats(), jprob.full_stats()):
+            np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                       atol=1e-6)
+        view, jview = tprob.coord_view(), jprob.coord_view()
+        for f in ("B", "offset", "lin"):
+            np.testing.assert_array_equal(_np(getattr(view, f)),
+                                          np.asarray(getattr(jview, f)))
+        assert view.inv_rho == pytest.approx(jview.inv_rho, rel=1e-12)
+        assert tprob.prox_params() == jprob.prox_params()
+        assert (tprob.dim, tprob.n_units) == (jprob.dim, jprob.n_units)
+        w = to_torch(np.linspace(0, 1, jprob.dim), np.float32)
+        np.testing.assert_allclose(
+            float(tprob.objective(w)),
+            float(jprob.objective(jax.numpy.asarray(_np(w)))), rtol=1e-5)
+        np.testing.assert_allclose(
+            float(tprob.default_step(tcore.SolverConfig(power_iters=300))),
+            float(jprob.default_step(jcore.SolverConfig(power_iters=300))),
+            rtol=1e-4)
+
+
+@pytest.mark.parametrize("algorithm", FAMILY_SOLVERS)
+def test_lasso_solve_cli_runs_the_family_on_cpu(capsys, algorithm):
+    run = lasso_solve.main(["--device", "cpu", "--scale", "0.01",
+                            "--dataset", "covtype", "--algorithm", algorithm,
+                            "--T", "64", "--k", "8"])
+    assert "rel_err=" in capsys.readouterr().out
+    assert run.w.shape == (54,) and torch.isfinite(run.w).all()
+    assert 0.0 <= run.rel_err < 1.0
+    assert not any(run.launches.values())

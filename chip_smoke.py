@@ -10,7 +10,8 @@ distributed solvers in 6a-6d),
 serving internlm2-1.8b at full width through the paged engine (phases 7-9),
 training it at full width through the CA train step (phases 10-11), and
 mamba2-780m's forward and training at full width through the SSD kernels
-(phases 12-14).
+(phases 12-14); and the observability layer (``repro_torch.obs``) over the
+Lasso solves and the engine (phases 6e and 9b).
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -103,6 +104,13 @@ What it does, in order; any failure raises and the exit code is not 0:
    distributed and single-process warm walls side by side. Each of 6b-6d
    zeroes the launch counts before its runs and reads them after; every
    kernel of its path must have run;
+6e. obs phase (a): phase 5's solves again (CA-SFISTA and SFISTA on
+   covtype, CA-SPNM and SPNM on susy, the same draws) with ``host_loop``
+   under ``repro_torch.obs.sync_audit``: the audited round trips, the
+   marked dispatches and ``HostSyncs.blocks`` all T/k (8) for CA and T
+   (256) classical, no sync the CUDA runtime reports (sync-debug mode
+   ``warn``, printed beside the counted reads) outside a counted read, and
+   w bitwise the solve without the host loop;
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
@@ -162,6 +170,20 @@ What it does, in order; any failure raises and the exit code is not 0:
    step: one paged kernel name, 24 launches a step, no merge kernel); and
    once the CLI, ``repro_torch.launch.serve.main`` with
    ``--preset full --page-size 16``;
+9b. obs phase (b)-(d): (b) phase 9's engine with 8 shorter requests
+   (prompts of 32-64 tokens, 32 new tokens), once with obs off, then at
+   k=8 and k=1 with obs on under a sync audit: the audited round trips ==
+   ``EngineStats.syncs`` == the marked dispatches, steps == syncs * k,
+   every sync inside the ``serve.decode_block`` span, none the runtime
+   reports outside a counted read, the metrics equal to the stats, and the
+   streams bit-identical to the obs-off run's; (c) the serve CLI
+   (``--preset full``) with ``--metrics`` and ``--trace-out``: the
+   Prometheus text parses and agrees with the run, the trace loads with
+   the expected span names (the train CLI's run with a failure in phases
+   11 and 14 passes both flags and is checked so too, and its metrics
+   stay bit-equal to the run without obs); (d)
+   the host time of one k=1 round of instrumentation with obs disabled,
+   against phase 9's k=1 ms/sync: under 1%;
 10. backward kernel phase: the lse forward (o and lse), ``flash_dq`` and
    ``flash_dkv`` at the training shape (B=8, Hq=16, Hkv=8, S=1024, D=128,
    causal, bf16), at phase 7's shapes (ragged S=1000, right-aligned
@@ -195,8 +217,9 @@ What it does, in order; any failure raises and the exit code is not 0:
    the CA-accumulated grad equals the full-batch grad (atol 5e-3, rtol
    5e-2), CA k=2 and the classical schedule both run; and once the CLI,
    ``repro_torch.launch.train --preset tiny --steps 12 --ckpt-every 4
-   --fail-at 6``: one restart, and the final loss bit-equal to a run with
-   no failure;
+   --fail-at 6`` with ``--metrics`` and ``--trace-out`` (obs phase (c)'s
+   train CLI): one restart, its metrics and spans, and the final loss
+   bit-equal to a run with no failure and obs off;
 12. SSD kernel phase: ``ssd`` (y, the final state and the per-chunk
    states) and ``ssd_bwd`` (dxdt, da, dB and dC per head) at the training
    shape (Bt=8, S=1024, H=48, P=64, N=128, chunk 64, bf16 x), the forward's
@@ -1812,13 +1835,13 @@ def model_phase(dev, cfg, params):
     return flash_launches
 
 
-def _serve_requests(cfg, n=16, new_tokens=64):
+def _serve_requests(cfg, n=16, new_tokens=64, prompt_lens=(32, 513)):
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.RandomState(0)
     reqs = []
     for i in range(n):
-        plen = int(rng.randint(32, 513))
+        plen = int(rng.randint(*prompt_lens))
         prompt = rng.randint(0, cfg.vocab, size=plen).tolist()
         reqs.append(Request(id=f"req-{i}", prompt=prompt,
                             max_new_tokens=new_tokens))
@@ -1870,7 +1893,7 @@ def serve_profile(dev, cfg, params, k=8):
 
 def serve_phase(dev, cfg, params):
     """Phase 9: the paged engine at full width. Returns paged_decode's
-    launches in the k=8 run."""
+    launches in the k=8 run and the k=1 run's steady ms/sync."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch import serve as serve_cli
@@ -1918,17 +1941,18 @@ def serve_phase(dev, cfg, params):
               f"{s.steps * cfg.n_layers}")
         check(launches["flash_attention"] == 0,
               f"{label}: flash_attention launched in decode")
-        return {r.id: r.tokens for r in out}, launches["paged_decode"]
+        return ({r.id: r.tokens for r in out}, launches["paged_decode"],
+                wall / (s.syncs - syncs0) * 1e3)
 
     print(f"serve phase: {cfg.name} Engine(num_slots=8, max_len=1024, "
           f"max_prompt=512, k, page_size=16), 16 requests x 64 new tokens, "
           f"blocks under set_sync_debug_mode('error')")
-    streams8, paged_launches = run(8)
-    streams1, _ = run(1)
+    streams8, paged_launches, _ = run(8)
+    streams1, _, k1_ms_per_sync = run(1)
     same = streams8 == streams1
     print(f"  k=8 vs k=1 token streams bit-identical: {same}")
     check(same, "k=8 and k=1 token streams differ")
-    streams_q, _ = run(8, kv_dtype="int8")
+    streams_q, _, _ = run(8, kv_dtype="int8")
     total = sum(len(v) for v in streams8.values())
     equal = sum(a == b for rid in streams8
                 for a, b in zip(streams8[rid], streams_q[rid]))
@@ -1955,7 +1979,7 @@ def serve_phase(dev, cfg, params):
           f"responses in {time.perf_counter() - t0:.2f}s")
     check(len(out) == 16 and all(len(r.tokens) == 32 for r in out),
           "launch.serve: not every request got 32 tokens")
-    return paged_launches
+    return paged_launches, k1_ms_per_sync
 
 
 #: phase 10's shapes (B, Hq, Hkv, Sq, Skv, D, causal, dtype name): the train
@@ -2625,27 +2649,264 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
               f"smoke config: classical={classical} loss not finite")
     print("  smoke config: CA k=2 and classical steps both run")
 
-    # the CLI, with a failure and without
+    # the CLI, with a failure (and obs on: obs phase (c)'s train CLI) and
+    # without
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         runs = {}
-        for label, extra in (("fail", ["--fail-at", "6"]), ("clean", [])):
+        prom, trace = f"{tmp}/train.prom", f"{tmp}/train.json"
+        for label, extra in (("fail", ["--fail-at", "6", "--metrics", prom,
+                                       "--trace-out", trace]),
+                             ("clean", [])):
             t0 = time.perf_counter()
             runs[label] = train_cli.main(
                 ["--arch", cfg.name, "--preset", "tiny", "--steps", "12",
                  "--ckpt-every", "4", "--ckpt-dir", f"{tmp}/{label}",
                  "--device", dev.type] + extra)
             print(f"  launch.train --preset tiny --steps 12 --ckpt-every 4 "
-                  f"{' '.join(extra)}: {time.perf_counter() - t0:.2f}s, "
+                  f"{' '.join(extra[:2])}: {time.perf_counter() - t0:.2f}s, "
                   f"restarts={runs[label].restarts}, final loss "
                   f"{runs[label].metrics_log[-1]['loss']!r}")
+        check_train_obs(prom, trace, runs["fail"])
     check(runs["fail"].restarts == 1 and runs["clean"].restarts == 0,
           "launch.train: restarts")
     same = runs["fail"].metrics_log == runs["clean"].metrics_log
-    print(f"  launch.train: metrics of the run with a failure bit-equal to "
-          f"the run without: {same}")
+    print(f"  launch.train: metrics of the run with a failure (obs on) "
+          f"bit-equal to the run without (obs off): {same}")
     check(same, "launch.train: the restarted run's metrics differ")
     return launches
+
+
+#: obs phase (b)'s requests: 8 of phase 9's kind with shorter prompts
+#: (32-64 tokens) and 32 new tokens, so three engine runs take seconds
+OBS_REQUESTS = dict(n=8, new_tokens=32, prompt_lens=(32, 65))
+#: the zero-cost promise (README, "Observability"): one round of the
+#: engine's instrumentation with obs disabled under 1% of a k=1 sync
+OBS_OVERHEAD_LIMIT = 0.01
+#: a well-formed Prometheus sample line
+PROM_SAMPLE = r'^[A-Za-z_:][A-Za-z0-9_:]*(\{[^{}]*\})? -?[0-9.eE+-]+$'
+
+
+def _prometheus(path) -> str:
+    """The Prometheus text at ``path``; every sample line must parse."""
+    import re
+    text = Path(path).read_text()
+    lines = [l for l in text.splitlines() if l and not l.startswith("#")]
+    bad = [l for l in lines if not re.match(PROM_SAMPLE, l)]
+    check(lines and not bad, f"{path}: malformed Prometheus lines {bad[:3]}")
+    return text
+
+
+def _prom_value(text: str, name: str) -> float:
+    import re
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    check(m is not None, f"no sample {name!r} in the Prometheus text")
+    return float(m.group(1))
+
+
+def _trace_names(path):
+    import collections
+    trace = json.loads(Path(path).read_text())
+    return collections.Counter(e["name"] for e in trace["traceEvents"])
+
+
+def obs_lasso_phase(dev, profiled):
+    """Obs phase (a): phase 5's four solves (same problems, draws and
+    step) with the host loop under a sync audit."""
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core import sstep
+    print("obs phase (a): phase 5's solves, host_loop=True under "
+          "obs.sync_audit (the runtime's sync-debug mode 'warn' beside it)")
+    for dataset, (problem, cfg, draws, rule, names) in profiled.items():
+        for ca, algo in ((True, names[0]), (False, names[1])):
+            w_plain = sstep.solve(problem, cfg, None, rule, name=algo, ca=ca,
+                                  idx=draws)
+            blocks = sstep.HostSyncs()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with obs.sync_audit(dev) as a:
+                w = sstep.solve(problem, cfg, None, rule, name=algo, ca=ca,
+                                idx=draws, host_loop=True, syncs=blocks)
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            want = cfg.T // cfg.k if ca else cfg.T
+            same = torch.equal(w, w_plain)
+            print(f"  {dataset} {algo}: audit {a.as_dict()}; runtime sync "
+                  f"warnings {a.runtime_syncs} ({a.runtime_uncounted} "
+                  f"outside a counted read) beside transfers "
+                  f"{a.transfers}; HostSyncs.blocks {blocks.blocks}; "
+                  f"wall {wall:.4f}s; w bitwise the solve without the host "
+                  f"loop: {same}")
+            check(a.syncs == a.dispatches == blocks.blocks == want,
+                  f"{dataset} {algo}: audit {a.as_dict()}, blocks "
+                  f"{blocks.blocks}, want {want}")
+            check(a.runtime_uncounted == 0,
+                  f"{dataset} {algo}: {a.runtime_uncounted} syncs the "
+                  f"runtime reports outside a counted read")
+            check(launches["gram_gather"] == want
+                  and launches[BLOCK_OPS[rule.name]] == want,
+                  f"{dataset} {algo}: launches {launches}, want {want} each")
+            check(same, f"{dataset} {algo}: the host loop changed w")
+
+
+def check_train_obs(prom, trace, runner):
+    """Obs phase (c), the train CLI's half (run in the train phases, whose
+    CLI run with a failure passes ``--metrics`` and ``--trace-out``): the
+    Prometheus text parses and counts the run, the trace has its spans."""
+    text, names = _prometheus(prom), _trace_names(trace)
+    print(f"  launch.train --fail-at 6 --metrics --trace-out: restarts "
+          f"{runner.restarts}, repro_train_restarts_total "
+          f"{_prom_value(text, 'repro_train_restarts_total')!r}, "
+          f"repro_train_step_seconds_count "
+          f"{_prom_value(text, 'repro_train_step_seconds_count')!r}, "
+          f"repro_train_ckpt_saves_total "
+          f"{_prom_value(text, 'repro_train_ckpt_saves_total')!r}; trace "
+          f"{dict(names)}")
+    # steps 0-5, the failure at 6, steps 4-11 again from the step-4
+    # checkpoint: 14 steps, snapshots before steps 0, 4, 4 and 8
+    check(runner.restarts == 1
+          and _prom_value(text, "repro_train_restarts_total") == 1
+          and _prom_value(text, "repro_train_step_seconds_count") == 14
+          and _prom_value(text, "repro_train_ckpt_saves_total") == 4,
+          "launch.train: metrics disagree with the run")
+    check(names["train.step"] == 14 and names["train.ckpt_save"] == 4
+          and names["train.restore"] == names["train.restart"] == 1,
+          f"launch.train: trace spans {dict(names)}")
+
+
+def obs_serve_phase(dev, cfg, params, k1_ms_per_sync):
+    """Obs phase (b)-(d): the engine's audit against its stats at k=8 and
+    k=1 with obs on, streams against an obs-off run; the serve CLI's
+    ``--metrics`` and ``--trace-out`` (the train CLI's are checked in the
+    train phases, by :func:`check_train_obs`); the disabled-instrumentation
+    cost of a k=1 round against phase 9's k=1 ms/sync."""
+    import tempfile
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve as serve_cli, train as train_cli
+    from repro_torch.serve import Engine
+
+    def run(k, on):
+        eng = Engine(params, cfg, num_slots=8, max_len=1024, max_prompt=512,
+                     k=k, page_size=16, eos_id=None, device=dev,
+                     sync_debug=True)
+        reqs = _serve_requests(cfg, **OBS_REQUESTS)
+        obs.reset()
+        if on:
+            obs.enable()
+        kernels.reset_launch_counts()
+        registry.reset_dispatch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with (obs.sync_audit(dev) if on
+                  else contextlib.nullcontext()) as a:
+                out = eng.run(reqs)
+        finally:
+            obs.disable()
+        wall = time.perf_counter() - t0
+        s = eng.stats
+        launches = kernels.launch_counts()
+        label = f"k={k} obs {'on' if on else 'off'}"
+        check(s.retired == 8 and all(len(r.tokens) == 32 for r in out),
+              f"{label}: retired {s.retired}")
+        check(s.steps == s.syncs * k, f"{label}: steps {s.steps}")
+        check(launches["paged_decode"] == s.steps * cfg.n_layers,
+              f"{label}: paged_decode launched {launches['paged_decode']}")
+        dispatches = sum(registry.dispatch_counts().values())
+        line = (f"  engine {label}: {s.syncs} syncs, {s.steps} steps, "
+                f"{wall:.3f}s, paged_decode {launches['paged_decode']}")
+        if on:
+            snap = obs.metrics_snapshot()
+            line += (f"; audit {a.as_dict()}; runtime sync warnings "
+                     f"{a.runtime_syncs} ({a.runtime_uncounted} outside a "
+                     f"counted read) beside transfers {a.transfers}; "
+                     f"repro_serve_syncs_total "
+                     f"{snap['repro_serve_syncs_total']!r}")
+            check(a.syncs == s.syncs == a.dispatches,
+                  f"{label}: audit {a.as_dict()} vs stats syncs {s.syncs}")
+            check(a.by_span == {"serve.decode_block": s.syncs},
+                  f"{label}: syncs outside the decode span {a.by_span}")
+            check(a.runtime_uncounted == 0, f"{label}: "
+                  f"{a.runtime_uncounted} syncs the runtime reports "
+                  f"outside a counted read")
+            check(snap["repro_serve_syncs_total"] == s.syncs
+                  and snap["repro_serve_steps_total"] == s.steps
+                  and snap["repro_serve_tokens_total"] == s.tokens_out
+                  and snap["repro_serve_ttft_seconds_count"] == 8,
+                  f"{label}: metrics differ from the stats: {snap}")
+        print(line)
+        return {r.id: r.tokens for r in out}, s, dispatches
+
+    print(f"obs phase (b): phase 9's engine, {OBS_REQUESTS['n']} requests "
+          f"(prompts {OBS_REQUESTS['prompt_lens'][0]}-"
+          f"{OBS_REQUESTS['prompt_lens'][1] - 1} tokens, "
+          f"{OBS_REQUESTS['new_tokens']} new)")
+    off, _, _ = run(8, False)
+    on8, _, _ = run(8, True)
+    on1, s1, dispatches1 = run(1, True)
+    print(f"  streams with obs on, k=8 and k=1, bit-identical to obs off: "
+          f"{on8 == off}, {on1 == off}")
+    check(on8 == off and on1 == off, "obs on changed a token stream")
+
+    print("obs phase (c): the serve CLI with --metrics and --trace-out")
+    with tempfile.TemporaryDirectory() as tmp:
+        prom, trace = f"{tmp}/serve.prom", f"{tmp}/serve.json"
+        out = serve_cli.main(["--arch", cfg.name, "--preset", "full",
+                              "--page-size", "16", "--batch", "8",
+                              "--max-len", "1024", "--k", "8",
+                              "--new-tokens", "32", "--requests", "16",
+                              "--device", "cuda", "--metrics", prom,
+                              "--trace-out", trace])
+        text, names = _prometheus(prom), _trace_names(trace)
+        syncs = _prom_value(text, "repro_serve_syncs_total")
+        print(f"  launch.serve: repro_serve_syncs_total {syncs!r}, "
+              f"repro_serve_steps_total "
+              f"{_prom_value(text, 'repro_serve_steps_total')!r}; trace "
+              f"{dict(names)}")
+        check(len(out) == 16 and not obs.enabled(), "launch.serve: run")
+        check(_prom_value(text, "repro_serve_steps_total") == 8 * syncs
+              and _prom_value(text, "repro_serve_tokens_total") == 16 * 32,
+              "launch.serve: metrics disagree with the run")
+        check(names["serve.decode_block"] == 2 * syncs
+              and names["serve.retire"] == 16
+              and names["serve.admit"] == syncs + 16,
+              f"launch.serve: trace spans {dict(names)}")
+
+    # (d) what one k=1 round of the engine runs of obs with obs disabled:
+    # the admit span, the scheduler's gauge, two enabled() checks, the
+    # dispatch mark and fetch mark, the two decode spans, and the registry
+    # counter of every kernel dispatch the round makes
+    gauge = obs.gauge("repro_sched_queue_depth")
+    counter = obs.counter("repro_kernel_dispatch_total")
+    per_round = dispatches1 // s1.syncs
+
+    def bundle():
+        with obs.span("serve.admit"):
+            gauge.set(0)
+            obs.enabled()
+        ticket = obs.mark_dispatch("serve.decode_block")
+        with obs.span("serve.decode_block", k=1, live=8):
+            for _ in range(per_round):
+                counter.inc(op="paged_attention", backend="cuda")
+        obs.mark_fetch(ticket)
+        with obs.span("serve.decode_block", k=1, live=8, fetch=1):
+            pass
+        obs.enabled()
+
+    check(not obs.enabled(), "obs must be disabled for the overhead")
+    us = _host_us(bundle, iters=20_000)
+    ratio = us / (k1_ms_per_sync * 1e3)
+    print(f"obs phase (d): one disabled round of instrumentation "
+          f"({per_round} registry dispatches a k=1 round) {us:.3f} us of "
+          f"host; k=1 {k1_ms_per_sync:.3f} ms/sync (phase 9); ratio "
+          f"{ratio:.6%} (limit {OBS_OVERHEAD_LIMIT:.0%}); card: "
+          f"{nvidia_smi()}")
+    check(ratio < OBS_OVERHEAD_LIMIT, f"disabled instrumentation costs "
+          f"{ratio:.3%} of a k=1 sync")
 
 
 T_START = time.perf_counter()
@@ -3000,6 +3261,11 @@ def main() -> int:
                        and "gram_gather" not in key]
             check(not gathers, f"{dataset}: a gather ran on the solve: "
                   f"{gathers}")
+
+    # 6e. obs phase (a): the same solves, host loop under a sync audit
+    t_phase = time.perf_counter()
+    obs_lasso_phase(dev, profiled)
+    print(f"obs phase (a): {time.perf_counter() - t_phase:.1f}s")
     del profiled
 
     # 6a-6d. the rest of the solver family, the large-d prox route and the
@@ -3051,8 +3317,12 @@ def main() -> int:
     entries["flash_attention"]["launches"] = model_phase(dev, cfg, params)
     print(f"model phase: {time.perf_counter() - t_phase:.1f}s")
     t_phase = time.perf_counter()
-    entries["paged_decode"]["launches"] = serve_phase(dev, cfg, params)
+    entries["paged_decode"]["launches"], k1_ms_per_sync = serve_phase(
+        dev, cfg, params)
     print(f"serve phase: {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    obs_serve_phase(dev, cfg, params, k1_ms_per_sync)
+    print(f"obs phase (b)-(d): {time.perf_counter() - t_phase:.1f}s")
     del params
     torch.cuda.empty_cache()
 

@@ -19,6 +19,7 @@ Subpackages ported so far:
   checkpoint  async, atomic checkpoints
   dist        the serve scheduler's deadline gate, the training runner
   data        the paper's Table II dataset stand-ins, the token stream
+  obs         spans, metrics and the host<->device sync audit
   launch      ``python -m repro_torch.launch.{lasso_solve,serve,train}``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
@@ -40,3 +41,14 @@ def resolve_device(device=None) -> torch.device:
             "none (torch.cuda.is_available() is False); pass device='cpu' "
             "(--device cpu on the command line) to run on the CPU")
     return dev
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array or tensor as a tensor on ``device``, copied without
+    blocking the host: on a card through a pinned snapshot (a copy from
+    pageable memory waits for the stream, a host sync), so the host may
+    reuse its buffer at once."""
+    t = torch.as_tensor(a).clone(memory_format=torch.contiguous_format)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

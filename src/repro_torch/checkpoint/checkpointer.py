@@ -73,7 +73,8 @@ class Checkpointer:
         storage), so the caller may update the state in place right
         after."""
         self.wait()
-        host = [t.detach().to("cpu", copy=True).contiguous()
+        host = [t.detach().to("cpu", copy=True,
+                              memory_format=torch.contiguous_format)
                 for t in _flatten(tree)]
         manifest = dict(step=int(step), n_leaves=len(host),
                         shapes=[list(t.shape) for t in host],

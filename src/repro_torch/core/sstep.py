@@ -37,10 +37,13 @@ tensors, and the iteration counter lives on the host, so the loop reads
 nothing back from the device: a gram-schedule solve makes T/k block
 dispatches (T for the classical schedule) and no other update op.
 
-``host_loop=True`` waits for the device once per block
-(``torch.cuda.synchronize()`` on a CUDA problem) and counts the blocks in
-``syncs.blocks``: T/k for the CA schedule, T for the classical one — the
-paper's latency claim, counted at the host.
+``host_loop=True`` brackets every block with
+:func:`repro_torch.obs.mark_dispatch` and a counted wait for the device
+(``obs.sync_audit.block_until_ready``: ``torch.cuda.synchronize()`` on a
+card), and counts the blocks in ``syncs.blocks``, so an enclosing
+:func:`repro_torch.obs.sync_audit` measures the paper's latency claim at the
+torch boundary: T/k round-trip epochs for the CA schedule, T for the
+classical one, equal to ``syncs.blocks``.
 """
 from __future__ import annotations
 
@@ -49,12 +52,14 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch import obs, to_device
 from repro_torch.core import update_rules as ur
 from repro_torch.core.problem import SolverConfig
 from repro_torch.core.sampling import sample_index_batch
 from repro_torch.core.soft_threshold import prox_elem
 from repro_torch.kernels import registry
 from repro_torch.kernels.prox_step.ops import prox_scalars
+from repro_torch.obs.sync_audit import block_until_ready
 
 
 def _scal(problem, cfg, scal):
@@ -101,8 +106,8 @@ def validate_schedule(cfg: SolverConfig, solver: str) -> None:
 
 def _resolve_step(problem, cfg: SolverConfig) -> torch.Tensor:
     if cfg.step_size is not None:
-        return torch.tensor(cfg.step_size, dtype=problem.X.dtype,
-                            device=problem.device)
+        return to_device(torch.tensor(cfg.step_size, dtype=problem.X.dtype),
+                         problem.device)
     return problem.default_step(cfg)
 
 
@@ -153,9 +158,9 @@ def solve(problem, cfg: SolverConfig,
     ``torch.Generator`` on the problem's device, or an int seed). Returns
     w_T, or (w_T, (T, dim) iterate history) when ``collect_history``.
 
-    ``host_loop=True`` waits for the device after every block and counts the
-    waits in ``syncs`` (no history support), as the JAX package's host loop
-    does for its sync audit.
+    ``host_loop=True`` marks a dispatch before every block, waits for the
+    device after it (a read the sync audit counts) and counts the waits in
+    ``syncs`` (no history support), as the JAX package's host loop does.
     """
     if ca:
         validate_schedule(cfg, name)
@@ -206,12 +211,13 @@ def run(problem, cfg: SolverConfig, rule: UpdateRule, idx: torch.Tensor,
         extract = rule.extract
     hist = []
     for idx_block in blocks:
+        if host_loop:
+            obs.mark_dispatch(f"sstep.{rule.name}")
         state, W = step(state, idx_block)
         if collect_history:
             hist.append(W)
         if host_loop:
-            if problem.device.type == "cuda":
-                torch.cuda.synchronize(problem.device)
+            block_until_ready(problem.device)
             if syncs is not None:
                 syncs.blocks += 1
     w = extract(state)

@@ -14,17 +14,31 @@ error, not a hang.
 The loop runs on one device, so unlike the JAX runner it takes the step
 function itself rather than a builder over a mesh: there is no remesh to
 rebuild it for. The elastic remesh comes with the ``torch.distributed``
-slice, and the ``repro.obs`` spans and counters of the JAX loop with the
-port's observability (ROADMAP queue 1 item 5).
+slice. The JAX loop's observability is ported (``repro_torch.obs``): the
+``repro_train_step_seconds`` histogram, the ``repro_train_ckpt_saves_total``
+and ``repro_train_restarts_total`` counters, the ``train.restore``,
+``train.ckpt_save`` and ``train.step`` spans, the ``train.restart`` instant,
+and ``mark_dispatch("train.step")`` before each step, whose one metrics
+fetch is the step's single host sync.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
+
+_M_STEP_S = obs.histogram("repro_train_step_seconds",
+                          "wall time per training step (dispatch + host "
+                          "metric fetch)")
+_M_CKPT = obs.counter("repro_train_ckpt_saves_total",
+                      "checkpoint snapshots initiated")
+_M_RESTARTS = obs.counter("repro_train_restarts_total",
+                          "restore-and-resume cycles after node failures")
 
 
 class NodeFailure(RuntimeError):
@@ -133,7 +147,11 @@ class TrainingRunner:
                         f"restart budget exhausted: {self.restarts - 1} "
                         f"restarts allowed, training keeps failing")
                 self.ckpt.wait()  # let an in-flight snapshot commit
-                state, start = self._init_or_restore(state)
+                with obs.span("train.restore", restart=self.restarts):
+                    state, start = self._init_or_restore(state)
+                _M_RESTARTS.inc()
+                obs.instant("train.restart", restart=self.restarts,
+                            resume_step=start)
                 # drop the entries of steps that run again, so the log
                 # reads as one uninterrupted trajectory
                 self.metrics_log = [m for m in self.metrics_log
@@ -141,19 +159,29 @@ class TrainingRunner:
 
     def _loop(self, state, start: int, total_steps: int):
         data = self.data_factory(start)
+        timed = obs.enabled()
         try:
             for step in range(start, total_steps):
                 if step % self.ckpt_every == 0:
                     # snapshot BEFORE the step: the manifest's step is the
                     # first to run again on restore
-                    self.ckpt.save(step, state)
+                    with obs.span("train.ckpt_save", step=step):
+                        self.ckpt.save(step, state)
+                    _M_CKPT.inc()
                 if self.failure_source is not None:
                     self.failure_source.maybe_fail(step)
-                state, metrics = self.step(state, next(data))
-                # one host fetch per step, for all the metrics
-                names = sorted(metrics)
-                values = torch.stack([metrics[k].detach().float().reshape(())
-                                      for k in names]).tolist()
+                batch = next(data)
+                t0 = time.perf_counter() if timed else 0.0
+                obs.mark_dispatch("train.step")
+                with obs.span("train.step", step=step):
+                    state, metrics = self.step(state, batch)
+                    # one host fetch per step, for all the metrics
+                    names = sorted(metrics)
+                    values = torch.stack(
+                        [metrics[k].detach().float().reshape(())
+                         for k in names]).tolist()
+                if timed:
+                    _M_STEP_S.observe(time.perf_counter() - t0)
                 rec = {"step": step}
                 rec.update(zip(names, values))
                 self.metrics_log.append(rec)

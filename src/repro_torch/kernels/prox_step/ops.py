@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch import to_device
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.prox_step import ref
 from repro_torch.kernels.prox_step.ref import VARIANTS
@@ -53,11 +54,14 @@ ROWS_ABOVE_D = 256
 def prox_scalars(t, lam, mu=0.0, lo=0.0, hi=0.0, *,
                  device=None) -> torch.Tensor:
     """The (5,) float32 tensor ``[t, lam, mu, lo, hi]`` the prox ops read.
-    ``t`` may be a device scalar tensor; it is not read back to the host."""
-    t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(1)
-    rest = torch.tensor([lam, mu, lo, hi], dtype=torch.float32,
-                        device=t.device)
-    return torch.cat([t, rest])
+    ``t`` may be a device scalar tensor; it is not read back to the host,
+    and the host values go up without blocking it."""
+    rest = torch.tensor([lam, mu, lo, hi], dtype=torch.float32)
+    if not isinstance(t, torch.Tensor):
+        return to_device(torch.cat([torch.tensor([t], dtype=torch.float32),
+                                    rest]), device or "cpu")
+    t = t.to(device=device or t.device, dtype=torch.float32).reshape(1)
+    return torch.cat([t, to_device(rest, t.device)])
 
 
 def _operands(G, R, v, scal, what):

@@ -39,6 +39,14 @@ runs on CPU tensors, or on CUDA tensors only when the caller asks for it
 explicitly (``use("torch")``, :func:`set_backend` or the environment
 variable) — as ``chip_smoke.py`` does to hold each kernel against its plain
 version on the card.
+
+Observability (``repro_torch.obs``): ``repro_kernel_dispatch_total{op,
+backend}`` counts dispatches beside :func:`dispatch_counts`, as the JAX
+registry does. Its other two counters are not ported:
+``repro_kernel_fallback_total``, because this registry never falls back
+(it raises), so the counter could never move; and
+``repro_autotune_lookup_total``, which comes with autotuning (ROADMAP
+queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -51,6 +59,8 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch import obs
 
 #: canonical backend names
 BACKENDS = ("cuda", "torch")
@@ -93,9 +103,11 @@ _loaded = False
 _load_lock = threading.Lock()
 _tls = threading.local()            # .stack: list[str]
 _process_backend: Optional[str] = None
-#: dispatches by (op, backend) — the counterpart of the JAX registry's
-#: ``repro_kernel_dispatch_total`` counter
+#: dispatches by (op, backend), counted whether or not obs is enabled
 _DISPATCH: collections.Counter = collections.Counter()
+#: the same count in the obs registry (a no-op while obs is disabled)
+_M_DISPATCH = obs.counter("repro_kernel_dispatch_total",
+                          "kernel dispatches by op and backend")
 
 
 def _canon(name: str) -> str:
@@ -231,6 +243,7 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
     """Run op ``name`` under the active backend policy."""
     impl = select(name, *args, **kwargs)
     _DISPATCH[(name, impl.backend)] += 1
+    _M_DISPATCH.inc(op=name, backend=impl.backend)
     return impl.fn(*args, **kwargs)
 
 

@@ -15,9 +15,11 @@ steady state separately. Weights are random, from a seeded
 
 Ported flags: ``--arch`` (dense archs), ``--preset``, ``--batch``,
 ``--new-tokens``, ``--max-len``, ``--k``, ``--requests``, ``--engine``,
-``--page-size``, ``--kv-dtype``, plus ``--device`` (default ``cuda``,
-raising on a host with no card). Sampling, streaming, fan-out, the prefix
-cache, overlap, autotune and obs come with their ROADMAP items.
+``--page-size``, ``--kv-dtype``, ``--metrics [PATH]`` and ``--trace-out
+PATH`` (``repro_torch.obs``: Prometheus text at exit, to PATH or stdout, and
+a Chrome-trace span timeline), plus ``--device`` (default ``cuda``, raising
+on a host with no card). Sampling, streaming, fan-out, the prefix cache,
+overlap and autotune come with their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
+from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import init_cache, init_params
 from repro_torch.serve.cache import require_servable
@@ -162,15 +165,20 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="device to run on (default cuda; raises on a host "
                          "with no card unless this says cpu)")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     require_servable(arch)
     cfg = smoke_config(arch) if args.preset == "tiny" else arch
-    if args.engine == "on":
-        return serve_engine(cfg, args, device)
-    return serve_classic(cfg, args, device)
+    observing = obs_begin(args)
+    try:
+        if args.engine == "on":
+            return serve_engine(cfg, args, device)
+        return serve_classic(cfg, args, device)
+    finally:
+        obs_end(args, observing)
 
 
 if __name__ == "__main__":

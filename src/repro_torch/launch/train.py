@@ -13,10 +13,10 @@ Flags as in JAX: ``--arch`` (the dense archs and mamba2-780m),
 ``--preset`` (tiny: the smoke config at batch 8, seq 64; 100m: 6 layers of
 width 1024 at batch max(ca_k, 8), seq 512; full: the published widths at
 batch 8 * ca_k, seq 1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
-``--fail-at``, ``--log-every``, plus ``--device`` (default ``cuda``,
-raising on a host with no card). Weights are float32 masters from a seeded
-``torch.Generator``. Autotune and the obs flags come with their ROADMAP
-items.
+``--fail-at``, ``--log-every``, ``--metrics [PATH]`` and ``--trace-out
+PATH`` (``repro_torch.obs``), plus ``--device`` (default ``cuda``, raising
+on a host with no card). Weights are float32 masters from a seeded
+``torch.Generator``. Autotune comes with its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import TokenStream
 from repro_torch.dist import FailureSource, TrainingRunner
+from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.transformer import require_supported
 
@@ -70,6 +71,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="device to run on (default cuda; raises on a host "
                          "with no card unless this says cpu)")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -92,8 +94,12 @@ def main(argv=None):
         ckpt_every=args.ckpt_every,
         failure_source=FailureSource(args.fail_at))
 
+    observing = obs_begin(args)
     t0 = time.time()
-    runner.run(args.steps)
+    try:
+        runner.run(args.steps)
+    finally:
+        obs_end(args, observing)
     dt = time.time() - t0
     for m in runner.metrics_log[::args.log_every]:
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "

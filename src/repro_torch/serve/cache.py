@@ -17,9 +17,10 @@ from __future__ import annotations
 import heapq
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.models import init_cache
 from repro_torch.models.transformer import require_supported
 
@@ -140,7 +141,7 @@ class CachePool:
         live = self.live_slots()
         perm = live + [s for s in range(self.num_slots) if s not in self._owner]
         mapping = {old: new for new, old in enumerate(live)}
-        perm_dev = torch.tensor(perm, dtype=torch.long, device=self.device)
+        perm_dev = to_device(np.asarray(perm, np.int64), self.device)
 
         def f(leaf, ax):
             if ax != _NO_BATCH:
@@ -155,5 +156,5 @@ class CachePool:
 
     def take_rows(self, per_slot: torch.Tensor, perm) -> torch.Tensor:
         """Apply a defrag permutation to a (num_slots, ...) device tensor."""
-        idx = torch.as_tensor(perm, dtype=torch.long).to(per_slot.device)
+        idx = to_device(np.asarray(perm, np.int64), per_slot.device)
         return per_slot.index_select(0, idx)

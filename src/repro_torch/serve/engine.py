@@ -15,7 +15,16 @@ defrag, ``step``/``run``/``stream_step``/``stream`` and ``EngineStats``.
 Sampled requests (``temperature > 0``), fan-out (``n > 1``), the prefix
 cache and the double-buffered loop (``overlap``) raise
 ``NotImplementedError``: they come with the rest of serving (ROADMAP
-queue 1 item 8). The obs counters come with item 5.
+queue 1 item 8).
+
+Observability (``repro_torch.obs``): the JAX engine's counters and
+histograms under its names (those of the features item 8 brings — prefix
+hits and tokens, COW copies, hidden syncs — are defined and stay at 0),
+the ``serve.admit`` span and instant, the ``serve.decode_block`` spans
+around the block and around its fetch, the ``serve.retire`` instant, and
+``mark_dispatch("serve.decode_block")`` before each block, so a sync audit
+counts one round trip per block, equal to ``EngineStats.syncs``. Each
+round's mutations sit behind one ``obs.enabled()`` check.
 
 Token streams do not depend on k: every step runs at the shape
 (num_slots, 1), and each row's result depends on that row alone.
@@ -28,7 +37,7 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device, to_device
 from repro_torch.serve.api import (Request, Response, EngineStats, StreamDelta,
                                    FINISH_EOS, FINISH_ERROR, FINISH_LENGTH,
                                    FINISH_SHED)
@@ -38,6 +47,42 @@ from repro_torch.serve.paging import PagedCachePool
 from repro_torch.serve.scheduler import Scheduler
 
 _LATER = "the rest of serving (ROADMAP queue 1 item 8)"
+
+# ---------------------------------------------------------------------------
+# observability handles (module-level: get-or-create once, mutate per round;
+# every mutation is a no-op boolean check while repro_torch.obs is disabled)
+# ---------------------------------------------------------------------------
+_M_SYNCS = obs.counter("repro_serve_syncs_total",
+                       "host<->device round trips (one per fused k-block)")
+_M_STEPS = obs.counter("repro_serve_steps_total",
+                       "model decode steps (= syncs * k)")
+_M_TOKENS = obs.counter("repro_serve_tokens_total",
+                        "tokens delivered to responses")
+_M_PREFILL = obs.counter("repro_serve_prefill_tokens_total",
+                         "prompt tokens consumed in-loop")
+_M_REQS = obs.counter("repro_serve_requests_total",
+                      "completed requests by finish reason")
+_M_PREFIX_HITS = obs.counter("repro_serve_prefix_hits_total",
+                             "admissions that matched the prefix trie")
+_M_PREFIX_TOKENS = obs.counter("repro_serve_prefix_tokens_total",
+                               "prefill tokens skipped via prefix reuse")
+_M_COW = obs.counter("repro_serve_cow_copies_total",
+                     "copy-on-write page divergences")
+_M_DEFRAGS = obs.counter("repro_serve_defrags_total",
+                         "cache compactions by kind (slot/page)")
+_M_TTFT = obs.histogram("repro_serve_ttft_seconds",
+                        "submit -> first generated token")
+_M_TPOT = obs.histogram("repro_serve_tpot_seconds",
+                        "mean per-token latency after the first token")
+_M_QWAIT = obs.histogram("repro_serve_queue_wait_seconds",
+                         "submit -> slot assignment")
+_M_LATENCY = obs.histogram("repro_serve_latency_seconds",
+                           "submit -> retirement")
+_M_HIDDEN = obs.counter("repro_serve_hidden_syncs_total",
+                        "k-block fetches made while a newer block was "
+                        "already in flight (double-buffered loop)")
+_M_BLOCKED = obs.histogram("repro_serve_host_blocked_seconds",
+                           "host wall time blocked per k-block result fetch")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -49,10 +94,10 @@ class _Block:
     """One run k-step block's device outputs, fetched at completion."""
 
     __slots__ = ("toks", "emitted", "done", "eos_hit", "lengths", "slots",
-                 "active", "live")
+                 "active", "live", "ticket")
 
     def __init__(self, toks, emitted, done, eos_hit, lengths, slots, active,
-                 live):
+                 live, ticket):
         self.toks = toks                # (k, B) device tokens
         self.emitted = emitted          # (k, B) device emit mask
         self.done = done                # (B,) device done mask (post-block)
@@ -61,6 +106,7 @@ class _Block:
         self.slots = slots              # slot ids owned at dispatch
         self.active = active            # (B,) host bool snapshot at dispatch
         self.live = live                # active slot count at dispatch
+        self.ticket = ticket            # obs.mark_dispatch ticket
 
 
 class Engine:
@@ -132,17 +178,8 @@ class Engine:
         self._slot_req: dict = {}
         self._slot_toks: dict = {}
         self._slot_t0: dict = {}
+        self._slot_first: dict = {}     # slot -> TTFT (recorded with obs on)
         self.stats = EngineStats()
-
-    # ------------------------------------------------------------ transfers
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On a card the copy goes
-        from a pinned snapshot without blocking the host, so the host may
-        reuse its buffer at once."""
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     # -------------------------------------------------------------- ingest
     def submit(self, req: Request) -> None:
@@ -166,6 +203,7 @@ class Engine:
     # -------------------------------------------------------------- admit
     def _admit(self, now: float) -> List[Response]:
         out: List[Response] = []
+        on = obs.enabled()
         admit, shed = self.scheduler.schedule(self.pool.free_count, now)
         for r in shed:
             wait = now - r.arrival_s
@@ -173,6 +211,8 @@ class Engine:
                                 prompt_len=len(r.prompt), queue_wait_s=wait,
                                 latency_s=wait))
             self.stats.shed += 1
+            if on:
+                _M_REQS.inc(reason=FINISH_SHED)
         slots: List[int] = []
         for r in admit:
             n = len(r.prompt)
@@ -184,6 +224,8 @@ class Engine:
                     id=r.id, tokens=[], finish_reason=FINISH_ERROR,
                     prompt_len=n, queue_wait_s=wait, latency_s=wait))
                 self.stats.rejected += 1
+                if on:
+                    _M_REQS.inc(reason=FINISH_ERROR)
                 continue
             slot = self.pool.allocate(r.id)
             slots.append(slot)
@@ -198,13 +240,19 @@ class Engine:
             self._slot_toks[slot] = []
             self._slot_t0[slot] = now
             self.stats.admitted += 1
+            if on:
+                obs.instant("serve.admit", id=r.id, slot=slot, prompt_len=n,
+                            prefix_reused=0, stream=0)
+                _M_QWAIT.observe(now - r.arrival_s)
         if slots:
-            idx = self._to_device(np.asarray(slots, np.int64))
+            # index_fill_ takes the value as a host scalar: ``t[idx] = 0``
+            # would copy a CPU scalar tensor to the card, a host sync
+            idx = to_device(np.asarray(slots, np.int64), self.device)
             st = self.state
             for t in (st.lengths, st.last_tok, st.n_out):
-                t[idx] = 0
+                t.index_fill_(0, idx, 0)
             for t in (st.done, st.eos_hit):
-                t[idx] = False
+                t.index_fill_(0, idx, False)
         return out
 
     # -------------------------------------------------------------- defrag
@@ -230,12 +278,18 @@ class Engine:
                                for s, t in self._slot_toks.items()}
             self._slot_t0 = {mapping[s]: t
                              for s, t in self._slot_t0.items()}
+            self._slot_first = {mapping[s]: t
+                                for s, t in self._slot_first.items()}
             self.stats.defrags += 1
+            if obs.enabled():
+                _M_DEFRAGS.inc(kind="slot")
         if self.paged and \
                 self.pool.page_fragmentation() >= self.defrag_threshold:
             # a page permutation: slot contents are unchanged
             self.state.cache = self.pool.defrag_pages(self.state.cache)
             self.stats.page_defrags += 1
+            if obs.enabled():
+                _M_DEFRAGS.inc(kind="page")
 
     # ------------------------------------------------------- run/fetch
     def _run_block(self) -> _Block:
@@ -248,16 +302,18 @@ class Engine:
             # table is constant across its k steps
             for slot in self._slot_req:
                 self.pool.reserve(slot, int(self._len_host[slot]) + self.k)
-            page_table = self._to_device(self.pool.tables)
+            page_table = to_device(self.pool.tables, self.device)
             self.stats.peak_live_pages = max(self.stats.peak_live_pages,
                                              self.pool.live_page_count())
-        inputs = [self._to_device(a) for a in (
+        inputs = [to_device(a, self.device) for a in (
             self._prompt_buf, self._prompt_len, self._max_new, self._active)]
-        self.state, toks, emitted = self._block(
-            self.params, self.state, *inputs, page_table)
+        ticket = obs.mark_dispatch("serve.decode_block")
+        with obs.span("serve.decode_block", k=self.k, live=live):
+            self.state, toks, emitted = self._block(
+                self.params, self.state, *inputs, page_table)
         return _Block(toks, emitted, self.state.done, self.state.eos_hit,
                       self.state.lengths, list(self._slot_req),
-                      self._active.copy(), live)
+                      self._active.copy(), live, ticket)
 
     def _complete_block(self, blk: _Block
                         ) -> Tuple[List[StreamDelta], List[Response]]:
@@ -265,13 +321,17 @@ class Engine:
         block's tokens, emit mask, done and eos masks and lengths — then the
         host half of the round: stats, token extension, retirement."""
         k, B = blk.toks.shape
+        obs.mark_fetch(blk.ticket)
         t0 = time.perf_counter()
-        flat = torch.cat([blk.toks.reshape(-1),
-                          blk.emitted.reshape(-1).to(torch.int32),
-                          blk.done.to(torch.int32),
-                          blk.eos_hit.to(torch.int32),
-                          blk.lengths]).cpu().numpy()
-        self.stats.host_blocked_s += time.perf_counter() - t0
+        with obs.span("serve.decode_block", k=self.k, live=blk.live,
+                      fetch=1):
+            flat = torch.cat([blk.toks.reshape(-1),
+                              blk.emitted.reshape(-1).to(torch.int32),
+                              blk.done.to(torch.int32),
+                              blk.eos_hit.to(torch.int32),
+                              blk.lengths]).cpu().numpy()
+        blocked = time.perf_counter() - t0
+        self.stats.host_blocked_s += blocked
         toks = flat[:k * B].reshape(k, B)
         emitted = flat[k * B:2 * k * B].reshape(k, B).astype(bool)
         done = flat[2 * k * B:2 * k * B + B].astype(bool)
@@ -283,15 +343,30 @@ class Engine:
         self.stats.steps += self.k
         self.stats.occupancy_sum += blk.live / self.pool.num_slots
         plen = self._prompt_len
-        self.stats.prefill_tokens += int(
+        new_prefill = int(
             (np.minimum(len_after, plen) - np.minimum(self._len_host, plen))
             [blk.active].sum())
+        self.stats.prefill_tokens += new_prefill
         self._len_host = np.where(blk.active, len_after, self._len_host)
+        on = obs.enabled()
+        if on:
+            _M_SYNCS.inc()
+            _M_STEPS.inc(self.k)
+            _M_PREFILL.inc(new_prefill)
+            _M_BLOCKED.observe(blocked)
         end = self.scheduler.clock()   # same clock as admission timestamps
         for slot in blk.slots:
             got = [int(t) for t in toks[:, slot][emitted[:, slot]]]
             self._slot_toks[slot].extend(got)
             self.stats.tokens_out += len(got)
+            if on and got:
+                _M_TOKENS.inc(len(got))
+                if slot not in self._slot_first:
+                    # first tokens of the block all land at the sync, so
+                    # TTFT is block-granular
+                    ttft = end - self._slot_req[slot].arrival_s
+                    self._slot_first[slot] = ttft
+                    _M_TTFT.observe(ttft)
             if not done[slot]:
                 if got:
                     deltas.append(StreamDelta(id=self._slot_req[slot].id,
@@ -308,6 +383,14 @@ class Engine:
                             prompt_len=len(r.prompt),
                             queue_wait_s=t_adm - r.arrival_s,
                             latency_s=end - r.arrival_s)
+            ttft = self._slot_first.pop(slot, None)
+            if on:
+                _M_REQS.inc(reason=reason)
+                _M_LATENCY.observe(resp.latency_s)
+                if ttft is not None and len(seq) > 1:
+                    _M_TPOT.observe((resp.latency_s - ttft) / (len(seq) - 1))
+                obs.instant("serve.retire", id=r.id, reason=reason,
+                            tokens=len(seq))
             out.append(resp)
             deltas.append(StreamDelta(id=r.id, tokens=got, done=True,
                                       response=resp))
@@ -326,7 +409,8 @@ class Engine:
         contract); ``deltas`` also carry the tokens every live request
         gained this block."""
         now = self.scheduler.clock() if now is None else now
-        out = self._admit(now)
+        with obs.span("serve.admit"):
+            out = self._admit(now)
         # shed / rejected requests never held a slot: terminal delta only
         deltas = [StreamDelta(id=r.id, tokens=[], done=True, response=r)
                   for r in out]

@@ -38,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch.serve.cache import CachePool, SlotError, _NO_BATCH, tree_map
 
 
@@ -192,7 +193,7 @@ class PagedCachePool(CachePool):
             return cache
         lut = np.empty((self.num_pages,), np.int32)
         lut[perm] = np.arange(self.num_pages, dtype=np.int32)
-        perm_dev = torch.from_numpy(perm).to(self.device)
+        perm_dev = to_device(perm, self.device)
 
         def f(leaf, pax):
             if pax != _NO_BATCH:

@@ -1,6 +1,6 @@
 """Admission scheduling: FIFO slot assignment + ``DeadlineGate`` overload
-shedding (the counterpart of ``repro.serve.scheduler``; its obs gauges come
-with ROADMAP queue 1 item 5).
+shedding (the counterpart of ``repro.serve.scheduler``, with its obs gauge
+``repro_sched_queue_depth`` and counter ``repro_sched_gate_shed_total``).
 
 Under normal load the scheduler is plain FIFO: longest-waiting requests take
 free slots first. With a gate configured, each queued request's wait plays
@@ -17,8 +17,14 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Tuple
 
+from repro_torch import obs
 from repro_torch.dist import DeadlineGate
 from repro_torch.serve.api import Request
+
+_M_QDEPTH = obs.gauge("repro_sched_queue_depth",
+                      "queued requests at the start of each round")
+_M_GATE_SHED = obs.counter("repro_sched_gate_shed_total",
+                           "requests dropped by the deadline gate")
 
 
 class Scheduler:
@@ -49,6 +55,7 @@ class Scheduler:
         expired requests dropped by the gate (empty without a gate). The
         gate runs whenever the queue is non-empty — light load included —
         so an abandoned request never spends a slot."""
+        _M_QDEPTH.set(len(self._q))
         if not self._q:
             return [], []
         now = self.clock() if now is None else now
@@ -60,6 +67,8 @@ class Scheduler:
             kept = set(kept_idx)
             shed = [r for i, r in enumerate(cand) if i not in kept]
             cand = [r for i, r in enumerate(cand) if i in kept]
+            if shed:
+                _M_GATE_SHED.inc(len(shed))
         # slot-cost-aware FIFO: an n>1 request consumes n slots (one per
         # fan-out stream) and admits atomically — all streams or none, since
         # the siblings must prefill in lockstep to share prompt pages.

@@ -4,8 +4,10 @@ bits independent of the batch, the attention backward's and the SSD
 scans' bits independent of the launch and the batch, the block prox
 kernels (``pdhg_block`` too, and the rows route at large d) bitwise their
 one-step instances, CA == classical through the kernels (PDHG and BCD
-too), the distributed solvers in an NCCL group of one, and at the smoke
-configs the engine's k-invariance,
+too), the distributed solvers in an NCCL group of one, the sync audit on
+the card (its reads, the runtime's sync-debug cross-check, the host-loop
+solves' T/k round trips and the engine's audit equal to its stats), and at
+the smoke configs the engine's k-invariance,
 teacher-forced decode against the forward and the train step through the
 backward kernels (internlm2) and through the SSD kernels (mamba2). Every test here
 needs the card and skips without one.
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core import SolverConfig, ca_sfista, ca_spnm, sfista, spnm
 from repro_torch.core import sstep, update_rules as ur
@@ -33,6 +35,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.obs.sync_audit import block_until_ready
 from repro_torch.serve import Engine, PagedCachePool, Request
 
 pytestmark = pytest.mark.cuda
@@ -1304,3 +1307,85 @@ def test_mamba2_train_step_through_the_ssd_kernels(cuda):
     for name in ("loss", "grad_norm"):
         np.testing.assert_allclose(metrics["cuda"][name],
                                    metrics["torch"][name], rtol=5e-3)
+
+
+# ------------------------------------------------------------ sync audit --
+def test_sync_audit_on_the_card_counts_reads_and_hears_the_runtime(cuda):
+    """A CUDA audit counts the Python reads of device tensors (and no host
+    tensor's), coalesces them between dispatches, runs the runtime's
+    sync-debug check in ``warn`` mode, hears a sync the patches cannot see
+    (``nonzero``) as uncounted, and restores the mode it found."""
+    prev = torch.cuda.get_sync_debug_mode()
+    x = torch.arange(8, dtype=torch.float32, device=cuda) - 3
+    with obs.sync_audit(cuda) as a:
+        assert torch.cuda.get_sync_debug_mode() == 1          # "warn"
+        obs.mark_dispatch("t")
+        y = x * 2
+        y.cpu()
+        float(y[0])
+        y.tolist()
+        obs.mark_dispatch("t")
+        counted = a.runtime_syncs
+        torch.nonzero(x)                  # a sync inside C++: uncounted
+        obs.mark_dispatch("t")
+        block_until_ready(cuda)
+        torch.cuda.current_stream().synchronize()
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        float(torch.ones(2)[0])          # host data
+    assert torch.cuda.get_sync_debug_mode() == prev
+    assert (a.syncs, a.dispatches, a.transfers) == (2, 3, 6), a.as_dict()
+    assert (a.device_get, a.block_until_ready) == (1, 3)
+    assert a.runtime_uncounted == 1 and a.runtime_syncs >= counted + 1
+    assert a.runtime_syncs - a.runtime_uncounted <= a.transfers
+
+
+@pytest.mark.parametrize("rule", ["fista", "pnm", "pdhg", "bcd"])
+def test_host_loop_audit_on_the_card(cuda, rule):
+    """T/k round trips for CA, T classical, each equal to the blocks and
+    the marked dispatches; no sync the runtime reports escapes the count;
+    the same bits as the solve without the host loop."""
+    problem, _ = make_lasso_data(0, d=54, n=20_000, device=cuda)
+    cfg = SolverConfig(T=64, k=16, b=0.1, step_size=0.5)
+    for ca in (True, False):
+        blocks = sstep.HostSyncs()
+        with obs.sync_audit(cuda) as a:
+            w = sstep.solve(problem, cfg, 3, sstep.RULES[rule], name=rule,
+                            ca=ca, host_loop=True, syncs=blocks)
+        want = cfg.T // cfg.k if ca else cfg.T
+        assert a.syncs == a.dispatches == blocks.blocks == want, a.as_dict()
+        assert a.runtime_uncounted == 0
+        assert torch.equal(w, sstep.solve(problem, cfg, 3, sstep.RULES[rule],
+                                          name=rule, ca=ca))
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(page_size=5)],
+                         ids=["slot", "paged"])
+def test_engine_audit_on_the_card_equals_its_stats(cuda, mode):
+    """One audited round trip a k-block, equal to ``EngineStats.syncs``,
+    all inside the ``serve.decode_block`` span, none the runtime reports
+    outside a counted read; streams the same with obs on and off."""
+    params = _params(cuda)
+    streams = {}
+    try:
+        for on in (False, True):
+            if on:
+                obs.reset()
+                obs.enable()
+            eng = Engine(params, CFG, num_slots=3, max_len=32, k=4,
+                         device=cuda, sync_debug=True, **mode)
+            with obs.sync_audit(cuda) as a:
+                out = eng.run([Request(id=f"r{i}", prompt=p,
+                                       max_new_tokens=6)
+                               for i, p in enumerate(PROMPTS)])
+            s = eng.stats
+            assert a.syncs == s.syncs == a.dispatches, a.as_dict()
+            assert a.device_get == s.syncs and a.runtime_uncounted == 0
+            if on:
+                assert a.by_span == {"serve.decode_block": s.syncs}
+            streams[on] = {r.id: r.tokens for r in out}
+    finally:
+        obs.disable()
+        obs.reset()
+    assert streams[True] == streams[False]

@@ -4,14 +4,17 @@ Hopper card: the quickest proof that the port builds and runs on the GPU.
 
   python3 chip_smoke.py
 
-It drives four paths of the port: the paper's Lasso solvers (phases 4-6,
+It drives five paths of the port: the paper's Lasso solvers (phases 4-6,
 with the rest of the solver family, the large-d prox route and the
 distributed solvers in 6a-6d),
 serving internlm2-1.8b at full width through the paged engine (phases 7-9),
-training it at full width through the CA train step (phases 10-11), and
+training it at full width through the CA train step (phases 10-11),
 mamba2-780m's forward and training at full width through the SSD kernels
-(phases 12-14); and the observability layer (``repro_torch.obs``) over the
-Lasso solves and the engine (phases 6e and 9b).
+(phases 12-14), and the other four model families at their published
+widths (phase 15: granite-moe-1b-a400m, deepseek-moe-16b, zamba2-2.7b,
+qwen2-vl-2b, whisper-medium); and the observability layer
+(``repro_torch.obs``) over the Lasso solves and the engine (phases 6e and
+9b). ``--only families`` builds the kernels and runs phase 15 alone.
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -114,8 +117,12 @@ What it does, in order; any failure raises and the exit code is not 0:
 7. attention kernel phase: ``flash_attention`` at the model forward's shape
    (B=2, Hq=16, Hkv=8, S=512, D=128, causal, bf16) and at S=1024, ragged
    (S=1000), right-aligned (Sq=64, Skv=1000), not causal (Sq=37, Skv=300),
-   at D=64, at zamba2's D=80 (32 heads, zero-padded to 128) and in
-   float32 (the bf16 timings also print the achieved TFLOP/s, model FLOPs
+   at D=64, at zamba2's D=80 (32 heads, zero-padded to 128), in
+   float32, and at the families' shapes: whisper's encoder (not causal,
+   Sq=Skv=1500, D=64, 16/16 heads), its cross-attention (Sq=448 and, at
+   decode, Sq=1 over Skv=1500) and qwen2-vl's group of 6 (12/2 heads,
+   S=1536); every shape but the right-aligned causal one is timed, since
+   SDPA's causal mask is top-left (the bf16 timings also print the achieved TFLOP/s, model FLOPs
    over kernel time, and the share of the bf16 bound;
    the JSON entry names the tensor-core route, ``wgmma+tma``; at each bf16
    shape the share of outputs that differ from the float32-p plain
@@ -187,8 +194,10 @@ What it does, in order; any failure raises and the exit code is not 0:
 10. backward kernel phase: the lse forward (o and lse), ``flash_dq`` and
    ``flash_dkv`` at the training shape (B=8, Hq=16, Hkv=8, S=1024, D=128,
    causal, bf16), at phase 7's shapes (ragged S=1000, right-aligned
-   Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512) and at
-   zamba2's D=80, each against its plain version, normwise as in phase 7
+   Sq=64/Skv=1000, not causal Sq=37/Skv=300, float32 at S=512), at
+   zamba2's D=80 and at the families' shapes where grads reach (whisper's
+   encoder and cross-attention, granite's train step at D=64 (8, 16/8,
+   1024), qwen2-vl's group of 6), each against its plain version, normwise as in phase 7
    (lse absolute, 1e-4); at each bf16 shape the share of dq, dk and dv
    outputs that differ from the float32 plain version's must stay under 2%,
    where p and ds rounded once to bf16 (``ref.flash_dq_rounded``,
@@ -196,7 +205,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    bit-equal; kernel and plain version timed with CUDA events (each bf16
    kernel's achieved TFLOP/s, of model work and of the work its tensor
    cores run with the hi/lo split, and its share of the bf16 bound beside
-   them; the JSON entries name the tensor-core route, ``wgmma+tma``),
+   them; the JSON entries name the tensor-core route, ``wgmma+tma``) at
+   the training shape and the families' shapes,
    beside their bounds and the library yardstick, the backward of
    ``scaled_dot_product_attention`` (KV heads repeated, its backward timed
    alone);
@@ -262,7 +272,30 @@ What it does, in order; any failure raises and the exit code is not 0:
    step; the JAX package's training checks at the mamba2 smoke config; and
    the CLI, ``--arch mamba2-780m --preset tiny --steps 12 --ckpt-every 4
    --fail-at 6``, one restart, final loss bit-equal to a clean run;
-15. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+15. families phase, published widths and depths, bf16 weights from a
+   seeded ``torch.Generator``, one arch after another, each freed before
+   the next: granite-moe-1b-a400m, deepseek-moe-16b (16.4 B parameters,
+   33 GB: a forward and decode fit the card, training does not),
+   zamba2-2.7b, qwen2-vl-2b and whisper-medium. For each: (a) the forward
+   at (B=2, S=512) (qwen2-vl: 1,024 patch embeddings before the tokens;
+   whisper: 1,500 frame embeddings into the encoder, 448 decoder tokens),
+   flash_attention launched once an attention (zamba2: once a superblock;
+   whisper: 24 encoder + 2 x 24 decoder) and ssd once a mamba2 layer
+   (zamba2: 54), nothing else, every call held to its plain version
+   (normwise 8e-3; ssd's state 1e-5), finite logits, the wall time; (b) 32
+   positions through ``decode_step`` on a slot cache (whisper: after
+   ``prefill_audio_cache`` over the 1,500 frames), ms a step, no kernel
+   launched but whisper's cross-attention (flash_attention at Sq = 1, 24 a
+   step, every call held); (c) the teacher-forcing gap at full width,
+   printed, and the JAX package's check (tests/test_models.py) gated at
+   the smoke config with the capacity factor raised to 8, atol = rtol =
+   0.05 (qwen2-vl: neither, as JAX skips it); (d) granite only: phase 11's
+   train phase at the full preset (ca_k=4, batch 32 x 1024, remat, float32
+   masters): finite loss and grad norm, flash_dq and flash_dkv 24 x ca_k
+   a step, ms/step, tokens/s, peak memory, a profiled step, the JAX
+   package's training checks at the smoke config and the train CLI with
+   a failure;
+16. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -1358,7 +1391,15 @@ def attention_kernel_phase(dev):
             (2, 16, 8, 37, 300, 128, False, bf16),      # not causal
             (2, 16, 8, 512, 512, 64, True, bf16),       # D=64
             (2, 32, 32, 512, 512, 80, True, bf16),      # zamba2's D=80
-            (2, 16, 8, 512, 512, 128, True, f32)):
+            (2, 16, 8, 512, 512, 128, True, f32),
+            # the families' shapes (phase 15): whisper's encoder (not
+            # causal), its cross-attention in the forward and at decode's
+            # single query; qwen2-vl's GQA group of 6 over the vision
+            # prefix and the text
+            (2, 16, 16, 1500, 1500, 64, False, bf16),
+            (2, 16, 16, 448, 1500, 64, False, bf16),
+            (2, 16, 16, 1, 1500, 64, False, bf16),
+            (2, 12, 2, 1536, 1536, 128, True, bf16)):
         q = normal((Bq, Sq, Hq, D), dtype)
         k = normal((Bq, Skv, Hkv, D), dtype)
         v = normal((Bq, Skv, Hkv, D), dtype)
@@ -1383,7 +1424,9 @@ def attention_kernel_phase(dev):
                   f"the float32-p version (p rounded once: {flips_once:.4f},"
                   f" limit {P_FLIP_LIMIT})")
             del once
-        if Sq != Skv:
+        if Sq != Skv and causal:
+            # right-aligned: SDPA's causal mask is top-left, another
+            # function
             continue
         ms = _event_ms(lambda: fa_ops.flash_attention_cuda(
             q, k, v, causal=causal), 20)
@@ -1991,6 +2034,14 @@ BWD_SHAPES = ((8, 16, 8, 1024, 1024, 128, True, "bfloat16"),
               (2, 16, 8, 37, 300, 128, False, "bfloat16"),      # not causal
               (2, 16, 8, 512, 512, 128, True, "float32"),
               (2, 32, 32, 512, 512, 80, True, "bfloat16"))      # D=80
+#: the families' shapes where grads reach (phase 15), held and timed:
+#: whisper's encoder and its cross-attention, granite's train step (D=64),
+#: qwen2-vl's group of 6
+FAMILY_BWD_SHAPES = (
+    (2, 16, 16, 1500, 1500, 64, False, "bfloat16"),
+    (2, 16, 16, 448, 1500, 64, False, "bfloat16"),
+    (8, 16, 8, 1024, 1024, 64, True, "bfloat16"),
+    (2, 12, 2, 1536, 1536, 128, True, "bfloat16"))
 
 
 def backward_kernel_phase(dev):
@@ -2012,7 +2063,8 @@ def backward_kernel_phase(dev):
 
     entries = {}
     print("backward kernel phase: lse forward, flash_dq, flash_dkv")
-    for i, (Bq, Hq, Hkv, Sq, Skv, D, causal, tname) in enumerate(BWD_SHAPES):
+    for i, case in enumerate(BWD_SHAPES + FAMILY_BWD_SHAPES):
+        Bq, Hq, Hkv, Sq, Skv, D, causal, tname = case
         dtype = getattr(torch, tname)
         q = normal((Bq, Sq, Hq, D), dtype)
         k = normal((Bq, Skv, Hkv, D), dtype)
@@ -2067,11 +2119,11 @@ def backward_kernel_phase(dev):
                     (dk, dv), fa_ops.flash_dkv_cuda(*args, causal=causal))))
         print(f"  two launches of each backward kernel bit-equal: {same}")
         check(same, f"backward{shape}: two launches differ")
-        if i > 0:
+        if i > 0 and case not in FAMILY_BWD_SHAPES:
             del q, k, v, do, o, lse, delta, dq, dk, dv
             continue
 
-        # times at the training shape
+        # times at the training shape and the families' shapes
         t = dict(
             lse=_event_ms(lambda: fa_ops.flash_attention_cuda(
                 q, k, v, causal=causal, return_lse=True), 20),
@@ -2127,6 +2179,9 @@ def backward_kernel_phase(dev):
               f"backward={t['sdpa_bwd']:.4f}ms (dq, dk and dv together); "
               f"flash_dq + flash_dkv {t['dq'] + t['dkv']:.4f}ms, "
               f"{(t['dq'] + t['dkv']) / t['sdpa_bwd']:.2f}x")
+        if i > 0:
+            del q, k, v, do, o, lse, delta, dq, dk, dv, args
+            continue
         for name, (bms, by), ms, plain, err in (
                 ("flash_dq", b_dq, t["dq"], t["dq_plain"], err_dq),
                 ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"], err_dkv)):
@@ -2448,13 +2503,18 @@ def mamba2_model_phase(dev, cfg, params):
 
 def _model_flops(cfg, n_params, B, S, chunk=64) -> float:
     """A training step's model FLOPs (no recompute): 6 per non-embedding
-    parameter per token, plus attention's visible (query, key) pairs, 2 D
+    parameter a token runs (MoE: its top_k experts of each layer), plus attention's visible (query, key) pairs, 2 D
     FLOP per product, 2 products forward and 4 backward; for the ssm family
     the SSD's instead: per token and head (L + 1) (N + P) for the
     intra-chunk products over their visible pairs (L (L + 1) / 2 a chunk,
     as ``_ssd_work`` counts them) and 4 P N for the state's carry in and
     out, times 3 for forward and backward."""
     n = n_params - cfg.vocab * cfg.d_model
+    if cfg.family == "moe":
+        # a token runs top_k of the E experts of each MoE layer
+        n_moe = cfg.n_layers - int(cfg.first_layer_dense)
+        n -= n_moe * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model \
+            * cfg.moe_d_ff
     if cfg.family == "ssm":
         P, N = cfg.ssm_head_dim, cfg.ssm_state
         H = cfg.ssm_expand * cfg.d_model // P
@@ -2675,6 +2735,216 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
           f"bit-equal to the run without (obs off): {same}")
     check(same, "launch.train: the restarted run's metrics differ")
     return launches
+
+
+#: phase 15's archs, one after another, at their published widths and depth
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b", "zamba2-2.7b",
+                "qwen2-vl-2b", "whisper-medium")
+#: phase 15's decode positions
+FAMILY_DECODE = 32
+
+
+def _family_inputs(dev, cfg, B, S, enc_len, seed=0):
+    """A family's forward batch, numpy-seeded: tokens (B, S); qwen2-vl's
+    patch embeddings (B, vision_patches, d) and whisper's frame embeddings
+    (B, enc_len, d), normal, in bf16."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    batch = dict(tokens=torch.from_numpy(rng.randint(
+        0, cfg.vocab, size=(B, S)).astype(np.int32)).to(dev))
+    for key, n, fam in (("vision_embeds", cfg.vision_patches, "vlm"),
+                        ("enc_embeds", enc_len, "audio")):
+        if cfg.family == fam:
+            batch[key] = torch.from_numpy(rng.standard_normal(
+                (B, n, cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+    return batch
+
+
+def _family_decode(dev, cfg, params, batch, steps):
+    """``steps`` positions of ``batch["tokens"]`` through ``decode_step`` on
+    a bf16 slot cache (whisper: after ``prefill_audio_cache`` over its
+    frames): (logits (B, steps, V), seconds of the steps, launches of the
+    steps)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step, init_cache, \
+        prefill_audio_cache
+
+    toks = batch["tokens"]
+    B, S = toks.shape
+    enc = batch.get("enc_embeds")
+    cache = init_cache(cfg, B, S, device=dev,
+                       enc_len=None if enc is None else enc.shape[1])
+    if enc is not None:
+        cache = prefill_audio_cache(params, cfg, cache, enc)
+    out = torch.empty(B, steps, cfg.vocab, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, cache = decode_step(params, cfg, cache, toks[:, t:t + 1])
+        out[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def _family_attention_calls(cfg) -> int:
+    """flash_attention calls of a forward: one a layer, zamba2's one a
+    superblock, whisper's encoder layers plus two a decoder layer (self
+    and cross)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_period
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def _family_smoke_gate(dev, cfg):
+    """The JAX package's teacher-forcing check (tests/test_models.py) at
+    the smoke config with the capacity factor raised to 8 (no token
+    drops): 8 decode steps against the forward, atol = rtol = 0.05."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import forward, init_params
+
+    small = smoke_config(cfg).scaled(capacity_factor=8.0)
+    sp = init_params(small, torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.bfloat16, device=dev)
+    batch = _family_inputs(dev, small, 2, 8, 20, seed=5)
+    ref, _ = forward(sp, small, batch)
+    dec, _, _ = _family_decode(dev, small, sp, batch, 8)
+    worst, excess = _allclose_margin(dec, ref)
+    print(f"  smoke config (capacity factor 8), 8 positions: max |decode - "
+          f"forward| = {worst:.4e}, allclose atol=rtol={LOGIT_TOL} worst "
+          f"margin {excess:+.4e}")
+    check(excess <= 0.0, f"{cfg.name} smoke config: decode logits exceed "
+          f"atol=rtol={LOGIT_TOL} of forward's (max |d| {worst:.4e})")
+
+
+def families_phase(dev):
+    """Phase 15: granite-moe-1b-a400m, deepseek-moe-16b, zamba2-2.7b,
+    qwen2-vl-2b and whisper-medium at their published widths and depths,
+    one after another, bf16 weights from a seeded ``torch.Generator``:
+    (a) the forward at (B=2, S=512) (qwen2-vl: 1,024 patch embeddings
+    first; whisper: 1,500 frames into the encoder, 448 decoder tokens),
+    its flash_attention and ssd launches counted, every call held to its
+    plain version, finite logits, the wall time; (b) 32 positions of
+    ``decode_step`` on a slot cache (whisper: after
+    ``prefill_audio_cache``; its cross-attention runs flash_attention at
+    Sq = 1, every call held), ms a step; (c) the teacher-forcing gap at
+    full width, printed (qwen2-vl not compared, as JAX skips it), and the
+    JAX package's check gated at the smoke config; (d) granite: the train
+    phase at the full preset. Returns the launches of every kernel on
+    these paths (forwards, decodes, granite's timed train steps)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_params, param_count
+
+    total = {}
+    for name in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_arch(name)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.bfloat16, device=dev)
+        S = cfg.dec_len if cfg.family == "audio" else 512
+        batch = _family_inputs(dev, cfg, 2, S, 1500)
+        print(f"families phase: {name} ({cfg.family}), "
+              f"{param_count(params)} parameters (bf16; routers, A_log and "
+              f"dt_bias float32), {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+              f"head_dim {cfg.head_dim}; inputs "
+              f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+
+        # (a) the forward
+        n_attn = _family_attention_calls(cfg)
+        n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, aux = forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+        t0 = time.perf_counter()
+        forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        print(f"  (a) forward: {fwd_s:.3f}s first call, {again * 1e3:.2f} "
+              f"ms again; logits {tuple(logits.shape)}, aux "
+              f"{float(aux):.5f}; launches flash_attention="
+              f"{launches['flash_attention']} ssd={launches['ssd']}")
+        check(launches["flash_attention"] == n_attn and
+              launches["ssd"] == n_ssd,
+              f"{name} forward launched {launches}, want flash_attention "
+              f"{n_attn}, ssd {n_ssd}")
+        check(sum(launches.values()) == n_attn + n_ssd,
+              f"{name} forward launched another kernel: {launches}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{name}: forward logits not finite")
+        errs = {}
+        with _held_to_plain(errs):
+            held, _ = forward(params, cfg, batch)
+        want = {"o": n_attn}
+        if n_ssd:
+            want.update(y=n_ssd, h_final=n_ssd)
+        _check_held(errs, want, f"{name} forward")
+        del held
+
+        # (b) decode
+        steps = FAMILY_DECODE
+        dec, dec_s, launches = _family_decode(dev, cfg, params, batch, steps)
+        n_cross = steps * cfg.n_layers if cfg.family == "audio" else 0
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+        print(f"  (b) decode_step x{steps} (slot cache, bf16): "
+              f"{dec_s / steps * 1e3:.2f} ms a step; launches "
+              f"flash_attention={launches['flash_attention']} (want "
+              f"{n_cross}: whisper's cross-attention at Sq = 1)")
+        check(launches["flash_attention"] == n_cross and
+              sum(launches.values()) == n_cross,
+              f"{name} decode launched {launches}, want flash_attention "
+              f"{n_cross} and nothing else")
+        check(bool(torch.isfinite(dec).all()),
+              f"{name}: decode logits not finite")
+        if n_cross:
+            errs = {}
+            with _held_to_plain(errs):
+                _family_decode(dev, cfg, params, batch, steps)
+            # the prefill's encoder, then the steps' cross-attention
+            _check_held(errs, {"o": cfg.n_enc_layers + n_cross},
+                        f"{name} prefill and decode")
+
+        # (c) the teacher-forcing gap
+        if cfg.family == "vlm":
+            print("  (c) full width: decode against the forward not compared"
+                  " (its positions do not continue the vision prefix's; "
+                  "JAX skips it too)")
+        else:
+            worst, excess = _allclose_margin(dec, logits[:, :steps])
+            print(f"  (c) full width, {steps} positions: max |decode - "
+                  f"forward| = {worst:.4e}, allclose atol=rtol={LOGIT_TOL} "
+                  f"worst margin {excess:+.4e} (printed, not gated: the "
+                  f"bf16 floor of a deep stack)")
+            _family_smoke_gate(dev, cfg)
+        del logits, dec, params, batch
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t_arch:.1f}s")
+
+        # (d) granite's training at the full preset
+        if name == "granite-moe-1b-a400m":
+            t0 = time.perf_counter()
+            launches = train_phase(dev, cfg)
+            for op, n in launches.items():
+                total[op] = total.get(op, 0) + n
+            print(f"  {name} train phase: {time.perf_counter() - t0:.1f}s")
+            torch.cuda.empty_cache()
+    return total
 
 
 #: obs phase (b)'s requests: 8 of phase 9's kind with shorter prompts
@@ -2912,8 +3182,14 @@ def obs_serve_phase(dev, cfg, params, k1_ms_per_sync):
 T_START = time.perf_counter()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="the port's smoke run on one "
+                                 "NVIDIA Hopper card")
+    ap.add_argument("--only", choices=["families"],
+                    help="build the kernels, then run phase 15 alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script needs an NVIDIA Hopper card",
@@ -2953,6 +3229,12 @@ def main() -> int:
     for stem in _build.SOURCES:
         for name, regs, spill in _ptxas_report(_build.build_log(stem)):
             print(f"  ptxas[{stem}] {name}: {regs} registers, {spill}")
+    if args.only == "families":
+        t_phase = time.perf_counter()
+        fam15 = families_phase(dev)
+        print(f"families phase: {time.perf_counter() - t_phase:.1f}s; "
+              f"launches " + str({op: n for op, n in fam15.items() if n}))
+        return 0
     shared_d, max_d = prox_ops.prox_loop_limits()
     print(f"prox kernels: one CTA up to d={prox_ops.ROWS_ABOVE_D}, G "
           f"through the shared-memory ring up to d={shared_d} (d^2 a "
@@ -3369,6 +3651,17 @@ def main() -> int:
           f"{mlaunches['ssd']} in the train phase's timed steps")
     entries["ssd"]["launches"] += mlaunches["ssd"]
     entries["ssd_bwd"]["launches"] = mlaunches["ssd_bwd"]
+    torch.cuda.empty_cache()
+
+    # 15. the other four families at their published widths
+    t_phase = time.perf_counter()
+    fam15 = families_phase(dev)
+    print(f"families phase: {time.perf_counter() - t_phase:.1f}s; launches "
+          + str({op: n for op, n in fam15.items() if n}))
+    for name in ("flash_attention", "flash_dq", "flash_dkv", "ssd"):
+        check(fam15.get(name, 0) > 0,
+              f"{name} was not launched in the families phase")
+        entries[name]["launches"] += fam15[name]
     for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv",
                  "ssd", "ssd_bwd"):
         check(entries[name]["launches"] > 0,

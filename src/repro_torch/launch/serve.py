@@ -13,7 +13,8 @@ first round (one-time set-up: kernel builds, allocator warm-up) and the
 steady state separately. Weights are random, from a seeded
 ``torch.Generator``, held in bf16.
 
-Ported flags: ``--arch`` (dense archs), ``--preset``, ``--batch``,
+Ported flags: ``--arch`` (every arch with ``--engine off``; the engine
+serves the dense archs), ``--preset``, ``--batch``,
 ``--new-tokens``, ``--max-len``, ``--k``, ``--requests``, ``--engine``,
 ``--page-size``, ``--kv-dtype``, ``--metrics [PATH]`` and ``--trace-out
 PATH`` (``repro_torch.obs``: Prometheus text at exit, to PATH or stdout, and
@@ -34,7 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
 from repro_torch.launch.steps import make_serve_step
-from repro_torch.models import init_cache, init_params
+from repro_torch.models import init_cache, init_params, prefill_audio_cache
 from repro_torch.serve.cache import require_servable
 from repro_torch.serve import Engine, Request
 
@@ -113,9 +114,18 @@ def serve_engine(cfg, args, device: torch.device):
 
 
 def serve_classic(cfg, args, device: torch.device):
-    """Whole-batch greedy decode, one host round trip per token."""
+    """Whole-batch greedy decode, one host round trip per token. whisper's
+    cross K/V is prefilled first from seeded frame embeddings (B, max_len,
+    d), as the JAX CLI does."""
     params = _params(cfg, device)
-    cache = init_cache(cfg, args.batch, args.max_len, device=device)
+    cache = init_cache(cfg, args.batch, args.max_len, device=device,
+                       enc_len=args.max_len)
+    if cfg.family == "audio":
+        enc = torch.randn(args.batch, args.max_len, cfg.d_model,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(1), device=device)
+        cache = prefill_audio_cache(params, cfg, cache,
+                                    enc.to(torch.bfloat16))
     serve = make_serve_step(cfg)
     tok = torch.zeros(args.batch, 1, dtype=torch.int32, device=device)
     t0 = time.perf_counter()
@@ -170,7 +180,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
-    require_servable(arch)
+    if args.engine == "on":
+        require_servable(arch)
     cfg = smoke_config(arch) if args.preset == "tiny" else arch
     observing = obs_begin(args)
     try:

@@ -9,7 +9,9 @@ of ``repro.launch.train``, without its mesh).
 The run resumes from the newest checkpoint in ``--ckpt-dir`` (default
 ``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty directory.
 
-Flags as in JAX: ``--arch`` (the dense archs and mamba2-780m),
+Flags as in JAX: ``--arch`` (the token-only families: dense, moe, ssm and
+hybrid; whisper and qwen2-vl need their embeddings, which the JAX package
+drives through ``launch/grad_smoke.py``, ROADMAP queue 1 item 7),
 ``--preset`` (tiny: the smoke config at batch 8, seq 64; 100m: 6 layers of
 width 1024 at batch max(ca_k, 8), seq 512; full: the published widths at
 batch 8 * ca_k, seq 1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
@@ -77,6 +79,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg, batch, seq = build(args)
     require_supported(cfg)
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the token stream trains the token-only families; "
+            f"{cfg.family!r} needs its embeddings, which come with ROADMAP "
+            f"queue 1 item 7 (a port of launch/grad_smoke.py)")
 
     step = make_train_step(cfg, ca_k=args.ca_k, peak_lr=args.lr, warmup=10,
                            total_steps=args.steps, remat=True)

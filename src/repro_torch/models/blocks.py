@@ -1,6 +1,7 @@
 """Transformer blocks: the GQA attention block with its KV cache, and the
-dense pre-norm decoder block (the counterpart of ``repro.models.blocks``;
-the MoE block and the hybrid superblock come with their families).
+dense and MoE pre-norm decoder blocks (the counterpart of
+``repro.models.blocks``; zamba2's superblock is a loop in
+``models.transformer``).
 
 The KV cache is written in place. JAX's block is functional
 (``cache["k"].at[pidx, off].set(...)``); here the new row lands straight in
@@ -20,6 +21,7 @@ import torch
 from repro_torch.models.attention import attention, paged_attention, quantize_kv
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.models.mlp import init_swiglu, swiglu
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def init_attn(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -58,7 +60,7 @@ def paged_rows(page_table: torch.Tensor, cache_pos: torch.Tensor,
 def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                  head_dim: int, rope, causal: bool = True,
                  cache: Optional[dict] = None, cache_pos=None,
-                 attn_chunk: Optional[int] = None,
+                 kv_override=None, attn_chunk: Optional[int] = None,
                  page_table: Optional[torch.Tensor] = None, rows=None):
     """GQA attention. x (B,S,d) -> (out (B,S,d), cache).
 
@@ -70,16 +72,26 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     at page ``page_table[b, p // page_size]``, row ``p % page_size``, and an
     int8 pool carries ``k_scale``/``v_scale`` (num_pages, page_size, Hkv)
     beside its codes (decode only: S == 1 with per-row cache_pos).
-    rope: this step's ``repro_torch.models.layers.rope_tables``; rows:
-    its :func:`paged_rows` (required with ``page_table``). The caller
-    computes both once for every layer of the step.
+    rope: this step's ``repro_torch.models.layers.rope_tables`` (or
+    ``mrope_tables``), or None: q and k are not rotated (cross-attention,
+    as JAX with no positions); rows: its :func:`paged_rows` (required with
+    ``page_table``). The caller computes both once for every layer of the
+    step.
+    kv_override: (k, v) (B, Skv, Hkv, Dh) for cross-attention (whisper's
+    decoder): K/V are not projected nor rotated, and with no cache the
+    attention is ``flash_attention`` (the kernel on the card) at any Sq,
+    decode's single query too, as JAX runs its Pallas kernel there.
     """
     B, S, d = x.shape
     q = (x @ params["wq"].to(x.dtype)).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
-    q = apply_rope(q, None, tables=rope)
-    k = apply_rope(k, None, tables=rope)
+    if kv_override is None:
+        k = (x @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+        v = (x @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+        if rope is not None:
+            q = apply_rope(q, None, tables=rope)
+            k = apply_rope(k, None, tables=rope)
+    else:
+        k, v = kv_override
 
     kv_valid = None
     if cache is not None and page_table is not None:
@@ -149,3 +161,29 @@ def dense_block(params: dict, x: torch.Tensor, cfg, *, pos_info: dict,
     x = x + h
     x = x + swiglu(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))
     return x, new_cache
+
+
+def init_moe_block(gen: torch.Generator, cfg, dtype=torch.float32,
+                   device=None) -> dict:
+    return dict(
+        ln1=torch.ones(cfg.d_model, dtype=dtype, device=device),
+        attn=init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, dtype, device),
+        ln2=torch.ones(cfg.d_model, dtype=dtype, device=device),
+        moe=init_moe(gen, cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                     cfg.n_shared_experts,
+                     cfg.moe_d_ff * cfg.n_shared_experts, dtype, device),
+    )
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg, *, pos_info: dict,
+              cache: Optional[dict] = None, cache_pos=None):
+    """The dense block with the MoE FFN: (x, cache, aux)."""
+    h, new_cache = attn_forward(
+        params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps),
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope=pos_info["rope"], cache=cache, cache_pos=cache_pos)
+    x = x + h
+    m, aux = moe_ffn(params["moe"], rms_norm(x, params["ln2"], cfg.norm_eps),
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    return x + m, new_cache, aux

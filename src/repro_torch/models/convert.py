@@ -2,31 +2,38 @@
 port's layout.
 
 ``repro.models.init_params`` returns nested dicts whose per-layer leaves
-are stacked along a leading ``n_layers`` axis (``_stack_init``, for
-``lax.scan``). :func:`params_from_numpy` takes that tree with every leaf a
-numpy array (``jax.tree.map(np.asarray, params)``) and returns the port's
-dict with ``layers`` a list of per-layer dicts, nested dicts (a dense
-layer's ``attn`` and ``mlp``, an ssm layer's ``mamba``) carried as they
-are.
+are stacked along a leading axis (``_stack_init``, for ``lax.scan``).
+:func:`params_from_numpy` takes that tree with every leaf a numpy array
+(``jax.tree.map(np.asarray, params)``) and returns the port's dict
+(``repro_torch.models.transformer``): ``layers`` becomes a list of
+per-layer dicts (zamba2's, stacked (n_super, period, ...), a list of
+``n_super`` lists of ``period`` dicts), whisper's ``encoder`` a list of
+``n_enc_layers`` dicts, and the unstacked entries (``embed``, ``ln_f``,
+``lm_head``, deepseek's ``dense0``, zamba2's ``shared``, ``enc_ln``) are
+carried as they are.
 
 The weights may be held in bf16 (the default) without changing a number
 where the JAX model casts the float32 master to the bf16 stream before
-every use: the dense family's projections, the embedding take, the logits
-head and the norm gains, and mamba2's projections, convolution, D and norm.
-mamba2 reads ``A_log`` and ``dt_bias`` in float32 (``repro/models/
-ssm.py:78-80``), where a bf16 copy would round the decay of every step, so
-those leaves (``models.ssm.FLOAT32_LEAVES``) stay float32 whatever
-``dtype``. A training state keeps float32 masters
-(:func:`train_state_from_numpy`).
+every use: the projections, the embedding take, the logits head, the norm
+gains and biases, MoE experts, and mamba2's convolution, D and norm. Two
+kinds of leaf are read in float32 and stay float32 whatever ``dtype``
+(``FLOAT32_LEAVES``): mamba2's ``A_log`` and ``dt_bias``
+(``repro/models/ssm.py:78-80``), in zamba2's layers too, where a bf16
+copy would round the decay of every step, and the MoE ``router``
+(``repro/models/moe.py:77-78``), whose rounding would move the routing. A
+training state keeps float32 masters (:func:`train_state_from_numpy`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.ssm import FLOAT32_LEAVES
+from repro_torch.models import moe, ssm
 from repro_torch.models.transformer import require_supported
 from repro_torch.tree import leaves
+
+#: the leaves held in float32 in a tree of any dtype
+FLOAT32_LEAVES = ssm.FLOAT32_LEAVES + moe.FLOAT32_LEAVES
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -34,11 +41,25 @@ def _tensor(a, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _stacked(cfg) -> dict:
+    """The stacked entries of the family's JAX tree and their leading
+    shape."""
+    fam = cfg.family
+    if fam == "hybrid":
+        return {"layers": (cfg.n_layers // cfg.shared_attn_period,
+                           cfg.shared_attn_period)}
+    n = cfg.n_layers - int(fam == "moe" and cfg.first_layer_dense)
+    if fam == "audio":
+        return {"layers": (n,), "encoder": (cfg.n_enc_layers,)}
+    return {"layers": (n,)}
+
+
 def params_from_numpy(cfg, tree: dict, *, device=None,
                       dtype=torch.bfloat16) -> dict:
-    """The JAX parameter tree of a family the port runs (numpy leaves,
-    layers stacked) -> the port's parameter dict on ``device`` in
-    ``dtype`` (``FLOAT32_LEAVES`` in float32)."""
+    """The JAX parameter tree of any family (numpy leaves, layers stacked)
+    -> the port's parameter dict on ``device`` in ``dtype``
+    (``FLOAT32_LEAVES`` in float32). Raises when a stacked entry's leaves
+    do not lead with the config's layer counts."""
     require_supported(cfg)
 
     def conv(sub, pick=lambda a: a, name=None):
@@ -47,14 +68,19 @@ def params_from_numpy(cfg, tree: dict, *, device=None,
         keep = torch.float32 if name in FLOAT32_LEAVES else dtype
         return _tensor(pick(np.asarray(sub)), keep, device)
 
-    stacked = tree["layers"]
-    n = {np.asarray(a).shape[0] for a in leaves(stacked)}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"tree has {sorted(n)} layers, {cfg.name} has "
-                         f"{cfg.n_layers}")
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(stacked, lambda a, i=i: a[i])
-                     for i in range(cfg.n_layers)]
+    stacked = _stacked(cfg)
+    out = {k: conv(v) for k, v in tree.items() if k not in stacked}
+    for key, lead in stacked.items():
+        found = {np.asarray(a).shape[:len(lead)] for a in leaves(tree[key])}
+        if found != {lead}:
+            raise ValueError(f"{key}: tree leads with {sorted(found)}, "
+                             f"{cfg.name} has {lead}")
+        if len(lead) == 1:
+            out[key] = [conv(tree[key], lambda a, i=i: a[i])
+                        for i in range(lead[0])]
+        else:
+            out[key] = [[conv(tree[key], lambda a, i=i, j=j: a[i, j])
+                         for j in range(lead[1])] for i in range(lead[0])]
     return out
 
 

@@ -1,6 +1,6 @@
-"""Shared layers: RMSNorm, rotary embeddings, initializers (the counterpart
-of ``repro.models.layers``; M-RoPE and LayerNorm come with the vlm and
-audio families).
+"""Shared layers: RMSNorm, rotary embeddings (M-RoPE too), initializers
+(the counterpart of ``repro.models.layers``; its ``layer_norm`` is used by
+no model and is not ported).
 
 The bf16 rounding points are the JAX package's: RMSNorm takes float32
 statistics and applies in the stream dtype, RoPE rotates in float32 and
@@ -37,6 +37,28 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     each recomputation would be launches of its own)."""
     freqs = rope_freqs(head_dim, theta, device=positions.device)
     ang = positions[..., None].float() * freqs                # (..., S, dh/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def mrope_tables(positions_3d: torch.Tensor, head_dim: int,
+                 theta: float = 1e4, sections: Sequence[int] = (2, 1, 1)):
+    """Qwen2-VL M-RoPE as :func:`rope_tables`' (cos, sin) pair: the rotary
+    spectrum is split into (t, h, w) sections (ratios ``sections``) and each
+    frequency takes its angle from its section's position stream
+    (``positions_3d`` (3, ..., S)). The bounds are ``repro.models.layers
+    .apply_mrope``'s, the last section absorbing the rounding, so
+    ``apply_rope(x, None, tables=...)`` rotates as ``apply_mrope`` does."""
+    half = head_dim // 2
+    total = sum(sections)
+    bounds, start = [], 0
+    for s in sections:
+        size = half * s // total
+        bounds.append((start, start + size))
+        start += size
+    bounds[-1] = (bounds[-1][0], half)                  # absorb rounding
+    freqs = rope_freqs(head_dim, theta, device=positions_3d.device)
+    ang = torch.cat([pos[..., None].float() * freqs[lo:hi]
+                     for (lo, hi), pos in zip(bounds, positions_3d)], dim=-1)
     return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
 
 

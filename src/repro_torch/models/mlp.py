@@ -1,6 +1,8 @@
-"""Feed-forward block: SwiGLU (the counterpart of ``repro.models.mlp``; the
-whisper GeLU MLP comes with the audio family)."""
+"""Feed-forward blocks: SwiGLU (llama family) and GeLU (whisper), the
+counterpart of ``repro.models.mlp``."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,3 +30,36 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["w_gate"].to(x.dtype)
     u = x @ params["w_up"].to(x.dtype)
     return (silu(h) * u) @ params["w_down"].to(x.dtype)
+
+
+def init_gelu_mlp(gen: torch.Generator, d: int, ff: int, dtype=torch.float32,
+                  device=None) -> dict:
+    return dict(
+        w_in=dense_init(gen, (d, ff), dtype=dtype, device=device),
+        b_in=torch.zeros(ff, dtype=dtype, device=device),
+        w_out=dense_init(gen, (ff, d), dtype=dtype, device=device),
+        b_out=torch.zeros(d, dtype=dtype, device=device),
+    )
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default, the tanh form) with its rounding
+    points: x * 0.5 (1 + tanh(c (x + 0.044715 x^3))), c = sqrt(2/pi), both
+    constants in x's dtype and every op rounded to it, as XLA runs it.
+    ``F.gelu(approximate="tanh")`` rounds once: in bf16 it differs from
+    this in 42.55% of the outputs over 2^20 inputs drawn N(0, 9), where
+    this matches JAX's bits in all of them, on the CPU
+    (``tests/test_torch_families.py``)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32,
+                     device=x.device).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=torch.float32, device=x.device).to(
+        x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,d) -> (B,S,d): GeLU between two biased projections, weights
+    and biases cast to x's dtype first, as in JAX."""
+    h = x @ params["w_in"].to(x.dtype) + params["b_in"].to(x.dtype)
+    return gelu(h) @ params["w_out"].to(x.dtype) + params["b_out"].to(x.dtype)

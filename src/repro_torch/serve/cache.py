@@ -41,15 +41,16 @@ class SlotError(RuntimeError):
 
 def require_servable(cfg) -> None:
     """Raise for a family the engine's pools do not hold yet: they hold
-    attention K/V (the dense family); the ssm family's recurrent leaves
-    come with the rest of serving."""
+    the dense family's attention K/V. The other families' model runs
+    (classic decode, ``launch.serve --engine off``); their pools and
+    admission (the recurrent leaves of mamba2 and zamba2, MoE, whisper's
+    cross K/V, qwen2-vl's prefix) come with the rest of serving."""
     require_supported(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: serving family {cfg.family!r} through the engine "
-            f"is not ported yet; it comes with ROADMAP queue 1 item 8 (a "
-            f"slot pool with the recurrent conv and ssm leaves, zeroed at "
-            f"admission)")
+            f"is not ported yet; its pools and admission come with ROADMAP "
+            f"queue 1 item 8 (the rest of serving)")
 
 
 class CachePool:

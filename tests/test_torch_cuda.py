@@ -9,8 +9,12 @@ the card (its reads, the runtime's sync-debug cross-check, the host-loop
 solves' T/k round trips and the engine's audit equal to its stats), and at
 the smoke configs the engine's k-invariance,
 teacher-forced decode against the forward and the train step through the
-backward kernels (internlm2) and through the SSD kernels (mamba2). Every test here
-needs the card and skips without one.
+backward kernels (internlm2) and through the SSD kernels (mamba2); the
+attention kernels at the other families' shapes (whisper's non-causal
+encoder and its cross-attention down to a single query, qwen2-vl's group
+of 6, granite's train step at D=64) and granite's and whisper's forward on
+the card against the CPU. Every test here needs the card and skips
+without one.
 
 This file imports neither JAX nor ``repro``, so it also runs where only the
 port is installed:
@@ -37,6 +41,7 @@ from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.obs.sync_audit import block_until_ready
 from repro_torch.serve import Engine, PagedCachePool, Request
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -486,9 +491,17 @@ def _normal(shape, seed, device, dtype):
     (2, 4, 2, 300, 333, 16, False, torch.bfloat16),
     (1, 8, 4, 200, 130, 128, True, torch.bfloat16),
     (2, 32, 32, 300, 300, 80, True, torch.bfloat16),     # zamba2's D=80
+    # the families: whisper's encoder (not causal), its cross-attention in
+    # the forward and at decode's single query; qwen2-vl's group of 6
+    (2, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    (2, 16, 16, 448, 1500, 64, False, torch.bfloat16),
+    (2, 16, 16, 1, 1500, 64, False, torch.bfloat16),
+    (2, 12, 2, 1536, 1536, 128, True, torch.bfloat16),
 ], ids=["fwd", "ragged", "right_aligned", "noncausal", "f32", "smoke",
         "d64", "sq_gt_skv", "d64_bf16", "d64_bf16_s512", "sq_gt_skv_bf16",
-        "d16_ragged_bf16", "sq_gt_skv_d128_bf16", "d80_bf16"])
+        "d16_ragged_bf16", "sq_gt_skv_d128_bf16", "d80_bf16",
+        "whisper_encoder", "whisper_cross", "whisper_cross_decode",
+        "qwen2_vl_group6"])
 def test_flash_attention_cuda_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D,
                                             causal, dtype):
     q = _normal((B, Sq, Hq, D), 1, cuda, dtype)
@@ -614,9 +627,17 @@ BWD_CASES = [
     (1, 6, 2, 50, 70, 64, True, torch.bfloat16),
     (1, 4, 4, 90, 40, 32, True, torch.bfloat16),
     (2, 32, 32, 200, 200, 80, True, torch.bfloat16),
+    # the families where grads reach: whisper's encoder and cross-attention,
+    # granite's train step (D=64), qwen2-vl's group of 6
+    (2, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    (2, 16, 16, 448, 1500, 64, False, torch.bfloat16),
+    (8, 16, 8, 1024, 1024, 64, True, torch.bfloat16),
+    (2, 12, 2, 1536, 1536, 128, True, torch.bfloat16),
 ]
 BWD_IDS = ["train", "ragged", "right_aligned", "noncausal", "f32", "smoke",
-           "d64", "sq_gt_skv", "d64_bf16", "sq_gt_skv_d32_bf16", "d80_bf16"]
+           "d64", "sq_gt_skv", "d64_bf16", "sq_gt_skv_d32_bf16", "d80_bf16",
+           "whisper_encoder", "whisper_cross", "granite_train",
+           "qwen2_vl_group6"]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,dtype", BWD_CASES,
@@ -1251,6 +1272,36 @@ def test_ssd_autograd_through_the_tensor_core_kernels(cuda):
         tol = SSD_RTOL[g.dtype] if g.dtype == BF16 else 1e-4
         assert g.dtype == args[i].dtype and _normwise(g.float(),
                                                       w.float()) <= tol, i
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "whisper-medium"])
+def test_family_forward_on_the_card_matches_the_cpu(cuda, name):
+    """granite's MoE and whisper's encoder-decoder at the smoke config, the
+    same bf16 weights and inputs: the forward on the card (flash_attention
+    at every attention, whisper's non-causal encoder and its cross-attention
+    among them) against the same model on the CPU (the plain versions), at
+    the JAX package's logits tolerance."""
+    cfg = smoke_config(get_arch(name))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    batch = dict(tokens=torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32)))
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32))
+    want, want_aux = forward(params, cfg, batch)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    got, aux = forward(tree_map(lambda t: t.to(cuda), params), cfg, on_card)
+    torch.cuda.synchronize()
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
+              if cfg.family == "audio" else cfg.n_layers)
+    assert kernels.launch_counts()["flash_attention"] == n_attn
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.05,
+                               rtol=0.05)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=5e-3, atol=1e-6)
 
 
 MCFG = smoke_config(get_arch("mamba2-780m"))

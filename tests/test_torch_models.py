@@ -1,4 +1,5 @@
-"""The port's dense and ssm models against the JAX package's, on the same
+"""The port's dense and ssm models (the other families:
+``tests/test_torch_families.py``) against the JAX package's, on the same
 weights (carried across by ``params_from_numpy``) and the same numpy
 inputs: the configs, the layers, ``quantize_kv``, ``chunked_attention``,
 ``forward`` and ``decode_step`` over the slot, paged and int8 paged caches,
@@ -281,14 +282,17 @@ def test_decode_step_matches_jax(arch, layout):
     assert int(tc["pos"]) == S
 
 
-def test_unported_families_raise():
-    for name in ("granite-moe-1b-a400m", "zamba2-2.7b",
-                 "whisper-medium", "qwen2-vl-2b"):
-        cfg = tconfigs.smoke_config(tconfigs.get_arch(name))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            init_cache(cfg, 1, 8)
+def test_unknown_family_raises():
+    """Every family of the JAX package runs (tests/test_torch_families.py);
+    a family neither package knows raises, in every entry point."""
+    cfg = tconfigs.smoke_config(tconfigs.get_arch("internlm2-1.8b")).scaled(
+        family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        forward({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
 
 
 # ----------------------------------------------------------------- mamba2 --

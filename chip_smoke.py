@@ -12,9 +12,13 @@ training it at full width through the CA train step (phases 10-11),
 mamba2-780m's forward and training at full width through the SSD kernels
 (phases 12-14), and the other four model families at their published
 widths (phase 15: granite-moe-1b-a400m, deepseek-moe-16b, zamba2-2.7b,
-qwen2-vl-2b, whisper-medium); and the observability layer
+qwen2-vl-2b, whisper-medium), the rest of training (phase 16: the
+data-parallel CA step and the CA-sync solvers in an NCCL group of one,
+whisper and qwen2-vl trained at published widths, grad_smoke, gradient
+compression, the prox VJP); and the observability layer
 (``repro_torch.obs``) over the Lasso solves and the engine (phases 6e and
-9b). ``--only families`` builds the kernels and runs phase 15 alone.
+9b). ``--only families`` builds the kernels and runs phase 15 alone,
+``--only training`` phase 16.
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -245,7 +249,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    outputs that differ from the plain version's must stay under 2%, where
    M' and h rounded once to bf16 (``ref.ssd_chunked_rounded``) exceed it;
    two launches of each bit-equal; kernel and plain version timed with
-   CUDA events at the training shape, both bodies, beside their bounds:
+   CUDA events at the training shape, both bodies, and the forward at
+   zamba2's heads (tensor-core body), beside their bounds:
    bytes over 3.35 TB/s or the products the scan needs at 989 TFLOP/s
    (the float32 CUDA-core bound beside it, and the FLOP the tensor-core
    bodies run counting each bf16 term, not part of the bound), the L x L
@@ -295,7 +300,31 @@ What it does, in order; any failure raises and the exit code is not 0:
    a step, ms/step, tokens/s, peak memory, a profiled step, the JAX
    package's training checks at the smoke config and the train CLI with
    a failure;
-16. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+16. the rest of training (one arch at a time, each freed before the
+   next): (a) the data-parallel CA step (``make_train_step(cfg, rules)``,
+   ``Rules`` over an NCCL group of one in this process) at phase 11's
+   configuration: one all-reduce of the flat gradient buffer a step (its
+   words printed) and ca_k under ``sync_every_microbatch``, the params
+   after three steps bit-identical to ``make_train_step(rules=None)`` on
+   the same batches, both steps' ms, and the all-reduce call's host us;
+   (b) ``ca_local_sgd_solver`` and ``ca_stale_k_solver`` at internlm2's
+   widths (float32 params, k = 4 local steps on 8 x 1,024 rows, three
+   rounds): one all-reduce a round each, every stale-k collective waited
+   in the round after its own (the solver's log), finalize within atol
+   2e-4 and rtol 1e-3 of the synchronous params, finite losses, ms a round
+   and peak memory; (c) whisper-medium (1,500 frame embeddings, 448
+   tokens) and qwen2-vl-2b (1,024 patch embeddings before 512 tokens)
+   through the CA train step at their published widths and depths (ca_k
+   = 4, batch 8 x ca_k, halved on an out-of-memory), finite loss and grad
+   norm, the lse forward, flash_dq and flash_dkv launches a step, every
+   attention call of one microbatch held to its plain version, ms/step,
+   tokens/s, peak memory; (d) ``launch.grad_smoke`` on the card (the
+   registry's CUDA picks through ``FlashAttentionFn`` and ``SSDFn``, every
+   family's backward kernels launched); (e) top-k (frac 0.01) and int8
+   compression of internlm2's embedding grad: rebuilt exactly, timed; (f)
+   the prox block ops' recompute backward at the covtype and susy block
+   shapes, within 1e-5 normwise of autograd through the plain block;
+17. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -2352,6 +2381,18 @@ def ssd_kernel_phase(dev):
                 got, bwd(*args, dy, st, dh, chunk=L))))
         print(f"  two launches of each SSD kernel bit-equal: {same}")
         check(same, f"ssd{shape}: two launches differ")
+        if (Bt, S, H) == (2, 512, 80) and tc:
+            # zamba2's heads, as its forward launches the scan
+            ms = _event_ms(lambda: fwd(*args, chunk=L), 20)
+            plain = _event_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=L), 3)
+            w = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
+                          args[3].element_size())
+            bms, by = bound_ms(w["fwd_bytes"], w["fwd_f32"], BF16_FLOP_PER_S)
+            print(f"  time ssd (zamba2) {str(shape):46s} kernel={ms:.4f}ms "
+                  f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}; "
+                  f"{w['fwd_bytes'] / 1e6:.1f} MB, "
+                  f"{w['fwd_f32'] / 1e9:.3f} GFLOP) {100 * bms / ms:.1f}% "
+                  f"of the bound")
         if (Bt, S) != (8, 1024):
             del args, dy, dh, y, h, st, got
             continue
@@ -2947,6 +2988,444 @@ def families_phase(dev):
     return total
 
 
+# ------------------------------------------------------------ phase 16 ---
+#: phase 16's CA step: phase 11's configuration
+DP_CA_K, DP_BATCH, DP_SEQ = 4, 32, 1024
+#: (b): k local steps a round on 8 x 1,024 microbatches, three rounds
+SYNC_K, SYNC_ROWS, SYNC_ROUNDS, SYNC_LR = 4, 8, 3, 1e-3
+#: (b): stale-k's finalize against the synchronous params
+#: (tests/test_stale_k.py's LM tolerance)
+STALE_ATOL, STALE_RTOL = 2e-4, 1e-3
+#: (c): the archs trained at their published widths and depths
+EMBED_ARCHS = ("whisper-medium", "qwen2-vl-2b")
+#: (f): the prox VJP against autograd through the plain block, normwise
+PROX_VJP_RTOL = 1e-5
+
+
+def _add(total: dict, launches: dict) -> None:
+    for op, n in launches.items():
+        total[op] = total.get(op, 0) + n
+
+
+def _timed_steps(step, state, batches):
+    """Run ``step`` over ``batches``, each timed with a synchronize on
+    either side: (state, walls, metrics read after each step)."""
+    import torch
+    walls, logs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logs.append({k: float(v) for k, v in m.items()})
+    return state, walls, logs
+
+
+def dp_step_phase(dev, cfg, total):
+    """Phase 16(a): the data-parallel CA step (``make_train_step(cfg,
+    rules)``) at phase 11's configuration in the NCCL group of one: one
+    all-reduce a step under CA and ca_k under ``sync_every_microbatch``,
+    with their words; the params after three steps bit-identical to the
+    single-device step's on the same batches; both steps' ms; the host
+    time of the all-reduce call. Returns internlm2's embedding grad of one
+    microbatch (phase 16(e)'s leaf)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.distributed import CollectiveCount
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import data_rules
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves, tree_map
+
+    stream = TokenStream(DP_BATCH, DP_SEQ, cfg.vocab, seed=0, device=dev)
+    try:
+        batches = [next(stream) for _ in range(4)]
+    finally:
+        stream.close()
+    kw = dict(ca_k=DP_CA_K, peak_lr=3e-4, warmup=10, total_steps=100,
+              remat=True)
+    rules = data_rules(dist.group.WORLD)
+    runs = {}
+    for label, rules_ in (("single", None), ("dp", rules)):
+        count = CollectiveCount()
+        state = init_train_state(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        step = make_train_step(cfg, rules_, counter=count, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, walls, logs = _timed_steps(step, state, batches[:3])
+        launches = kernels.launch_counts()
+        if label == "dp":
+            _add(total, launches)
+        peak = torch.cuda.max_memory_allocated()
+        ms = sorted(walls)[1] * 1e3
+        runs[label] = (walls, logs, count)
+        print(f"  (a) {label}: {[round(w * 1e3, 1) for w in walls]} ms a "
+              f"step, median {ms:.1f} ms, {DP_BATCH * DP_SEQ / ms * 1e3:.0f}"
+              f" tokens/s, peak {peak / 2 ** 30:.2f} GiB; all-reduces "
+              f"{count.all_reduces} ({count.words} words); launches "
+              f"{ {op: n for op, n in launches.items() if n} }")
+        for lg in logs:
+            check(math.isfinite(lg["loss"]) and math.isfinite(
+                lg["grad_norm"]), f"(a) {label}: loss not finite {lg}")
+        if label == "single":
+            host = [t.detach().cpu() for t in leaves(state.params)]
+        else:
+            same = all(torch.equal(t, h.to(dev)) for t, h in
+                       zip(leaves(state.params), host))
+            print(f"  (a) params after 3 steps bit-identical to "
+                  f"make_train_step(rules=None): {same}; metrics equal: "
+                  f"{logs == runs['single'][1]}")
+            check(same and logs == runs["single"][1],
+                  "(a) the DP step at world 1 is not the single-device step")
+            n = sum(t.numel() for t in leaves(state.params)) + 1
+            check(count.all_reduces == 3 and count.words == 3 * n,
+                  f"(a) CA: {count.all_reduces} all-reduces, {count.words} "
+                  f"words in 3 steps, want 3 and {3 * n}")
+            check(launches["flash_dq"] == 3 * DP_CA_K * cfg.n_layers,
+                  f"(a) flash_dq launched {launches['flash_dq']}")
+            # the classical schedule: ca_k all-reduces a step
+            count = CollectiveCount()
+            classical = make_train_step(cfg, rules, counter=count,
+                                        sync_every_microbatch=True, **kw)
+            kernels.reset_launch_counts()
+            state, cwalls, clogs = _timed_steps(classical, state,
+                                                batches[3:])
+            _add(total, kernels.launch_counts())
+            print(f"  (a) sync_every_microbatch: {count.all_reduces} "
+                  f"all-reduces ({count.words} words) a step, "
+                  f"{cwalls[0] * 1e3:.1f} ms, loss {clogs[0]['loss']:.5f}")
+            check(count.all_reduces == DP_CA_K and count.words == DP_CA_K * n,
+                  f"(a) classical: {count.all_reduces} all-reduces")
+            # the collective's own cost on the host and the card
+            buf = torch.zeros(n, device=dev)
+            host_us = _host_us(lambda: dist.all_reduce(buf), iters=20)
+            dev_ms = time_ms(lambda: dist.all_reduce(buf), 5)
+            print(f"  (a) all_reduce of the step's {n} words at world 1: "
+                  f"{host_us:.1f} us of host a call, {dev_ms:.4f} ms on the "
+                  f"card (multi-rank time: not measured, one card)")
+            del buf
+            # phase 16(e)'s leaf: the embedding grad of one microbatch
+            p = tree_map(lambda t: t.detach().to(torch.bfloat16),
+                         state.params)
+            p["embed"].requires_grad_()
+            mb = {k: v[:DP_BATCH // DP_CA_K] for k, v in batches[0].items()}
+            g_embed = torch.autograd.grad(
+                loss_fn(p, cfg, mb, remat=True), p["embed"])[0].float()
+            del p
+        del state, step
+        torch.cuda.empty_cache()
+    return g_embed
+
+
+def ca_sync_phase(dev, cfg, total):
+    """Phase 16(b): ``ca_local_sgd_solver`` and ``ca_stale_k_solver`` at
+    internlm2's published widths (float32 params) in the group of one: k
+    local steps a round on 8 x 1,024 microbatches, three rounds each; one
+    all-reduce a round each, every stale-k collective waited in a later
+    round (the solver's log), finalize within the LM tolerance of the
+    synchronous params, losses finite, ms a round and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.distributed import CollectiveCount
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.ca_sync import (ca_local_sgd_solver,
+                                           ca_stale_k_solver)
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rounds = []
+    for _ in range(SYNC_ROUNDS):
+        toks = torch.randint(0, cfg.vocab, (SYNC_K, SYNC_ROWS, DP_SEQ + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        rounds.append(dict(tokens=toks[..., :-1], labels=toks[..., 1:]))
+
+    def lm_loss(p, b):
+        return loss_fn(p, cfg, b, remat=True)
+
+    group = dist.group.WORLD
+    out = {}
+    for name in ("sync", "stale"):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.float32, device=dev)
+        count = CollectiveCount()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        walls, losses = [], []
+        if name == "sync":
+            step = ca_local_sgd_solver(lm_loss, group, k=SYNC_K, lr=SYNC_LR,
+                                       counter=count)
+            for b in rounds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, loss = step(params, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(loss)
+            final = params
+        else:
+            solver = ca_stale_k_solver(lm_loss, group, k=SYNC_K, lr=SYNC_LR,
+                                       counter=count)
+            carry = solver.init(params)
+            del params
+            for b in rounds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carry, loss = solver.step(carry, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(loss)
+            final = solver.finalize(carry)
+            del carry
+            print(f"  (b) stale-k waits (round launched, round waited): "
+                  f"{solver.waits}")
+            check(solver.waits == [(t, t + 1) for t in range(SYNC_ROUNDS)],
+                  f"(b) a stale-k collective was waited inside its own "
+                  f"round: {solver.waits}")
+        _add(total, kernels.launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        print(f"  (b) {name}: {count.all_reduces} all-reduces "
+              f"({count.words} words) in {SYNC_ROUNDS} rounds; losses "
+              f"{[round(x, 5) for x in losses]}; "
+              f"{[round(w * 1e3, 1) for w in walls]} ms a round; peak "
+              f"{peak / 2 ** 30:.2f} GiB")
+        check(count.all_reduces == SYNC_ROUNDS, f"(b) {name}: "
+              f"{count.all_reduces} all-reduces in {SYNC_ROUNDS} rounds")
+        check(all(map(math.isfinite, losses)), f"(b) {name}: losses "
+              f"{losses}")
+        out[name] = [t.detach().cpu() for t in leaves(final)]
+        del final
+        torch.cuda.empty_cache()
+    worst = max(float(((a - b).abs() - STALE_ATOL - STALE_RTOL * b.abs()
+                       ).max()) for a, b in zip(out["stale"], out["sync"]))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(out["stale"], out["sync"]))
+    print(f"  (b) stale-k finalize against the synchronous params: max "
+          f"|diff| {diff:.3e}, worst margin over atol {STALE_ATOL} rtol "
+          f"{STALE_RTOL}: {worst:+.3e}")
+    check(worst <= 0.0, "(b) stale-k finalize off the synchronous params")
+
+
+def _embed_batch(dev, cfg, B, seed=0):
+    """A training batch of a family with embeddings, numpy-seeded: whisper
+    1,500 frame embeddings and 448 tokens, qwen2-vl 1,024 patch embeddings
+    before 512 tokens; labels the next tokens."""
+    import numpy as np
+    import torch
+    S = cfg.dec_len if cfg.family == "audio" else 512
+    batch = _family_inputs(dev, cfg, B, S + 1, 1500, seed=seed)
+    toks = batch.pop("tokens")
+    batch.update(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    return batch
+
+
+def embed_train_phase(dev, total):
+    """Phase 16(c): whisper-medium and qwen2-vl-2b through the CA train
+    step at their published widths and depths (float32 masters, ca_k = 4,
+    remat, batch 8 x ca_k, halved on an out-of-memory): a warm-up step and
+    three timed ones, finite loss and grad norm, flash_attention (lse),
+    flash_dq and flash_dkv launches a step, every call of one microbatch
+    held to its plain version, ms/step, tokens/s, peak memory. Returns
+    (launches a step by arch)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves, tree_map
+
+    per_step = {}
+    for name in EMBED_ARCHS:
+        cfg = get_arch(name)
+        B = 8 * DP_CA_K
+        while True:
+            oom = False
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                state = init_train_state(cfg, torch.Generator(
+                    device=dev).manual_seed(0), device=dev)
+                step = make_train_step(cfg, ca_k=DP_CA_K, peak_lr=3e-4,
+                                       warmup=10, total_steps=100,
+                                       remat=True)
+                batches = [_embed_batch(dev, cfg, B, seed=i)
+                           for i in range(4)]
+                state, _, _ = _timed_steps(step, state, batches[:1])
+            except torch.cuda.OutOfMemoryError:
+                oom = True
+            if not oom:
+                break
+            state = step = batches = None
+            torch.cuda.empty_cache()
+            check(B > DP_CA_K, f"(c) {name}: out of memory at batch {B}")
+            print(f"  (c) {name}: batch {B} does not fit in 80 GB; halved "
+                  f"to {B // 2}")
+            B //= 2
+        kernels.reset_launch_counts()
+        state, walls, logs = _timed_steps(step, state, batches[1:])
+        launches = kernels.launch_counts()
+        _add(total, launches)
+        peak = torch.cuda.max_memory_allocated()
+        n_attn = _family_attention_calls(cfg)
+        want = n_attn * DP_CA_K
+        toks = batches[1]["tokens"].numel()
+        ms = sorted(walls)[1] * 1e3
+        per_step[name] = {op: launches[op] // 3 for op in
+                          ("flash_attention", "flash_dq", "flash_dkv")}
+        print(f"  (c) {name}: batch {B} ({ {k: tuple(v.shape) for k, v in batches[1].items()} }), "
+              f"{[round(w * 1e3, 1) for w in walls]} ms a step, median "
+              f"{ms:.1f} ms, {toks / ms * 1e3:.0f} tokens/s, peak "
+              f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step[name]} "
+              f"(want flash_dq = flash_dkv = {want}, lse forward {2 * want})")
+        for lg in logs:
+            check(math.isfinite(lg["loss"]) and math.isfinite(
+                lg["grad_norm"]), f"(c) {name}: loss not finite {lg}")
+        print(f"  (c) {name}: loss {[round(lg['loss'], 5) for lg in logs]}"
+              f" grad_norm {[round(lg['grad_norm'], 5) for lg in logs]}")
+        check(per_step[name] == dict(flash_attention=2 * want,
+                                     flash_dq=want, flash_dkv=want),
+              f"(c) {name}: launches {per_step[name]}")
+        # every attention call of one microbatch against its plain version
+        mb = {k: v[:B // DP_CA_K] for k, v in batches[1].items()}
+        params = tree_map(lambda t: t.detach().to(torch.bfloat16)
+                          .requires_grad_(), state.params)
+        errs = {}
+        with _held_to_plain(errs):
+            loss = loss_fn(params, cfg, mb, remat=True)
+            torch.autograd.grad(loss, leaves(params))
+        _check_held(errs, dict(o=2 * n_attn, lse=2 * n_attn, dq=n_attn,
+                               dk=n_attn, dv=n_attn), f"(c) {name}")
+        del params, errs, loss, state, step, batches, mb
+        torch.cuda.empty_cache()
+    return per_step
+
+
+def compression_phase(dev, g):
+    """Phase 16(e): top-k (frac 0.01) and int8 compression of a full-width
+    gradient leaf: the kept values and the residual rebuild g exactly, g -
+    deq - residual is exactly 0; both timed."""
+    import torch
+    from repro_torch.optim import compression as comp
+    c, resid = comp.topk_compress(g, 0.01)
+    rebuilt = comp.topk_decompress(c, g.shape) + resid
+    exact = torch.equal(rebuilt, g)
+    q, qres = comp.int8_compress(g)
+    zero = bool(((g - comp.int8_decompress(q, g.shape)) - qres == 0).all())
+    t_top = time_ms(lambda: comp.topk_compress(g, 0.01), 3)
+    t_int8 = time_ms(lambda: comp.int8_compress(g), 10)
+    print(f"  (e) {tuple(g.shape)} float32 ({g.numel()} values): top-k "
+          f"keeps {c.values.numel()}, decompress + residual == g: {exact}; "
+          f"{t_top:.3f} ms; int8 g - deq - residual == 0: {zero}, "
+          f"{t_int8:.3f} ms (scale {float(q.scale):.4e})")
+    check(exact and zero, "(e) compression does not rebuild g exactly")
+
+
+def prox_vjp_phase(dev, total):
+    """Phase 16(f): the prox block ops' recompute backward at the covtype
+    (k=32, d=54, FISTA) and susy (k=32, d=18, Q=5, PNM) block shapes: the
+    forward one block-kernel launch, the grads within 1e-5 normwise of
+    autograd through the plain block version on the same inputs."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.prox_step import ref as prox_ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    scal = torch.tensor(SCAL, device=dev)
+    for d, op in ((54, "prox_step_block"), (18, "prox_loop_block")):
+        A = torch.randn(K, d, d, generator=gen, device=dev)
+        G = (A @ A.transpose(1, 2) / d).contiguous()
+        R, w_prev, w = (torch.randn(*s, generator=gen, device=dev)
+                        for s in ((K, d), (d,), (d,)))
+        cot = torch.randn(K, d, generator=gen, device=dev)
+        if op == "prox_step_block":
+            inputs, kw = (G, R, w_prev, w, scal), dict(j0=3)
+        else:
+            inputs, kw = (G, R, w, scal), dict(Q=Q)
+        grads = []
+        for fn in (getattr(prox_ops, op), getattr(prox_ref, op)):
+            xs = [t.clone().requires_grad_() for t in inputs]
+            kernels.reset_launch_counts()
+            W = fn(*xs, **kw)
+            grads.append(torch.autograd.grad(W, xs, cot))
+            if fn is getattr(prox_ops, op):
+                n = kernels.launch_counts()
+                _add(total, n)
+                check(n[op] == 1, f"(f) {op}: {n[op]} launches, want 1")
+        errs = []
+        for g, want in zip(*grads):
+            m = float(want.abs().max())
+            errs.append(float((g - want).abs().max()) / m if m else
+                        float(g.abs().max()))
+        print(f"  (f) {op} (k={K}, d={d}): grads of "
+              f"{len(errs)} inputs against autograd through the plain "
+              f"block, normwise max {max(errs):.3e} (limit {PROX_VJP_RTOL})")
+        check(max(errs) <= PROX_VJP_RTOL, f"(f) {op}: VJP off by "
+              f"{max(errs):.3e}")
+
+
+def training_dist_phase(dev):
+    """Phase 16: the rest of training, (a)-(f), one arch at a time, each
+    freed before the next. Returns the kernel launches of its paths."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import grad_smoke, mesh
+
+    total = {}
+    cfg = get_arch(ARCH)
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        print(f"phase 16(a): the data-parallel CA step, {cfg.name}, ca_k="
+              f"{DP_CA_K}, batch {DP_BATCH} x {DP_SEQ}, an NCCL group of one")
+        g_embed = dp_step_phase(dev, cfg, total)
+        print(f"  (a): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        print(f"phase 16(b): CA local-SGD and stale-k at {cfg.name}'s "
+              f"widths, k={SYNC_K} on {SYNC_ROWS} x {DP_SEQ}, "
+              f"{SYNC_ROUNDS} rounds")
+        ca_sync_phase(dev, cfg, total)
+        print(f"  (b): {time.perf_counter() - t0:.1f}s")
+    finally:
+        mesh.shutdown()
+    t0 = time.perf_counter()
+    print("phase 16(e): compression of the embedding grad")
+    compression_phase(dev, g_embed)
+    del g_embed
+    torch.cuda.empty_cache()
+    print(f"  (e): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    print("phase 16(c): whisper-medium and qwen2-vl-2b trained at published "
+          "widths")
+    per_step = embed_train_phase(dev, total)
+    print(f"  (c): {time.perf_counter() - t0:.1f}s; launches a step "
+          f"{per_step}")
+    t0 = time.perf_counter()
+    print("phase 16(d): grad_smoke on the card")
+    kernels.reset_launch_counts()
+    check(grad_smoke.main(["--device", "cuda"]) == 0,
+          "(d) grad_smoke failed")
+    smoke = kernels.launch_counts()
+    _add(total, smoke)
+    for op in grad_smoke.GRAD_OPS:
+        check(smoke[op] > 0, f"(d) grad_smoke launched no {op}")
+    print(f"  (d): {time.perf_counter() - t0:.1f}s; launches "
+          f"{ {op: n for op, n in smoke.items() if n} }")
+    t0 = time.perf_counter()
+    print("phase 16(f): the prox recompute VJP")
+    prox_vjp_phase(dev, total)
+    print(f"  (f): {time.perf_counter() - t0:.1f}s")
+    for op in ("flash_attention", "flash_dq", "flash_dkv", "ssd", "ssd_bwd",
+               "prox_step_block", "prox_loop_block"):
+        check(total.get(op, 0) > 0, f"{op} was not launched in phase 16")
+    return total
+
+
 #: obs phase (b)'s requests: 8 of phase 9's kind with shorter prompts
 #: (32-64 tokens) and 32 new tokens, so three engine runs take seconds
 OBS_REQUESTS = dict(n=8, new_tokens=32, prompt_lens=(32, 65))
@@ -3187,8 +3666,9 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description="the port's smoke run on one "
                                  "NVIDIA Hopper card")
-    ap.add_argument("--only", choices=["families"],
-                    help="build the kernels, then run phase 15 alone")
+    ap.add_argument("--only", choices=["families", "training"],
+                    help="build the kernels, then run phase 15 (families) "
+                    "or phase 16 (training) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3234,6 +3714,12 @@ def main(argv=None) -> int:
         fam15 = families_phase(dev)
         print(f"families phase: {time.perf_counter() - t_phase:.1f}s; "
               f"launches " + str({op: n for op, n in fam15.items() if n}))
+        return 0
+    if args.only == "training":
+        t_phase = time.perf_counter()
+        train16 = training_dist_phase(dev)
+        print(f"phase 16: {time.perf_counter() - t_phase:.1f}s; launches "
+              + str({op: n for op, n in train16.items() if n}))
         return 0
     shared_d, max_d = prox_ops.prox_loop_limits()
     print(f"prox kernels: one CTA up to d={prox_ops.ROWS_ABOVE_D}, G "
@@ -3662,6 +4148,16 @@ def main(argv=None) -> int:
         check(fam15.get(name, 0) > 0,
               f"{name} was not launched in the families phase")
         entries[name]["launches"] += fam15[name]
+
+    # 16. the rest of training: the data-parallel CA step, the CA-sync
+    # solvers, whisper and qwen2-vl trained, grad_smoke, compression, the
+    # prox VJP
+    t_phase = time.perf_counter()
+    train16 = training_dist_phase(dev)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f}s; launches "
+          + str({op: n for op, n in train16.items() if n}))
+    for name, e in entries.items():
+        e["launches"] += train16.get(name, 0)
     for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv",
                  "ssd", "ssd_bwd"):
         check(entries[name]["launches"] > 0,

@@ -15,12 +15,15 @@ Subpackages ported so far:
   configs     the ten architecture configs
   models      the dense model: init, forward, loss, decode
   serve       the continuous-batching engine over slot and paged caches
-  optim       AdamW and the cosine schedule
+  optim       AdamW and the cosine schedule, the CA-sync solvers
+              (local-SGD, stale-k), gradient compression
   checkpoint  async, atomic checkpoints
-  dist        the serve scheduler's deadline gate, the training runner
+  dist        the serve scheduler's deadline gate, the training runner,
+              the sharding rules and the elastic remesh
   data        the paper's Table II dataset stand-ins, the token stream
   obs         spans, metrics and the host<->device sync audit
-  launch      ``python -m repro_torch.launch.{lasso_solve,serve,train}``
+  launch      ``python -m repro_torch.launch.{lasso_solve,
+              distributed_lasso,serve,train,grad_smoke}``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card and no such request they raise.

@@ -7,7 +7,8 @@ classical algorithm (paper §IV-A). Two routes, bitwise the same:
 * the block route, which the solvers take: ``fista_block`` /
   ``pnm_block`` / ``pdhg_block`` run a whole k-block of updates in one
   dispatch of the kernel registry (ops ``prox_step_block`` /
-  ``prox_loop_block`` / ``pdhg_block``), the classical solvers being its
+  ``prox_loop_block`` / ``pdhg_block``, the first two differentiable
+  through their recompute backward), the classical solvers being its
   k = 1 instance;
 * the stepwise route, one update a call: ``fista_update`` / ``pnm_update``
   / ``pdhg_update`` (ops ``prox_step`` / ``prox_loop``, FISTA's momentum
@@ -30,6 +31,7 @@ import torch
 
 from repro_torch.core.soft_threshold import fista_momentum, moreau_dual_prox
 from repro_torch.kernels import registry
+from repro_torch.kernels.prox_step import ops as prox_ops
 
 
 class IterState(NamedTuple):
@@ -118,8 +120,8 @@ def fista_block(G: torch.Tensor, R: torch.Tensor, state: IterState,
                 scal: torch.Tensor, *, variant: str = "l1"):
     """k = G.shape[0] FISTA steps in one dispatch, bitwise k calls of
     :func:`fista_update` on (G[i], R[i]). Returns (new state, W (k, d))."""
-    W = registry.dispatch("prox_step_block", G, R, state.w_prev, state.w,
-                          scal, j0=state.j, variant=variant)
+    W = prox_ops.prox_step_block(G, R, state.w_prev, state.w, scal,
+                                 j0=state.j, variant=variant)
     return _advance(state, W), W
 
 
@@ -127,8 +129,7 @@ def pnm_block(G: torch.Tensor, R: torch.Tensor, state: IterState,
               scal: torch.Tensor, Q: int, *, variant: str = "l1"):
     """k = G.shape[0] proximal-Newton steps in one dispatch, bitwise k calls
     of :func:`pnm_update` on (G[i], R[i]). Returns (new state, W (k, d))."""
-    W = registry.dispatch("prox_loop_block", G, R, state.w, scal, Q=Q,
-                          variant=variant)
+    W = prox_ops.prox_loop_block(G, R, state.w, scal, Q=Q, variant=variant)
     return _advance(state, W), W
 
 

@@ -1,5 +1,5 @@
-"""Fault-tolerant training on one device: checkpoint-restore runner,
-failure injection, straggler quorum admission (the counterpart of
+"""Fault-tolerant training: checkpoint-restore runner, failure injection,
+straggler quorum admission, elastic remesh (the counterpart of
 ``repro.dist.fault_tolerance``, whose module imports JAX).
 
 ``TrainingRunner`` owns the training loop: it snapshots the state through
@@ -8,13 +8,10 @@ atomic commit) and, on an injected or real node failure, restores the
 newest committed checkpoint, fast-forwards the data pipeline to the
 restored step (the data factory is seeded by step index, so recovery is
 deterministic: a crashed run and an uninterrupted one take the same
-trajectory) and resumes. Restarts are budgeted; blowing the budget is an
-error, not a hang.
-
-The loop runs on one device, so unlike the JAX runner it takes the step
-function itself rather than a builder over a mesh: there is no remesh to
-rebuild it for. The elastic remesh comes with the ``torch.distributed``
-slice. The JAX loop's observability is ported (``repro_torch.obs``): the
+trajectory), rebuilds the step function — with ``elastic``, over the
+surviving ranks of the data-parallel group (``dist.elastic.remesh``) — and
+resumes. Restarts are budgeted; blowing the budget is an error, not a
+hang. The JAX loop's observability is ported (``repro_torch.obs``): the
 ``repro_train_step_seconds`` histogram, the ``repro_train_ckpt_saves_total``
 and ``repro_train_restarts_total`` counters, the ``train.restore``,
 ``train.ckpt_save`` and ``train.step`` spans, the ``train.restart`` instant,
@@ -28,9 +25,12 @@ import time
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.dist.elastic import remesh
+from repro_torch.dist.sharding import data_rules
 
 _M_STEP_S = obs.histogram("repro_train_step_seconds",
                           "wall time per training step (dispatch + host "
@@ -42,7 +42,12 @@ _M_RESTARTS = obs.counter("repro_train_restarts_total",
 
 
 class NodeFailure(RuntimeError):
-    """A (injected or detected) node failure: unwind to the restore path."""
+    """A (injected or detected) node failure: unwind to the restore path.
+    ``survivors``: the ranks of the default group still up (None: all)."""
+
+    def __init__(self, msg: str, survivors: Optional[Sequence[int]] = None):
+        super().__init__(msg)
+        self.survivors = survivors
 
 
 class FailureSource:
@@ -52,13 +57,16 @@ class FailureSource:
     re-executed step succeeds, like a real transient node loss.
     """
 
-    def __init__(self, fail_at: Iterable[int] = ()):
+    def __init__(self, fail_at: Iterable[int] = (),
+                 survivors: Optional[Sequence[int]] = None):
         self._pending = set(int(s) for s in fail_at)
+        self.survivors = survivors
 
     def maybe_fail(self, step: int) -> None:
         if step in self._pending:
             self._pending.discard(step)
-            raise NodeFailure(f"injected node failure at step {step}")
+            raise NodeFailure(f"injected node failure at step {step}",
+                              self.survivors)
 
 
 class DeadlineGate:
@@ -94,28 +102,52 @@ class DeadlineGate:
 
 
 class TrainingRunner:
-    """Checkpoint-restore training loop on one device.
+    """Checkpoint-restore training loop.
 
-    step(state, batch) -> (state, metrics dict of device scalars). data_factory(start_step) -> batch iterator
-    positioned at ``start_step`` (the deterministic fast-forward contract),
-    closed by the runner when it has a ``close`` method. init_state() ->
+    step_builder(rules) -> step; step(state, batch) -> (state, metrics dict
+    of device scalars). ``rules``: the ``dist.sharding.Rules`` the step is
+    built for (its data-parallel group), or None on one device.
+    data_factory(start_step) -> batch iterator positioned at
+    ``start_step`` (the deterministic fast-forward contract), closed by
+    the runner when it has a ``close`` method. init_state() ->
     the initial state, used for a cold start and as the template a restore
-    copies into.
+    copies into. With ``elastic``, a failure's survivors (``NodeFailure
+    .survivors``) get a new group (``remesh``) and a step built for it; a
+    rank that is not among them leaves: :meth:`run` returns None and
+    ``left`` is True.
     """
 
-    def __init__(self, step: Callable, data_factory: Callable,
+    def __init__(self, step_builder: Callable, rules, data_factory: Callable,
                  init_state: Callable, ckpt_dir, *, ckpt_every: int = 100,
                  keep: int = 3, failure_source: Optional[FailureSource] = None,
-                 max_restarts: int = 10):
-        self.step = step
+                 max_restarts: int = 10, elastic: bool = False):
+        self.step_builder = step_builder
+        self.rules = rules
         self.data_factory = data_factory
         self.init_state = init_state
         self.ckpt = Checkpointer(ckpt_dir, keep=keep)
         self.ckpt_every = int(ckpt_every)
         self.failure_source = failure_source
         self.max_restarts = int(max_restarts)
+        self.elastic = elastic
+        self.left = False
         self.restarts = 0
         self.metrics_log: List[dict] = []
+        self.step: Optional[Callable] = None
+
+    def _build(self) -> None:
+        self.step = self.step_builder(self.rules)
+
+    def _remesh(self, survivors) -> bool:
+        """Shrink the rules' group to ``survivors``; whether this rank is
+        still in the job."""
+        group = remesh(self.rules.group, survivors)
+        if group is self.rules.group:
+            return True
+        if group == dist.GroupMember.NON_GROUP_MEMBER:
+            return False
+        self.rules = data_rules(group)
+        return True
 
     def _init_or_restore(self, state=None):
         """(state, first step): a fresh state, or the newest checkpoint
@@ -128,8 +160,10 @@ class TrainingRunner:
 
     def run(self, total_steps: int):
         """Train to ``total_steps``, surviving failures; returns the final
-        state. A final checkpoint is committed at ``total_steps`` so a
-        follow-on job resumes exactly where this one stopped."""
+        state (None on a rank an elastic remesh left out). A final
+        checkpoint is committed at ``total_steps`` so a follow-on job
+        resumes exactly where this one stopped."""
+        self._build()
         state, start = self._init_or_restore()
         while True:
             try:
@@ -140,14 +174,20 @@ class TrainingRunner:
                     # would overwrite a genuine checkpoint with later state
                     self.ckpt.save(total_steps, state, blocking=True)
                 return state
-            except NodeFailure:
+            except NodeFailure as failure:
                 self.restarts += 1
                 if self.restarts > self.max_restarts:
                     raise RuntimeError(
                         f"restart budget exhausted: {self.restarts - 1} "
                         f"restarts allowed, training keeps failing")
                 self.ckpt.wait()  # let an in-flight snapshot commit
+                if (self.elastic and self.rules is not None
+                        and self.rules.group is not None
+                        and not self._remesh(failure.survivors)):
+                    self.left = True
+                    return None
                 with obs.span("train.restore", restart=self.restarts):
+                    self._build()
                     state, start = self._init_or_restore(state)
                 _M_RESTARTS.inc()
                 obs.instant("train.restart", restart=self.restarts,

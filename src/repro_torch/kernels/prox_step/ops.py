@@ -16,6 +16,12 @@ are their k = 1 instances. ``scal`` is the (5,) float32 device tensor
 ``[t, lam, mu, lo, hi]`` (see :func:`prox_scalars`), ``sigma`` PDHG's (1,)
 dual step.
 
+``prox_step_block`` and ``prox_loop_block`` below are the block ops as
+the solves call them, differentiable: the registered op forward (the CUDA
+block kernel on the card) and a backward by autograd over ``ref.py``'s
+version on the saved inputs (:class:`RecomputeFn`), the JAX package's
+recompute VJP (``repro.kernels.prox_step.ops._recompute_vjp``).
+
 Two routes, chosen by d alone (:func:`rows_route`), so a block and its
 k = 1 instance, CA and classical, take the same one and keep the same bits:
 up to ``ROWS_ABOVE_D``, one CTA a block launch, the iterate in shared
@@ -286,6 +292,52 @@ def prox_loop_limits() -> tuple:
     shared_d.argtypes = max_d.argtypes = []
     shared_d.restype = max_d.restype = ctypes.c_int
     return shared_d(), max_d()
+
+
+class RecomputeFn(torch.autograd.Function):
+    """Forward: the registered op ``name`` under the active policy.
+    Backward: autograd over ``ref_fn`` on the saved inputs (prox
+    subgradient semantics, as JAX's ``_recompute_vjp``); inputs that need
+    no grad get None."""
+
+    @staticmethod
+    def forward(ctx, name, ref_fn, kw, *inputs):
+        ctx.ref_fn, ctx.kw = ref_fn, kw
+        ctx.save_for_backward(*inputs)
+        return registry.dispatch(name, *inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ctx.ref_fn(*inputs, **ctx.kw)
+        grads = iter(torch.autograd.grad(out, wrt, g.to(out.dtype),
+                                         allow_unused=True))
+        return (None, None, None) + tuple(
+            next(grads) if t.requires_grad else None for t in inputs)
+
+
+def _differentiable(name, ref_fn, kw, *inputs):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return RecomputeFn.apply(name, ref_fn, kw, *inputs)
+    return registry.dispatch(name, *inputs, **kw)
+
+
+def prox_step_block(G, R, w_prev, w, scal, *, j0: int, variant="l1"):
+    """The op ``prox_step_block`` (k FISTA steps a dispatch), with the
+    recompute backward when an input needs grad."""
+    return _differentiable("prox_step_block", ref.prox_step_block,
+                           dict(j0=j0, variant=variant), G, R, w_prev, w,
+                           scal)
+
+
+def prox_loop_block(G, R, z0, scal, *, Q: int, variant="l1"):
+    """The op ``prox_loop_block`` (k proximal Newton steps a dispatch), with
+    the recompute backward when an input needs grad."""
+    return _differentiable("prox_loop_block", ref.prox_loop_block,
+                           dict(Q=Q, variant=variant), G, R, z0, scal)
 
 
 registry.register("prox_step", "cuda", unavailable=_build.unavailable_reason,

@@ -1,17 +1,28 @@
-"""Training driver: the CA train step on one device, the fault-tolerant
-runner, async checkpoints and the restartable token stream (the counterpart
-of ``repro.launch.train``, without its mesh).
+"""Training driver: the CA train step, data-parallel over a
+``torch.distributed`` group when launched by ``torchrun``, the
+fault-tolerant runner, async checkpoints and the restartable token stream
+(the counterpart of ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --preset tiny --steps 12 --ckpt-every 4 --fail-at 6 \\
       --ckpt-dir "$(mktemp -d)"
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --device cpu --preset tiny --steps 12 --ckpt-dir "$(mktemp -d)"
 
-The run resumes from the newest checkpoint in ``--ckpt-dir`` (default
-``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty directory.
+With ``RANK`` and ``WORLD_SIZE`` set (``torchrun``) every rank joins the
+default group (``launch.mesh.init``: nccl on the card, gloo with
+``--device cpu``; a process already in one keeps it), takes its slice of each microbatch of the global batch
+and reduces the step's gradients in one ``all_reduce`` (``Rules`` over a
+data mesh of the group); each rank checkpoints its (equal) state under
+``--ckpt-dir``/rank<r>. Without them it trains on one device and makes no
+collective. The run resumes from the newest checkpoint in ``--ckpt-dir``
+(default ``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty
+directory.
 
 Flags as in JAX: ``--arch`` (the token-only families: dense, moe, ssm and
-hybrid; whisper and qwen2-vl need their embeddings, which the JAX package
-drives through ``launch/grad_smoke.py``, ROADMAP queue 1 item 7),
+hybrid; whisper and qwen2-vl need their frame and patch embeddings, which
+the token stream does not make: ``repro_torch.launch.grad_smoke`` trains
+them, as JAX's CLI refuses them too),
 ``--preset`` (tiny: the smoke config at batch 8, seq 64; 100m: 6 layers of
 width 1024 at batch max(ca_k, 8), seq 512; full: the published widths at
 batch 8 * ca_k, seq 1024), ``--steps``, ``--ca-k``, ``--lr``, ``--ckpt-dir``, ``--ckpt-every``,
@@ -28,11 +39,13 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import TokenStream
-from repro_torch.dist import FailureSource, TrainingRunner
+from repro_torch.dist import FailureSource, TrainingRunner, data_rules
+from repro_torch.launch import mesh
 from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.transformer import require_supported
@@ -82,11 +95,22 @@ def main(argv=None):
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the token stream trains the token-only families; "
-            f"{cfg.family!r} needs its embeddings, which come with ROADMAP "
-            f"queue 1 item 7 (a port of launch/grad_smoke.py)")
+            f"{cfg.family!r} needs its embeddings: train it through "
+            f"repro_torch.launch.grad_smoke")
+    distributed = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    joined = distributed and not dist.is_initialized()
+    ckpt_dir = args.ckpt_dir
+    rules = None
+    if distributed:
+        if joined:
+            device = mesh.init(device.type)
+        rules = data_rules(dist.group.WORLD)
+        rank = dist.get_rank()
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
 
-    step = make_train_step(cfg, ca_k=args.ca_k, peak_lr=args.lr, warmup=10,
-                           total_steps=args.steps, remat=True)
+    def step_builder(rules_):
+        return make_train_step(cfg, rules_, ca_k=args.ca_k, peak_lr=args.lr,
+                               warmup=10, total_steps=args.steps, remat=True)
 
     def data_factory(start_step):
         return TokenStream(batch=batch, seq=seq, vocab=cfg.vocab, seed=0,
@@ -97,7 +121,7 @@ def main(argv=None):
         return init_train_state(cfg, gen, device=device)
 
     runner = TrainingRunner(
-        step, data_factory, init_state, args.ckpt_dir,
+        step_builder, rules, data_factory, init_state, ckpt_dir,
         ckpt_every=args.ckpt_every,
         failure_source=FailureSource(args.fail_at))
 
@@ -107,7 +131,12 @@ def main(argv=None):
         runner.run(args.steps)
     finally:
         obs_end(args, observing)
+        if joined:
+            mesh.shutdown()
     dt = time.time() - t0
+    if distributed:
+        print(f"rank {rank} of {rules.dp_size}: data-parallel, one "
+              f"all_reduce a step")
     for m in runner.metrics_log[::args.log_every]:
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
               f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}")

@@ -1440,3 +1440,82 @@ def test_engine_audit_on_the_card_equals_its_stats(cuda, mode):
         obs.disable()
         obs.reset()
     assert streams[True] == streams[False]
+
+
+# ------------------------------------------------- data-parallel training --
+@pytest.mark.parametrize("classical", [False, True], ids=["ca2", "classical"])
+def test_dp_train_step_nccl_world_one_is_bitwise_the_single_process(
+        cuda, classical):
+    """The data-parallel train step in an NCCL group of one (an in-process
+    store), smoke config, two steps: one all-reduce a step under CA and
+    ca_k classical, and every master, moment and metric bitwise the
+    single-process step's (the kernels on both)."""
+    from repro_torch.core.distributed import CollectiveCount
+    from repro_torch.dist import data_rules
+    from repro_torch.launch import mesh
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, CFG.vocab, (8, 17),
+                                          dtype=np.int32)).to(cuda)
+            for _ in range(2)]
+    batches = [dict(tokens=t[:, :-1], labels=t[:, 1:]) for t in toks]
+    count = CollectiveCount()
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        runs = []
+        for rules in (data_rules(torch.distributed.group.WORLD), None):
+            state = init_train_state(CFG, torch.Generator(
+                device=cuda).manual_seed(0), device=cuda)
+            step = make_train_step(CFG, rules, ca_k=2, remat=True, warmup=1,
+                                   counter=count,
+                                   sync_every_microbatch=classical)
+            ms = []
+            for b in batches:
+                state, m = step(state, b)
+                ms.append(m)
+            runs.append((state, ms))
+    finally:
+        mesh.shutdown()
+    assert count.all_reduces == 2 * (2 if classical else 1)
+    (a, ma), (b, mb) = runs
+    from repro_torch.tree import leaves
+    for x, y in zip(leaves(list(a)), leaves(list(b))):
+        assert torch.equal(x, y)
+    for x, y in zip(ma, mb):
+        assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+@pytest.mark.parametrize("op", ["fista", "pnm"])
+def test_prox_block_vjp_on_the_card(cuda, op):
+    """The block ops' recompute backward on the card: the forward is the
+    CUDA block kernel (one launch), the grads of G, R, the iterates and
+    the scalars within 1e-5 normwise of autograd through the plain block
+    version on the same inputs."""
+    k, d = 8, 54
+    A = _randn((k, d, d), 1, cuda)
+    G = (A @ A.transpose(1, 2) / d).contiguous()
+    R, w_prev, w = (_randn(s, i, cuda) for i, s in
+                    enumerate(((k, d), (d,), (d,)), 2))
+    cot = _randn((k, d), 5, cuda)
+    scal = torch.tensor(SCAL, device=cuda)
+    if op == "fista":
+        fwd = lambda *a: prox_ops.prox_step_block(*a, j0=3)
+        plain = lambda *a: prox_ref.prox_step_block(*a, j0=3)
+        inputs = (G, R, w_prev, w, scal)
+    else:
+        fwd = lambda *a: prox_ops.prox_loop_block(*a, Q=5)
+        plain = lambda *a: prox_ref.prox_loop_block(*a, Q=5)
+        inputs = (G, R, w, scal)
+    grads = []
+    for fn in (fwd, plain):
+        xs = [t.clone().requires_grad_() for t in inputs]
+        kernels.reset_launch_counts()
+        W = fn(*xs)
+        grads.append(torch.autograd.grad(W, xs, cot))
+        if fn is fwd:
+            name = "prox_step_block" if op == "fista" else "prox_loop_block"
+            assert kernels.launch_counts()[name] == 1
+    for g, want in zip(*grads):
+        if want.abs().max() == 0:        # lo, hi under l1: no grad
+            assert g.abs().max() == 0
+        else:
+            assert _normwise(g, want) <= 1e-5

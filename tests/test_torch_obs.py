@@ -528,7 +528,8 @@ def _runner(tmp_path, fail_at=()):
 
     step = make_train_step(CFG, ca_k=2, peak_lr=1e-3, warmup=2,
                            total_steps=6, remat=True)
-    return TrainingRunner(step, data, init_state, tmp_path / "ck",
+    return TrainingRunner(lambda rules: step, None, data, init_state,
+                          tmp_path / "ck",
                           ckpt_every=2, failure_source=FailureSource(fail_at))
 
 

@@ -382,7 +382,7 @@ def _runner(tmp_path, name, fail_at=()):
 
     step = make_train_step(TCFG, ca_k=2, peak_lr=1e-3, warmup=2,
                            total_steps=6, remat=True)
-    return TrainingRunner(step, data, init_state,
+    return TrainingRunner(lambda rules: step, None, data, init_state,
                           tmp_path / name, ckpt_every=2,
                           failure_source=FailureSource(fail_at))
 
@@ -556,3 +556,94 @@ def test_mamba2_train_cli_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main(["--arch", "mamba2-780m", "--preset", "tiny",
                         "--steps", "1"])
+
+
+if __name__ == "__main__":
+    # ROADMAP queue 3 item 6, not a test: mamba2's first-microbatch grad of
+    # layer 0's A_log[4] under the classical schedule's first step, JAX's
+    # and the port's with autograd's silu backward and with JAX's rule
+    # (g s + (h g) (s (1 - s))), beside its value in a float32 stream, and
+    # the worst leaf's first-step update against JAX's with each silu:
+    #   PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/test_torch_train.py
+    import types
+
+    import repro_torch.models.mlp as tmlp
+    import repro_torch.models.ssm as tssm
+    import repro_torch.models.transformer as ttransformer
+
+    class JaxSiLU(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h):
+            ctx.save_for_backward(h)
+            return h * torch.reciprocal(1 + torch.exp(-h))
+
+        @staticmethod
+        def backward(ctx, g):
+            h, = ctx.saved_tensors
+            s = torch.reciprocal(1 + torch.exp(-h))
+            return g * s + (h * g) * (s * (1 - s))
+
+    jstate = j_init_train_state(MCFG, jax.random.PRNGKey(0))
+    batch = _jax_batch(10)
+    mb = {k: v[:4] for k, v in batch.items()}
+    with jregistry.use("xla"):
+        jg = jax.jit(jax.grad(lambda p: j_loss_fn(p, MCFG, mb)))(
+            jstate.params)
+    want = _mamba_leaves(jg)[2]
+
+    def port_grad():
+        p = params_from_numpy(TMCFG, _np_tree(jstate.params),
+                              dtype=torch.float32)
+        ps = [t.requires_grad_() for t in leaves(p)]
+        return torch.autograd.grad(loss_fn(p, TMCFG, _to_port(mb),
+                                           remat=True), ps)[2]
+
+    def first_update_rel():
+        kw = dict(ca_k=2, peak_lr=1e-3, warmup=0, total_steps=10)
+        with jregistry.use("xla"):
+            js, _ = jax.jit(j_make_train_step(
+                MCFG, None, remat=False, sync_every_microbatch=True,
+                **kw))(jstate, batch)
+        st = train_state_from_numpy(TMCFG, _np_tree(jstate))
+        p0 = [t.clone() for t in leaves(st.params)]
+        st, _ = make_train_step(TMCFG, remat=True,
+                                sync_every_microbatch=True, **kw)(
+            st, _to_port(batch))
+        rel = [float(((p - q).double() - (w - q).double()).norm()
+                     / (w - q).double().norm().clamp_min(1e-30))
+               for p, q, w in zip(leaves(st.params), p0,
+                                  _mamba_leaves(js.params))]
+        return max(rel), int(np.argmax(rel))
+
+    print(f"A_log[0][4] grad: JAX {float(want[4]):+.3e} (leaf max "
+          f"{float(want.abs().max()):.3e})")
+    print(f"  port, autograd's silu: {float(port_grad()[4]):+.3e}; first "
+          f"update, worst leaf (rel, leaf): {first_update_rel()}")
+    autograd_silu = tmlp.silu
+    tmlp.silu = tssm.silu = JaxSiLU.apply
+    print(f"  port, JAX's silu rule: {float(port_grad()[4]):+.3e}; first "
+          f"update, worst leaf (rel, leaf): {first_update_rel()}")
+    tmlp.silu = tssm.silu = autograd_silu
+
+    class JaxSoftplus(torch.autograd.Function):
+        """softplus with JAX's logaddexp rule: g exp(x - softplus(x))."""
+        @staticmethod
+        def forward(ctx, x):
+            out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+            ctx.save_for_backward(x, out)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            x, out = ctx.saved_tensors
+            return g * torch.exp(x - out)
+
+    autograd_softplus, tssm._softplus = tssm._softplus, JaxSoftplus.apply
+    print(f"  port, autograd's silu, JAX's softplus rule: "
+          f"{float(port_grad()[4]):+.3e}")
+    tssm._softplus = autograd_softplus
+    shim = types.SimpleNamespace(**{k: getattr(torch, k) for k in dir(torch)
+                                    if not k.startswith("__")})
+    shim.bfloat16 = torch.float32
+    ttransformer.torch = shim
+    print(f"  port, float32 stream: {float(port_grad()[4]):+.3e}")

@@ -15,10 +15,12 @@ widths (phase 15: granite-moe-1b-a400m, deepseek-moe-16b, zamba2-2.7b,
 qwen2-vl-2b, whisper-medium), the rest of training (phase 16: the
 data-parallel CA step and the CA-sync solvers in an NCCL group of one,
 whisper and qwen2-vl trained at published widths, grad_smoke, gradient
-compression, the prox VJP); and the observability layer
-(``repro_torch.obs``) over the Lasso solves and the engine (phases 6e and
-9b). ``--only families`` builds the kernels and runs phase 15 alone,
-``--only training`` phase 16.
+compression, the prox VJP), the rest of serving (phase 17: sampled
+decode, the prefix cache, fan-out, the double-buffered loop, and every
+family through the engine); and the observability layer
+(``repro_torch.obs``) over the Lasso solves and the engine (phases 6e, 9b
+and 17(d)). ``--only families`` builds the kernels and runs phase 15
+alone, ``--only training`` phase 16, ``--only serving`` phase 17.
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -162,8 +164,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    Then full width: internlm2-1.8b (24 layers) with bf16 weights from the
    port's ``init_params`` and a seeded ``torch.Generator``; ``forward`` on
    (2, 512) numpy-seeded tokens (flash_attention launched 24 times) and
-   the 512 positions through ``decode_step`` (paged_decode launched
-   512 * 24 times), every kernel call of both held to its plain version
+   the first 128 positions through ``decode_step`` (paged_decode launched
+   128 * 24 times; the forward's 512 cut to 128 to keep the run inside
+   its time limit),
+   every kernel call of both held to its plain version
    on that call's own inputs (normwise 8e-3); the logits of decode,
    forward and both with the plain attention against each other, with
    their atol = rtol = 0.05 margins, and the model's GEMMs at 1,024 rows
@@ -174,9 +178,9 @@ What it does, in order; any failure raises and the exit code is not 0:
    block under ``torch.cuda.set_sync_debug_mode("error")``: all retire at
    64 tokens, steps == syncs * k, paged_decode launched steps * 24 times and
    flash_attention never; the same requests at k=1 give bit-identical
-   streams; then int8 pages (same accounting; the share of tokens equal to
-   the bf16 run is printed, not gated); steady-state tok/s, ms/step and
-   ms/sync at k=8 and k=1; one profiled k=8 block (device time by kernel,
+   streams; then int8 pages (same accounting; the share of tokens equal
+   to the bf16 run is printed, not gated); steady-state tok/s,
+   ms/step and ms/sync at k=8 and k=1; one profiled k=8 block (device time by kernel,
    busy share, the paged kernel's own time a launch and its launches a
    step: one paged kernel name, 24 launches a step, no merge kernel); and
    once the CLI, ``repro_torch.launch.serve.main`` with
@@ -263,8 +267,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    and dt_bias float32): ``forward`` on (2, 512) numpy-seeded tokens
    launches ssd 48 times, all on the tensor-core body (bf16 x, B and C),
    every call held to its plain version on its own
-   inputs (y 8e-3, the final state 1e-5), and the 512 positions through
-   ``decode_step``, the decode-vs-forward logits margin printed, not gated;
+   inputs (y 8e-3, the final state 1e-5), and the first 128 positions
+   through ``decode_step`` (the forward's 512 cut to 128, as in phase 8),
+   the decode-vs-forward logits
+   margin printed, not gated;
 14. mamba2 train phase, full width, as phase 11: float32 masters,
    ``make_train_step(ca_k=4, remat=True)`` on ``TokenStream(32, 1024,
    seed 0)``, a warm-up step and three timed ones with loss and grad norm
@@ -324,7 +330,38 @@ What it does, in order; any failure raises and the exit code is not 0:
    compression of internlm2's embedding grad: rebuilt exactly, timed; (f)
    the prox block ops' recompute backward at the covtype and susy block
    shapes, within 1e-5 normwise of autograd through the plain block;
-17. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+17. the rest of serving: (a) phase 9's engine and its 16 requests on
+   internlm2-1.8b with prompts of 32-128 tokens (phase 9's 32-512 cut so
+   that the phase's drains of them fit the run's time limit), sampled
+   (temperature 0.8, top-p 0.9, top-k 50, request i seeded 1000 + i) at
+   k=8 and k=1: all retire at 64 tokens, steps == syncs * k, every block
+   under the sync-debug error mode, paged_decode 24 a step, streams
+   bit-identical across k; tok/s beside greedy's on the same requests,
+   and one profiled sampled block with the sampler's device time (the
+   kernels launched inside ``sample_tokens``) and its share; (b) the
+   prefix cache: 16 requests sharing a 264-token prefix (16.5 pages of
+   16), each with its own 32-64-token tail, the first run alone so that
+   its pages are published: streams bit-identical to the cache-off run,
+   15 hits, 15 x 264 prefill tokens skipped, copies on write, and after
+   the drain only the trie's pages live; (c) fan-out: 4 sampled requests
+   of n = 4 against 16 standalone requests seeded ``fold_in_seed(seed,
+   i)``, bit for bit, and fewer peak pages; (d) the double-buffered loop
+   on (a)'s requests at k=8 (submitted in reverse order: other slots, a
+   fresh engine) and k=1, bit-identical to (a)'s streams, hidden syncs
+   counted, ms/sync beside (a)'s; then at k=8 under the sync audit on
+   9b's shorter requests: audited round trips == ``EngineStats.syncs``, the
+   hidden ones == the audit's overlap epochs, none the runtime reports
+   outside a counted read; (e) granite-moe-1b-a400m, deepseek-moe-16b,
+   zamba2-2.7b, qwen2-vl-2b, whisper-medium (1,500 seeded frames) and
+   mamba2-780m, one at a time at their published configs, through the
+   engine (4 greedy requests of 32-64 prompt tokens, 32 new, max_len 256,
+   4 slots): the slot engine, the paged engine (page 16) at k=8 and at
+   k=1 bit-identical, one k=8 block's paged_decode and flash_attention
+   calls held to their plain versions, paged_decode launched once a step
+   per attention layer (zamba2: its 9 shared blocks, at the D = 80
+   instance; mamba2: never), whisper's cross-attention through
+   flash_attention once a layer and step, ms a step;
+18. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -373,6 +410,9 @@ P_FLIP_LIMIT = 0.02
 #: teacher-forced decode vs forward logits (tests/test_models.py)
 LOGIT_TOL = 0.05
 ARCH = "internlm2-1.8b"
+#: positions of phases 8's and 13's teacher-forced decode (the forward's
+#: first ones: it is causal)
+TF_POSITIONS = 128
 SSM_ARCH = "mamba2-780m"
 #: SSD kernels vs plain, normwise, by output dtype: the kernels' float32
 #: sums against the plain versions' float64 sums, rounded once; y in bf16
@@ -1552,7 +1592,13 @@ def paged_decode_phase(dev):
             ("bf16", 5, 205, 16, 8, 128, None),
             ("int8", 5, 205, 16, 8, 128, None),
             ("bf16", 16, 64, 32, 32, 80, None),        # zamba2's heads
-            ("bf16", 16, 64, 16, 8, 128, engine_lens)):
+            ("bf16", 16, 64, 16, 8, 128, engine_lens),
+            # the other families' engine shapes (phase 17(e)): granite,
+            # qwen2-vl's group of 6, whisper's self-attention, deepseek
+            ("bf16", 16, 64, 16, 8, 64, None),
+            ("bf16", 16, 64, 12, 2, 128, None),
+            ("bf16", 16, 64, 16, 16, 64, None),
+            ("bf16", 16, 64, 16, 16, 128, None)):
         Bq = 8
         num_pages = 1 + Bq * npages
         valid = (np.linspace(1, min(npages * P, 1024), Bq) if lens is None
@@ -1626,7 +1672,7 @@ def paged_decode_phase(dev):
               f"gather+sdpa={pair:.4f}ms (diagnostic, max |d| vs plain "
               f"{pair_err:.2e}) valid tokens={int(tokens)} "
               f"host={host:.1f}us/call")
-        if kv == "bf16" and P == 16 and D == 128 and lens is None:
+        if (kv, P, Hq, Hkv, D, lens) == ("bf16", 16, 16, 8, 128, None):
             entries["paged_decode"] = dict(
                 name="paged_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -1860,23 +1906,25 @@ def model_phase(dev, cfg, params):
     _check_held(errs, {"o": cfg.n_layers}, "forward, flash_attention")
     del held
     errs = {}
+    T = TF_POSITIONS
     with _held_to_plain(errs):
-        dec, tf_s, launches = _teacher_forcing(dev, cfg, params, toks)
-    print(f"  teacher-forced decode_step x{S} (paged, bf16, page 16): "
+        dec, tf_s, launches = _teacher_forcing(dev, cfg, params, toks[:, :T])
+    print(f"  teacher-forced decode_step x{T} (paged, bf16, page 16): "
           f"{tf_s:.3f}s with the plain calls; launches={launches}")
-    _check_held(errs, {"o_paged": S * cfg.n_layers}, "decode, paged_decode")
-    check(launches["paged_decode"] == S * cfg.n_layers,
+    _check_held(errs, {"o_paged": T * cfg.n_layers}, "decode, paged_decode")
+    check(launches["paged_decode"] == T * cfg.n_layers,
           f"decode launched paged_decode {launches['paged_decode']} times")
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
 
     # the logits, printed: through 24 bf16 layers any rounding flip grows
     with registry.use("torch"):
         plain_fwd, _ = forward(params, cfg, {"tokens": toks})
-        plain_dec, _, _ = _teacher_forcing(dev, cfg, params, toks)
+        plain_dec, _, _ = _teacher_forcing(dev, cfg, params, toks[:, :T])
+    logits, plain_fwd = logits[:, :T], plain_fwd[:, :T]
     print(f"  logits max |x| {float(logits.abs().max()):.3f}, std "
           f"{float(logits.float().std()):.3f}; allclose "
-          f"atol=rtol={LOGIT_TOL} over all {S} positions (max |d|, worst "
-          f"margin; printed, not gated):")
+          f"atol=rtol={LOGIT_TOL} over the first {T} positions (max |d|, "
+          f"worst margin; printed, not gated):")
     for label, a, b in (
             ("decode vs forward (the kernels)", dec, logits),
             ("decode vs decode with plain attention", dec, plain_dec),
@@ -1907,7 +1955,16 @@ def model_phase(dev, cfg, params):
     return flash_launches
 
 
-def _serve_requests(cfg, n=16, new_tokens=64, prompt_lens=(32, 513)):
+#: phase 9's prompt lengths: 32-512 tokens
+SERVE_PROMPT_LENS = (32, 513)
+#: phase 17(a) and (d)'s prompt lengths: phase 9's requests with their
+#: prompts drawn from 32-128 tokens, so that phase 17's six drains of them
+#: stay inside the run's time limit (the engine prefills a token a step)
+SAMPLED_PROMPT_LENS = (32, 129)
+
+
+def _serve_requests(cfg, n=16, new_tokens=64,
+                    prompt_lens=SERVE_PROMPT_LENS):
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.RandomState(0)
@@ -2025,8 +2082,8 @@ def serve_phase(dev, cfg, params):
     print(f"  k=8 vs k=1 token streams bit-identical: {same}")
     check(same, "k=8 and k=1 token streams differ")
     streams_q, _, _ = run(8, kv_dtype="int8")
-    total = sum(len(v) for v in streams8.values())
-    equal = sum(a == b for rid in streams8
+    total = sum(len(v) for v in streams_q.values())
+    equal = sum(a == b for rid in streams_q
                 for a, b in zip(streams8[rid], streams_q[rid]))
     print(f"  int8 pages vs bf16: {equal}/{total} tokens equal "
           f"({100.0 * equal / total:.1f}%, not gated)")
@@ -2530,12 +2587,14 @@ def mamba2_model_phase(dev, cfg, params):
         forward(params, cfg, {"tokens": toks})
     _check_held(errs, {"y": cfg.n_layers, "h_final": cfg.n_layers},
                 "forward, ssd")
-    dec, tf_s, launches = _ssm_teacher_forcing(dev, cfg, params, toks)
+    T = TF_POSITIONS
+    dec, tf_s, launches = _ssm_teacher_forcing(dev, cfg, params, toks[:, :T])
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
-    worst, excess = _allclose_margin(dec, logits)
+    worst, excess = _allclose_margin(dec, logits[:, :T])
     w0, e0 = _allclose_margin(dec[:, 0], logits[:, 0])
-    print(f"  decode_step x{S} (recurrent cache) {tf_s:.3f}s, launches="
-          f"{launches}; decode vs forward over all {S} positions: max |d| "
+    print(f"  decode_step x{T} (recurrent cache) {tf_s:.3f}s, launches="
+          f"{launches}; decode vs forward over the first {T} positions: "
+          f"max |d| "
           f"{worst:.4e}, allclose atol=rtol={LOGIT_TOL} margin {excess:+.4e} "
           f"({'met' if excess <= 0 else 'not met'}; printed, not gated); "
           f"position 0 {w0:.4e}, {e0:+.4e}")
@@ -3426,6 +3485,390 @@ def training_dist_phase(dev):
     return total
 
 
+# ------------------------------------------------------------ phase 17 ---
+#: phase 17's families (e), one at a time, each freed before the next
+SERVE_FAMILIES = ("granite-moe-1b-a400m", "deepseek-moe-16b", "zamba2-2.7b",
+                  "qwen2-vl-2b", "whisper-medium", "mamba2-780m")
+#: phase 17(a)'s policy: request i seeds 1000 + i
+SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=50)
+
+
+def _engine(dev, cfg, params, k, **kw):
+    from repro_torch.serve import Engine
+    kw = dict(dict(num_slots=8, max_len=1024, max_prompt=512, page_size=16,
+                   eos_id=None, device=dev, sync_debug=True), **kw)
+    return Engine(params, cfg, k=k, **kw)
+
+
+def _sampled(reqs, base=1000):
+    import dataclasses
+    from repro_torch.serve import SamplingParams
+    return [dataclasses.replace(r, sampling=SamplingParams(
+        seed=base + i, **SAMPLED)) for i, r in enumerate(reqs)]
+
+
+def _drain_timed(eng, reqs):
+    """Submit ``reqs`` in order and drain: (responses, wall seconds after
+    the first round, syncs after it)."""
+    import torch
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    out = eng.step()                      # first round: allocator warm-up
+    syncs0 = eng.stats.syncs
+    t0 = time.perf_counter()
+    out += eng.run()
+    wall = time.perf_counter() - t0
+    return out, wall, eng.stats.syncs - syncs0
+
+
+def _profiled_block(dev, cfg, params, reqs):
+    """One profiled k=8 block of phase 9's engine over ``reqs`` in steady
+    state (after 3 rounds): (wall seconds, device kernels by name as
+    (name, device us, launches), sorted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _engine(dev, cfg, params, 8)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.key, _self_device_us(ev), ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    return wall, rows
+
+
+def _sampler_profile(dev, cfg, params, reqs):
+    """The sampled block against the greedy one at the same point of the
+    same requests, both profiled: the sampler's device time a block is
+    their difference in kernel time (its kernels' names are the
+    elementwise ones the model launches too); and one ``sample_tokens``
+    call at the block's shape by CUDA events, two calls at a time behind
+    a sleep, so their ~800 launches fit the launch queue and the events
+    bracket device time only; and its host time a call."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serve import SlotSampling, sample_tokens
+
+    wall, rows = _profiled_block(dev, cfg, params, reqs)
+    _, grows = _profiled_block(dev, cfg, params, [
+        dataclasses.replace(r, sampling=None) for r in reqs])
+    busy = sum(r[1] for r in rows) / 1e3
+    gbusy = sum(r[1] for r in grows) / 1e3
+    n_launch = sum(r[2] for r in rows) - sum(r[2] for r in grows)
+    B = 8
+    logits = torch.randn(B, cfg.vocab, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev).to(torch.bfloat16)
+    greedy = logits.argmax(-1).to(torch.int32)
+    keys = np.stack([[0, 1000 + i] for i in range(B)]).astype(np.int64)
+    samp = SlotSampling(
+        temperature=torch.full((B,), SAMPLED["temperature"], device=dev),
+        top_p=torch.full((B,), SAMPLED["top_p"], device=dev),
+        top_k=torch.full((B,), SAMPLED["top_k"], dtype=torch.int32,
+                         device=dev),
+        key=torch.from_numpy(keys).to(dev))
+    n_out = torch.arange(B, dtype=torch.int32, device=dev)
+
+    def call():
+        return sample_tokens(logits, greedy, samp, n_out)
+
+    for _ in range(3):
+        call()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)        # ~20 ms: longer than 2 calls'
+        a.record()                           # enqueue
+        call()
+        call()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 2)
+    one = float(np.median(times))
+    host = _host_us(call, 20) / 1e3
+    samp_ms = busy - gbusy
+    print(f"  17(a) profile one sampled k=8 block: wall {wall * 1e3:.3f} ms "
+          f"(profiled), device kernels {busy:.3f} ms "
+          f"({100 * busy / 1e3 / wall:.1f}% busy); the greedy block at the "
+          f"same point {gbusy:.3f} ms: the sampler {samp_ms:.3f} ms of "
+          f"device time a block ({100 * samp_ms / busy:.1f}% of the sampled "
+          f"block's), {n_launch} launches; one call at ({B}, {cfg.vocab}) "
+          f"{one:.4f} ms of device time (CUDA events, median of 10 pairs "
+          f"behind a sleep), {host:.3f} ms of host to enqueue it")
+    for key, us, count in rows[:8]:
+        print(f"    {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    return samp_ms, busy
+
+
+def serving_phase(dev):
+    """Phase 17, the rest of serving: (a) sampled serving, (b) the prefix
+    cache, (c) fan-out and (d) the double-buffered loop on internlm2-1.8b
+    at phase 9's engine; (e) every other family through the engine.
+    Returns the kernels' launches in the engines' drains."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, SamplingParams, fold_in_seed
+
+    total: dict = {}
+    cfg = get_arch(ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    greedy = _serve_requests(cfg, prompt_lens=SAMPLED_PROMPT_LENS)
+    reqs = _sampled(greedy)
+
+    # (a) sampled serving at k=8 and k=1, and greedy at k=8 on the same
+    # requests for the tok/s ratio
+    def sampled_run(k, order=1, rs=reqs, **kw):
+        kernels.reset_launch_counts()
+        eng = _engine(dev, cfg, params, k, **kw)
+        out, wall, syncs = _drain_timed(eng, rs[::order])
+        launches = kernels.launch_counts()
+        _add(total, launches)
+        s = eng.stats
+        label = (f"17({'d' if kw.get('overlap') else 'a'}) k={k}"
+                 f"{' greedy' if rs is greedy else ''}"
+                 f"{' reversed' if order < 0 else ''}")
+        check(s.retired == 16 and all(len(r.tokens) == 64 and
+                                      r.finish_reason == "length"
+                                      for r in out),
+              f"{label}: retired {s.retired}")
+        check(s.steps == s.syncs * k, f"{label}: steps {s.steps} != "
+              f"syncs {s.syncs} * k")
+        check(launches["paged_decode"] == s.steps * cfg.n_layers,
+              f"{label}: paged_decode launched {launches['paged_decode']}, "
+              f"want {s.steps * cfg.n_layers}")
+        print(f"  {label}: {s.summary()}; {wall / syncs * 1e3:.3f} ms/sync, "
+              f"{wall / (syncs * k) * 1e3:.3f} ms/step over {syncs} syncs "
+              f"after the first; launches {launches}")
+        return {r.id: r.tokens for r in out}, s, wall / syncs
+
+    print(f"phase 17(a): {cfg.name} sampled at {SAMPLED} (request i seeded "
+          f"1000 + i), phase 9's 16 requests with prompts of "
+          f"{SAMPLED_PROMPT_LENS[0]}-{SAMPLED_PROMPT_LENS[1] - 1} tokens, "
+          f"Engine(num_slots=8, "
+          f"max_len=1024, max_prompt=512, page_size=16), blocks under "
+          f"set_sync_debug_mode('error')")
+    s8, st8, ms8 = sampled_run(8)
+    s1, _, ms1 = sampled_run(1)
+    print(f"  17(a) streams: k=8 == k=1 {s8 == s1}")
+    check(s8 == s1, "17(a): sampled streams differ across k")
+    _, gst8, gms8 = sampled_run(8, rs=greedy)
+    print(f"  17(a) k=8: sampled {st8.tokens_out / (ms8 * st8.syncs)!r} "
+          f"tok/s, greedy {gst8.tokens_out / (gms8 * gst8.syncs)!r} tok/s "
+          f"on the same requests (all tokens over the syncs after the "
+          f"first, at their mean ms/sync)")
+    samp_ms, block_ms = _sampler_profile(dev, cfg, params, reqs)
+
+    # (b) the prefix cache: a 264-token shared prefix (16.5 pages), a
+    # 32-64-token tail each; the first request alone publishes the pages
+    rng = np.random.RandomState(7)
+    shared = rng.randint(0, cfg.vocab, size=264).tolist()
+    preqs = [Request(id=f"p{i}", prompt=shared + rng.randint(
+        0, cfg.vocab, size=int(rng.randint(32, 65))).tolist(),
+        max_new_tokens=32) for i in range(16)]
+    runs = {}
+    for on in (False, True):
+        kernels.reset_launch_counts()
+        eng = _engine(dev, cfg, params, 8, prefix_cache=on)
+        t0 = time.perf_counter()
+        out = eng.run(preqs[:1]) + eng.run(preqs[1:])
+        wall = time.perf_counter() - t0
+        _add(total, kernels.launch_counts())
+        runs[on] = ({r.id: r.tokens for r in out}, eng, wall)
+        print(f"  17(b) prefix cache {'on' if on else 'off'}: {wall:.3f}s, "
+              f"{eng.stats.summary()}")
+    eng = runs[True][1]
+    s = eng.stats
+    ref = eng.pool.refcounts()
+    trie = {n.page for n in eng.pool.prefix.iter_nodes()}
+    live = {int(p) for p in np.flatnonzero(ref[1:] > 0) + 1}
+    check(runs[True][0] == runs[False][0], "17(b): streams differ with the "
+          "prefix cache on")
+    check(s.prefix_hits >= 15 and s.prefix_tokens >= 15 * 256,
+          f"17(b): {s.prefix_hits} hits, {s.prefix_tokens} tokens skipped")
+    check(s.cow_copies > 0, "17(b): no copy-on-write")
+    check(live == trie and all(ref[p] == 1 for p in trie),
+          f"17(b): after the drain {len(live)} live pages, the trie holds "
+          f"{len(trie)}")
+    print(f"  17(b) streams bit-identical to the cache-off run; "
+          f"{s.prefix_hits} hits, {s.prefix_tokens} prefill tokens skipped, "
+          f"{s.cow_copies} copies on write; {len(live)} live pages after "
+          f"the drain, all the trie's; wall {runs[True][2]:.3f}s against "
+          f"{runs[False][2]:.3f}s off")
+    del runs
+
+    # (c) fan-out: 4 sampled requests of n = 4 against 16 standalone
+    # requests seeded fold_in_seed(seed, i)
+    freqs = [Request(id=f"g{i}", prompt=rng.randint(
+        0, cfg.vocab, size=int(rng.randint(32, 65))).tolist(),
+        max_new_tokens=32, n=4,
+        sampling=SamplingParams(seed=2000 + i, **SAMPLED)) for i in range(4)]
+    alone = [Request(id=f"g{i}.{j}", prompt=r.prompt, max_new_tokens=32,
+                     sampling=SamplingParams(seed=fold_in_seed(2000 + i, j),
+                                             **SAMPLED))
+             for i, r in enumerate(freqs) for j in range(4)]
+    kernels.reset_launch_counts()
+    fan = _engine(dev, cfg, params, 8)
+    got = {f"{r.id}.{r.stream}": r.tokens for r in fan.run(freqs)}
+    ref_eng = _engine(dev, cfg, params, 8)
+    want = {r.id: r.tokens for r in ref_eng.run(alone)}
+    _add(total, kernels.launch_counts())
+    fs, rs = fan.stats, ref_eng.stats
+    print(f"  17(c) fan-out: {fs.summary()}; standalone: peak live pages "
+          f"{rs.peak_live_pages} against {fs.peak_live_pages} fanned out")
+    check(got == want, "17(c): a fan-out stream differs from its standalone "
+          "request")
+    check(fs.shared_prompt_pages > 0 and
+          fs.peak_live_pages < rs.peak_live_pages,
+          f"17(c): pages {fs.peak_live_pages} fanned out vs "
+          f"{rs.peak_live_pages} standalone")
+    del fan, ref_eng
+
+    # (d) the double-buffered loop on (a)'s requests, timed beside (a)'s
+    # blocking runs; at k=8 submitted in reverse order, so the same run
+    # holds (a)'s streams across a fresh engine and other slots too; then
+    # under the sync audit (its patches cost host time a call, so the
+    # audited run is not timed) at k=8 on obs phase (b)'s shorter requests
+    for k, order, blocking, ms_b in ((8, -1, s8, ms8), (1, 1, s1, ms1)):
+        o, so, ms_o = sampled_run(k, order=order, overlap=True)
+        print(f"  17(d) overlap k={k}{' reversed' if order < 0 else ''}: "
+              f"{ms_o * 1e3:.3f} ms/sync against {ms_b * 1e3:.3f} blocking; "
+              f"hidden syncs {so.hidden_syncs} of {so.syncs}; streams "
+              f"bit-identical to the blocking engine's: {o == blocking}")
+        check(o == blocking, f"17(d) k={k}: streams differ from blocking")
+        check(so.hidden_syncs > 0, f"17(d) k={k}: no hidden sync")
+    short = _sampled(_serve_requests(cfg, **OBS_REQUESTS))
+    eng = _engine(dev, cfg, params, 8, overlap=True)
+    for r in short:
+        eng.submit(r)
+    with obs.sync_audit(dev) as audit:
+        eng.run()
+    so = eng.stats
+    print(f"  17(d) audited overlap k=8, {len(short)} requests: "
+          f"{so.syncs} syncs, {so.hidden_syncs} hidden; audit "
+          f"{audit.as_dict()}, runtime {audit.runtime_syncs} "
+          f"({audit.runtime_uncounted} uncounted)")
+    check(audit.syncs == so.syncs == audit.dispatches and
+          audit.overlap_epochs == so.hidden_syncs > 0 and
+          audit.runtime_uncounted == 0,
+          f"17(d) k=8: audit {audit.as_dict()} vs stats "
+          f"{so.syncs}/{so.hidden_syncs}")
+    del params
+    torch.cuda.empty_cache()
+    fam = families_engine_phase(dev)
+    _add(total, fam)
+    return total, samp_ms, block_ms
+
+
+def families_engine_phase(dev):
+    """Phase 17(e): each other family through the engine at its published
+    config: 4 greedy requests of 32-64 prompt tokens, 32 new, max_len 256,
+    page 16 where it has attention K/V; slot == paged == paged at k=1 bit
+    for bit; one block's kernel calls held to their plain versions; the
+    launches a step equal the attention calls a step."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request
+
+    total: dict = {}
+    for name in SERVE_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.bfloat16, device=dev)
+        rng = np.random.RandomState(3)
+        audio = cfg.family == "audio"
+        reqs = [Request(id=f"e{i}", prompt=rng.randint(
+            0, cfg.vocab, size=int(rng.randint(32, 65))).tolist(),
+            max_new_tokens=32,
+            enc_embeds=rng.randn(1500, cfg.d_model).astype(np.float32)
+            if audio else None) for i in range(4)]
+        attn = (0 if cfg.family == "ssm" else
+                cfg.n_layers // cfg.shared_attn_period
+                if cfg.family == "hybrid" else cfg.n_layers)
+        kw = dict(num_slots=4, max_len=256, max_prompt=64,
+                  enc_len=1500 if audio else None)
+        streams, per_step = {}, {}
+        for label, k, page in (("slot", 8, None), ("paged", 8, 16),
+                               ("paged", 1, 16)):
+            eng = _engine(dev, cfg, params, k, page_size=page, **kw)
+            if (label, k) == ("paged", 8):
+                errs: dict = {}
+                for r in reqs:
+                    eng.submit(r)
+                kernels.reset_launch_counts()
+                with _held_to_plain(errs):
+                    out = eng.step()
+                steps = eng.stats.steps
+                held = {"o_paged": steps * attn}
+                if audio:
+                    # the cross-attention a layer and step, and the encoder
+                    # layers of each request's prefill at its admission
+                    held["o"] = (steps * cfg.n_layers
+                                 + len(reqs) * cfg.n_enc_layers)
+                _check_held(errs, {n: c for n, c in held.items() if c},
+                            f"17(e) {name} one k=8 block")
+                _add(total, kernels.launch_counts())
+                kernels.reset_launch_counts()
+                t1 = time.perf_counter()
+                out += eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches = kernels.launch_counts()
+                s = eng.stats
+                run_steps = s.steps - steps
+                per_step = {op: n / run_steps for op, n in launches.items()
+                            if n}
+                print(f"  17(e) {name}: {wall / run_steps * 1e3:.3f} ms a "
+                      f"step at 4 slots (k=8, paged={eng.paged}); launches a "
+                      f"step {per_step}; {s.summary()}")
+                check(launches["paged_decode"] == run_steps * attn,
+                      f"17(e) {name}: paged_decode {launches['paged_decode']}"
+                      f" over {run_steps} steps, want {attn} a step")
+                check(launches["flash_attention"] ==
+                      (run_steps * cfg.n_layers if audio else 0),
+                      f"17(e) {name}: flash_attention "
+                      f"{launches['flash_attention']} over {run_steps} steps")
+                _add(total, launches)
+            else:
+                kernels.reset_launch_counts()
+                out = eng.run(list(reqs))
+                _add(total, kernels.launch_counts())
+            check(eng.stats.retired == 4 and all(
+                len(r.tokens) == 32 for r in out),
+                f"17(e) {name} {label} k={k}: retired {eng.stats.retired}")
+            streams[(label, k)] = {r.id: r.tokens for r in out}
+            del eng
+        same = streams[("slot", 8)] == streams[("paged", 8)] == \
+            streams[("paged", 1)]
+        print(f"  17(e) {name}: slot == paged == paged k=1 bit for bit: "
+              f"{same}; {time.perf_counter() - t0:.1f}s")
+        check(same, f"17(e) {name}: streams differ across pools or k")
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
 #: obs phase (b)'s requests: 8 of phase 9's kind with shorter prompts
 #: (32-64 tokens) and 32 new tokens, so three engine runs take seconds
 OBS_REQUESTS = dict(n=8, new_tokens=32, prompt_lens=(32, 65))
@@ -3666,9 +4109,9 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description="the port's smoke run on one "
                                  "NVIDIA Hopper card")
-    ap.add_argument("--only", choices=["families", "training"],
-                    help="build the kernels, then run phase 15 (families) "
-                    "or phase 16 (training) alone")
+    ap.add_argument("--only", choices=["families", "training", "serving"],
+                    help="build the kernels, then run phase 15 (families), "
+                    "phase 16 (training) or phase 17 (serving) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3720,6 +4163,12 @@ def main(argv=None) -> int:
         train16 = training_dist_phase(dev)
         print(f"phase 16: {time.perf_counter() - t_phase:.1f}s; launches "
               + str({op: n for op, n in train16.items() if n}))
+        return 0
+    if args.only == "serving":
+        t_phase = time.perf_counter()
+        serve17, _, _ = serving_phase(dev)
+        print(f"phase 17: {time.perf_counter() - t_phase:.1f}s; launches "
+              + str({op: n for op, n in serve17.items() if n}))
         return 0
     shared_d, max_d = prox_ops.prox_loop_limits()
     print(f"prox kernels: one CTA up to d={prox_ops.ROWS_ABOVE_D}, G "
@@ -4158,6 +4607,21 @@ def main(argv=None) -> int:
           + str({op: n for op, n in train16.items() if n}))
     for name, e in entries.items():
         e["launches"] += train16.get(name, 0)
+
+    # 17. the rest of serving: sampled decode, the prefix cache, fan-out and
+    # the double-buffered loop on internlm2-1.8b, then every other family
+    # through the engine
+    t_phase = time.perf_counter()
+    serve17, samp_ms, block_ms = serving_phase(dev)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f}s; launches "
+          + str({op: n for op, n in serve17.items() if n}))
+    for name in ("paged_decode", "flash_attention"):
+        check(serve17.get(name, 0) > 0,
+              f"{name} was not launched in phase 17")
+    for name, e in entries.items():
+        e["launches"] += serve17.get(name, 0)
+
+    # 18. the result
     for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv",
                  "ssd", "ssd_bwd"):
         check(entries[name]["launches"] > 0,

@@ -1668,20 +1668,38 @@ __device__ __forceinline__ void load_vec(const T* p, float* out) {
   for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
 }
 
+// LANES of a row: the fewest (a power of two) that give each lane at most
+// `et` of the row's D elements
+__host__ __device__ constexpr int pd_lanes(int D, int et) {
+  int l = 1;
+  while (l < 32 && (D % l != 0 || D / l > et)) l *= 2;
+  return l;
+}
+
+// the widest vector (a power of two, at most vmax elements) dividing E
+__host__ __device__ constexpr int pd_vec(int E, int vmax) {
+  int v = 1;
+  while (v * 2 <= vmax && E % (v * 2) == 0) v *= 2;
+  return v;
+}
+
 // A consumer warp's layout over rows of D elements: LANES lanes a row (a
 // lane group), E elements a lane, RPW rows a warp at once. A lane reads its
-// E elements as 16-byte vectors of VB elements, interleaved across its
-// group (element e of lane `sub` is column col(sub, e)), so the 8 lanes of
-// a quarter warp read 128 contiguous bytes. The pair layout (G = 2) holds
-// 16 elements a lane; the wide group (G = 8) 8, to keep q and acc in
-// registers.
+// E elements as vectors of VB elements (16 bytes where E allows), in-
+// terleaved across its group (element e of lane `sub` is column col(sub,
+// e)), so the lanes of a group read contiguous bytes. The pair layout
+// (G = 2) aims at 16 elements a lane, the wide group (G = 8) at 8, to keep
+// q and acc in registers. At D = 16, 32, 64 and 128 that is 16 (8)
+// elements a lane in 16-byte vectors; zamba2's D = 80 takes 8 lanes of 10
+// elements in 4-byte vectors (bf16), or 16 lanes of 5 in the wide group.
 template <typename TKV, int D, int G>
 struct PdLanes {
-  static constexpr int E = (G <= 2 ? 16 : 8) < D ? (G <= 2 ? 16 : 8) : D;
-  static constexpr int LANES = D / E;
+  static constexpr int LANES = pd_lanes(D, G <= 2 ? 16 : 8);
+  static constexpr int E = D / LANES;
   static constexpr int RPW = 32 / LANES;
-  static constexpr int VB =
-      16 / (int)sizeof(TKV) < E ? 16 / (int)sizeof(TKV) : E;
+  static constexpr int VB = pd_vec(E, 16 / (int)sizeof(TKV));
+  static_assert(LANES * E == D && E <= (G <= 2 ? 16 : 8),
+                "no lane layout for this head dim");
   __device__ static __forceinline__ int col(int sub, int e) {
     return ((e / VB) * LANES + sub) * VB + e % VB;
   }
@@ -1858,7 +1876,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
           for (int e = 0; e < E; e += 2) {
             d0 = fmaf(qr[g][e], kv[e], d0);
-            d1 = fmaf(qr[g][e + 1], kv[e + 1], d1);
+            if (e + 1 < E) d1 = fmaf(qr[g][e + 1], kv[e + 1], d1);
           }
           float dot = d0 + d1;
 #pragma unroll
@@ -2116,6 +2134,7 @@ cudaError_t launch_paged_d(int D, const PagedArgs& a, cudaStream_t st) {
     case 16: return launch_paged_a<TQ, TKV, 16>(a, st);
     case 32: return launch_paged_a<TQ, TKV, 32>(a, st);
     case 64: return launch_paged_a<TQ, TKV, 64>(a, st);
+    case 80: return launch_paged_a<TQ, TKV, 80>(a, st);   // zamba2
     case 128: return launch_paged_a<TQ, TKV, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }

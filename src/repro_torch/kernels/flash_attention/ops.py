@@ -9,13 +9,19 @@ attention the model calls.
 and ``flash_attention_bwd_dkv`` (counterparts of ``backward.flash_dq`` and
 ``backward.flash_dkv``, the GQA group sum folded into the latter) and
 ``paged_decode`` (counterpart of ``paged_flash_decode``); ``torch`` is
-``ref.py``. The JAX wrappers pad the head dim to 128 lanes, the sequence to
+``ref.py``. For ``paged_attention`` the ``torch`` impl is
+``ref.paged_decode_gathered``, the port of the JAX registry's ``xla`` impl
+of the op (its engine's route off a TPU: pages gathered, then the slot
+decode's chunked attention), and the kernel is held to
+``ref.paged_decode``, the Pallas kernel's arithmetic, as in the JAX
+package. The JAX wrappers pad the head dim to 128 lanes, the sequence to
 the block size and the page rows to 8 before the kernel; here the kernels
 mask ragged edges themselves and there is no pad pass over the sequence.
-The kernels are built for head dims 16, 32, 64 and 128; any other head dim
-up to 128 that is a multiple of 8 (zamba2's 80) runs zero-padded to the
-next of them, with the scale of the true one (:func:`call_padded`), a copy
-that no current path makes. The flash kernels take their operands'
+The kernels are built for head dims 16, 32, 64 and 128, the paged kernel
+for 80 as well (zamba2's: the engine's pool is read in place); any other
+head dim up to 128 that is a multiple of 8 (zamba2's 80 in the flash
+kernels) runs zero-padded to the next of them, with the scale of the true
+one (:func:`call_padded`). The flash kernels take their operands'
 strides, so the model hands them the projections as views, without a copy;
 their bases and strides must be 16-byte aligned, since the bf16 kernels
 read them by TMA.
@@ -54,6 +60,10 @@ PAGED_CHUNK = 128
 MAX_PAGE_SIZE = 256
 #: head dims the kernels are instantiated for; the others run padded
 HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the paged kernel is instantiated for: also zamba2's 80, so it
+#: reads the engine's pool where it lies (a padded call would copy both
+#: pools to D = 128 every call, and miss the kept tensor maps)
+PAGED_HEAD_DIMS = (16, 32, 64, 80, 128)
 #: query heads per kv head the paged kernel serves at most
 MAX_GROUP = 8
 _TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -428,7 +438,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned (TMA "
                              f"reads it)")
-    if D not in HEAD_DIMS:
+    if D not in PAGED_HEAD_DIMS:
         return call_padded(paged_decode_cuda, (q, k_pool, v_pool),
                            (page_table, kv_valid_len), k_scale=k_scale,
                            v_scale=v_scale, scale=scale)
@@ -470,4 +480,4 @@ registry.register("flash_dkv", "torch")(ref.flash_dkv)
 registry.register("paged_attention", "cuda",
                   unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(paged_decode_cuda)
-registry.register("paged_attention", "torch")(ref.paged_decode)
+registry.register("paged_attention", "torch")(ref.paged_decode_gathered)

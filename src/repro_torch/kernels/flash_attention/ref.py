@@ -215,3 +215,31 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     s = s.masked_fill(pos >= valid, float("-inf"))
     o = _softmax_pv(s, vf)                                # (B,Hkv,G,1,D)
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def paged_decode_gathered(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, page_table: torch.Tensor,
+                          kv_valid_len, *,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The same function as :func:`paged_decode` by the JAX package's XLA
+    route (``repro.models.attention._paged_attention_xla``): the row's pages
+    gathered in the pool's dtype (int8 dequantized to float32), then the
+    slot decode's chunked attention (``models.attention.chunked_attention``:
+    p rounded to v's dtype before p·v) with a per-row valid length. It is
+    the op's CPU path, so the paged engine's rows get the slot engine's
+    bits, as JAX's XLA route gives them; :func:`paged_decode` (the Pallas
+    kernel's arithmetic) stays the oracle the CUDA kernel is held to."""
+    from repro_torch.models.attention import (KV_CHUNK_DEFAULT,
+                                              chunked_attention)
+    B = q.shape[0]
+    Hkv, D = k_pool.shape[2], k_pool.shape[3]
+    table = page_table.long()
+    k = k_pool[table].reshape(B, -1, Hkv, D)
+    v = v_pool[table].reshape(B, -1, Hkv, D)
+    if k_scale is not None:
+        k = k.float() * k_scale[table].reshape(B, -1, Hkv)[..., None]
+        v = v.float() * v_scale[table].reshape(B, -1, Hkv)[..., None]
+    return chunked_attention(q, k, v, causal=False, chunk=KV_CHUNK_DEFAULT,
+                             scale=scale, kv_valid_len=kv_valid_len)

@@ -13,14 +13,19 @@ first round (one-time set-up: kernel builds, allocator warm-up) and the
 steady state separately. Weights are random, from a seeded
 ``torch.Generator``, held in bf16.
 
-Ported flags: ``--arch`` (every arch with ``--engine off``; the engine
-serves the dense archs), ``--preset``, ``--batch``,
-``--new-tokens``, ``--max-len``, ``--k``, ``--requests``, ``--engine``,
-``--page-size``, ``--kv-dtype``, ``--metrics [PATH]`` and ``--trace-out
-PATH`` (``repro_torch.obs``: Prometheus text at exit, to PATH or stdout, and
-a Chrome-trace span timeline), plus ``--device`` (default ``cuda``, raising
-on a host with no card). Sampling, streaming, fan-out, the prefix cache,
-overlap and autotune come with their ROADMAP items.
+Flags, those of the JAX CLI: ``--arch`` (every arch, engine or classic),
+``--preset``, ``--batch``, ``--new-tokens``, ``--max-len``, ``--k``,
+``--requests``, ``--engine``, ``--stream`` (print each request's token
+deltas as the blocks land), ``--temperature``/``--top-p``/``--top-k``/
+``--sample-seed`` (sampled decode; request i seeds ``sample_seed + i``),
+``--n`` (fan each request into n sampled streams), ``--page-size``,
+``--kv-dtype``, ``--prefix-cache``, ``--overlap`` (the double-buffered
+loop), ``--metrics [PATH]`` and ``--trace-out PATH`` (``repro_torch.obs``:
+Prometheus text at exit, to PATH or stdout, and a Chrome-trace span
+timeline), plus ``--device`` (default ``cuda``, raising on a host with no
+card). whisper's requests carry seeded frame embeddings (``enc_len`` =
+``--max-len``). The JAX CLI's ``--autotune`` has no counterpart (the port
+has no autotuner).
 """
 from __future__ import annotations
 
@@ -36,8 +41,7 @@ from repro_torch.configs import get_arch, smoke_config
 from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import init_cache, init_params, prefill_audio_cache
-from repro_torch.serve.cache import require_servable
-from repro_torch.serve import Engine, Request
+from repro_torch.serve import Engine, Request, SamplingParams
 
 
 def _synthetic_requests(cfg, n: int, max_prompt: int, new_tokens: int,
@@ -70,15 +74,54 @@ def _params(cfg, device: torch.device):
     return init_params(cfg, gen, dtype=torch.bfloat16, device=device)
 
 
+def _cli_sampling(args):
+    if args.temperature <= 0.0:
+        return None
+    return SamplingParams(temperature=args.temperature, top_p=args.top_p,
+                          top_k=args.top_k, seed=args.sample_seed)
+
+
+def serve_stream(cfg, engine, reqs, args):
+    """Streamed drain: print token deltas as each k-block lands."""
+    t0 = time.perf_counter()
+    n_deltas = 0
+    for d in engine.stream(reqs):
+        n_deltas += 1
+        if d.done:
+            r = d.response
+            print(f"  {r.id}[{d.stream}] += {d.tokens} [finish="
+                  f"{r.finish_reason} total={len(r.tokens)}]", flush=True)
+        else:
+            print(f"  {d.id}[{d.stream}] += {d.tokens}", flush=True)
+    dt = time.perf_counter() - t0
+    s = engine.stats
+    print(f"streamed {s.tokens_out} tokens across {n_deltas} deltas in "
+          f"{dt:.2f} s (incl. set-up); syncs={s.syncs} "
+          f"(k={args.k}: {s.tokens_out / max(s.syncs, 1):.1f} tok/sync)")
+    print(f"stats: syncs={s.syncs} steps={s.steps} tokens_out={s.tokens_out} "
+          f"retired={s.retired} shed={s.shed} defrags={s.defrags} "
+          f"occupancy={s.occupancy:.2f}")
+    print(s.summary())
+    return engine
+
+
 def serve_engine(cfg, args, device: torch.device):
     params = _params(cfg, device)
     max_prompt = min(16, args.max_len // 2)
     engine = Engine(params, cfg, num_slots=args.batch, max_len=args.max_len,
                     k=args.k, max_prompt=max_prompt,
+                    enc_len=args.max_len if cfg.family == "audio" else None,
                     page_size=args.page_size or None,
-                    kv_dtype=args.kv_dtype, device=device)
+                    kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+                    overlap=args.overlap, device=device)
     reqs = _synthetic_requests(cfg, args.requests or 2 * args.batch,
-                               max_prompt, args.new_tokens, args.max_len)
+                               max_prompt, args.new_tokens, args.max_len,
+                               sampling=_cli_sampling(args), fanout=args.n)
+    if args.stream:
+        print(f"arch={cfg.name} engine=on stream=on device={device} "
+              f"slots={args.batch} k={args.k} requests={len(reqs)} "
+              f"temperature={args.temperature}")
+        return serve_stream(cfg, engine, reqs, args)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -107,7 +150,8 @@ def serve_engine(cfg, args, device: torch.device):
               f"pages={engine.pool.num_pages} "
               f"kv_dtype={engine.pool.kv_dtype} "
               f"page_bytes={engine.pool.page_bytes()} "
-              f"page_defrags={s.page_defrags}")
+              f"prefix_hits={s.prefix_hits} prefix_tokens={s.prefix_tokens} "
+              f"cow_copies={s.cow_copies} page_defrags={s.page_defrags}")
     for r in sorted(responses, key=lambda r: r.id)[:2]:
         print(f"  {r.id}: finish={r.finish_reason} tokens={r.tokens[:16]}")
     return responses
@@ -166,12 +210,37 @@ def main(argv=None):
                     help="synthetic request count (default 2*batch)")
     ap.add_argument("--engine", choices=["on", "off"], default="on",
                     help="off: classic per-token whole-batch loop")
+    ap.add_argument("--stream", action="store_true",
+                    help="engine mode: print per-request token deltas as "
+                         "k-blocks land (Engine.stream)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass (1.0 disables)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation (0 disables)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base seed for per-request sampling streams")
     ap.add_argument("--page-size", type=int, default=0,
                     help="engine mode: tokens per KV page (0 = whole-row "
-                         "slot cache)")
+                         "slot cache; token streams identical either way "
+                         "on the CPU, and on the card at a page of 16)")
     ap.add_argument("--kv-dtype", choices=["f32", "int8"], default="f32",
                     help="engine mode, with --page-size: int8 stores the "
                          "K/V pages as int8 codes + f32 row/head scales")
+    ap.add_argument("--n", type=int, default=1,
+                    help="engine mode: fan each synthetic request into n "
+                         "sampled streams sharing its prompt pages (stream "
+                         "i seeds with fold_in_seed(seed, i))")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="engine mode, with --page-size: reuse radix-trie "
+                         "shared prompt-prefix pages across requests and "
+                         "skip their prefill steps")
+    ap.add_argument("--overlap", action="store_true",
+                    help="engine mode: double-buffer the host loop — "
+                         "launch each k-block before waiting for the "
+                         "previous one (tokens identical; hidden_syncs / "
+                         "host_blocked stats report the effect)")
     ap.add_argument("--device", default=None,
                     help="device to run on (default cuda; raises on a host "
                          "with no card unless this says cpu)")
@@ -180,8 +249,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
-    if args.engine == "on":
-        require_servable(arch)
     cfg = smoke_config(arch) if args.preset == "tiny" else arch
     observing = obs_begin(args)
     try:

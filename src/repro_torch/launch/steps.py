@@ -167,8 +167,8 @@ def make_serve_step(cfg):
     engine); page_table: optional (B, pages_per_slot) int32 when the K/V
     leaves are a paged pool. The registry policy active when the step is
     built is pinned for every call (``auto`` still resolves by device).
-    The next token is the greedy argmax; sampling comes with the rest of
-    serving (ROADMAP queue 1 item 8)."""
+    The next token is the greedy argmax; the engine's k-step block samples
+    from the logits (``repro_torch.serve.sampling``) where a slot asks."""
     backend = registry.policy()
 
     def serve_step(params, cache, tokens, positions=None, page_table=None):

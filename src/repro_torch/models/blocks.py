@@ -177,12 +177,14 @@ def init_moe_block(gen: torch.Generator, cfg, dtype=torch.float32,
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg, *, pos_info: dict,
-              cache: Optional[dict] = None, cache_pos=None):
+              cache: Optional[dict] = None, cache_pos=None,
+              page_table: Optional[torch.Tensor] = None):
     """The dense block with the MoE FFN: (x, cache, aux)."""
     h, new_cache = attn_forward(
         params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope=pos_info["rope"], cache=cache, cache_pos=cache_pos)
+        rope=pos_info["rope"], cache=cache, cache_pos=cache_pos,
+        page_table=page_table, rows=pos_info.get("rows"))
     x = x + h
     m, aux = moe_ffn(params["moe"], rms_norm(x, params["ln2"], cfg.norm_eps),
                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)

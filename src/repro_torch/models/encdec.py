@@ -75,14 +75,17 @@ def cross_kv(params: dict, enc_out: torch.Tensor, cfg):
 
 
 def dec_block(params: dict, x: torch.Tensor, cfg, *, kv_cross, pos_info,
-              cache: Optional[dict] = None, cache_pos=None):
+              cache: Optional[dict] = None, cache_pos=None,
+              page_table: Optional[torch.Tensor] = None):
     """One decoder layer: causal self-attention (with ``cache``, written in
-    place at ``cache_pos``), cross-attention on ``kv_cross``, the GeLU MLP.
-    Returns (x, cache)."""
+    place at ``cache_pos``; a paged pool with ``page_table``, the cross K/V
+    staying in the slot layout), cross-attention on ``kv_cross``, the GeLU
+    MLP. Returns (x, cache)."""
     h, new_cache = attn_forward(
         params["self_attn"], rms_norm(x, params["ln1"], cfg.norm_eps),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope=pos_info["rope"], cache=cache, cache_pos=cache_pos)
+        rope=pos_info["rope"], cache=cache, cache_pos=cache_pos,
+        page_table=page_table, rows=pos_info.get("rows"))
     x = x + h
     h, _ = attn_forward(
         params["cross_attn"], rms_norm(x, params["ln2"], cfg.norm_eps),

@@ -50,12 +50,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     this in 42.55% of the outputs over 2^20 inputs drawn N(0, 9), where
     this matches JAX's bits in all of them, on the CPU
     (``tests/test_torch_families.py``)."""
-    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32,
-                     device=x.device).to(x.dtype)
-    k = torch.tensor(0.044715, dtype=torch.float32, device=x.device).to(
-        x.dtype)
+    c, k = _GELU_CONSTANTS[x.dtype]
     cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
     return x * cdf
+
+
+#: gelu's two constants rounded to each float dtype (through float32, as
+#: JAX casts them), as host floats: a scalar tensor on the card would be a
+#: host-to-device copy, a sync, in every decode step. Made at import, so no
+#: sync audit sees the reads.
+_GELU_CONSTANTS = {
+    dt: tuple(float(torch.tensor(v, dtype=torch.float32).to(dt))
+              for v in (math.sqrt(2 / math.pi), 0.044715))
+    for dt in (torch.float32, torch.bfloat16, torch.float16)}
 
 
 def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:

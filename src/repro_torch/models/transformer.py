@@ -321,6 +321,45 @@ def _mamba_step(lp, x, st: dict, cfg):
     return x + h
 
 
+#: page size of a slot cache's page view (see :func:`decode_step`): a slot
+#: row read at per-row positions goes through the ``paged_attention`` op as
+#: pages of this many rows, so the slot engine takes the paged engine's
+#: arithmetic at this page size. ``serve.CachePool`` rounds its rows up to a
+#: multiple of it.
+SLOT_PAGE = 16
+
+
+def slot_rows(max_len: int) -> int:
+    """The rows a slot cache of depth ``max_len`` holds: ``max_len``
+    rounded up to a whole :data:`SLOT_PAGE` (rows past ``max_len`` are
+    never read)."""
+    return -(-int(max_len) // SLOT_PAGE) * SLOT_PAGE
+
+
+def _slot_view(cache: dict, fam: str, B: int):
+    """A slot cache's K/V leaves (..., B, Smax, Hkv, Dh) viewed as a page
+    pool (..., B * Smax / SLOT_PAGE, SLOT_PAGE, Hkv, Dh) — the same storage,
+    no copy — with the identity page table (B, Smax / SLOT_PAGE) int32."""
+    groups = ("shared",) if fam == "hybrid" else ("layers", "dense0")
+    Smax = cache[groups[0]]["k"].shape[-3]
+    if Smax % SLOT_PAGE:
+        raise ValueError(
+            f"a slot cache read at per-row positions holds whole pages of "
+            f"{SLOT_PAGE} rows; got {Smax} (allocate slot_rows(max_len), as "
+            f"serve.CachePool does)")
+    npg = Smax // SLOT_PAGE
+    view = dict(cache)
+    for g in groups:
+        if g in cache:
+            view[g] = dict(cache[g], **{
+                n: leaf.view(*leaf.shape[:-4], B * npg, SLOT_PAGE,
+                             *leaf.shape[-2:])
+                for n, leaf in cache[g].items() if n in ("k", "v")})
+    dev = cache[groups[0]]["k"].device
+    table = torch.arange(B * npg, dtype=torch.int32, device=dev).view(B, npg)
+    return view, table
+
+
 def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None):
@@ -332,29 +371,37 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
     advanced. Default: the scalar ``cache["pos"]`` shared by the batch.
     qwen2-vl broadcasts the position to all three M-RoPE streams, as JAX
     does (it does not continue from the forward's text positions).
-    page_table: optional (B, pages_per_slot) int32 — the K/V leaves are a
-    paged pool (``repro_torch.serve.paging``); requires ``positions``. The
-    engine's pools hold the dense family only: the others raise, naming
-    ROADMAP queue 1 item 8.
+    page_table: optional (B, pages_per_slot) int32 — the attention K/V
+    leaves are a paged pool (``repro_torch.serve.paging``): every layer's
+    K/V, deepseek's ``dense0``, zamba2's shared-attention K/V and whisper's
+    self-attention; requires ``positions``. The recurrent leaves (mamba2's
+    conv and ssm) and whisper's cross K/V are pageless and stay in the
+    slot layout; a pure SSM has nothing to page and raises for a table
+    (JAX ignores it; its engine never passes one, nor does the port's).
+    A slot cache read at per-row ``positions`` (the engine's slot pool) is
+    read the same way on every device: its K/V viewed in place as pages of
+    :data:`SLOT_PAGE` rows behind the identity table, so Smax must be a
+    multiple of the page (:func:`slot_rows`). The ``paged_attention`` op is
+    the kernel on the card and the JAX package's XLA route on the CPU (the
+    pages gathered, then ``chunked_attention``: the slot decode's bits), so
+    a slot engine and a paged engine agree bit for bit on the CPU at any
+    page size and on the card at a page of :data:`SLOT_PAGE`.
 
     The cache's tensors are written in place (see
     ``repro_torch.models.blocks``); ``cache["pos"]`` is replaced.
-    Self-attention dispatches ``paged_attention`` (paged) or runs
-    ``chunked_attention`` (slot cache); whisper's cross-attention runs
+    Self-attention dispatches ``paged_attention`` (paged, or a slot cache
+    at per-row positions) or runs ``chunked_attention`` (a slot cache at
+    the scalar ``cache["pos"]``); whisper's cross-attention runs
     ``flash_attention`` at Sq = 1. A mamba2 layer runs
     ``mamba2_decode_step`` (no positions, no pages).
     """
     require_supported(cfg)
     fam = cfg.family
     if page_table is not None and fam == "ssm":
+        # the engine keeps a pure SSM in the slot pool (nothing to page)
         raise NotImplementedError(
             f"{cfg.name}: a paged cache holds attention K/V; the ssm "
             f"family's recurrent leaves are pageless")
-    if page_table is not None and fam != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: a paged cache is the engine's, which serves the "
-            f"dense family; the {fam!r} family's pools come with ROADMAP "
-            f"queue 1 item 8")
     if fam == "ssm":
         x = _embed(params, tokens)
         layers = cache["layers"]
@@ -371,6 +418,9 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
     else:
         pos = positions
         rope_pos = positions[:, None]
+    out_cache = cache
+    if page_table is None and positions is not None:
+        cache, page_table = _slot_view(cache, fam, B)
     x = _embed(params, tokens)
     # what every layer of the step shares, computed once: the rotary
     # tables and, paged, the pool rows written and the valid lengths
@@ -382,12 +432,13 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
     pos_info = dict(rope=tables)
     layers = cache["layers"]
     if page_table is not None:
-        pos_info["rows"] = paged_rows(page_table, pos, layers["k"].shape[2])
+        kv = cache["shared"] if fam == "hybrid" else layers
+        pos_info["rows"] = paged_rows(page_table, pos, kv["k"].shape[2])
 
     if fam == "moe" and cfg.first_layer_dense:
         x, _ = dense_block(params["dense0"], x, _dense0_cfg(cfg),
                            pos_info=pos_info, cache=cache["dense0"],
-                           cache_pos=pos)
+                           cache_pos=pos, page_table=page_table)
     for i, lp in enumerate(params["layers"]):
         if fam in ("dense", "vlm"):
             x, _ = dense_block(lp, x, cfg, pos_info=pos_info,
@@ -395,12 +446,13 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
                                page_table=page_table)
         elif fam == "moe":
             x, _, _ = moe_block(lp, x, cfg, pos_info=pos_info,
-                                cache=_at(layers, i), cache_pos=pos)
+                                cache=_at(layers, i), cache_pos=pos,
+                                page_table=page_table)
         elif fam == "audio":
             cross = (cache["cross"]["k"][i], cache["cross"]["v"][i])
             x, _ = encdec.dec_block(lp, x, cfg, kv_cross=cross,
                                     pos_info=pos_info, cache=_at(layers, i),
-                                    cache_pos=pos)
+                                    cache_pos=pos, page_table=page_table)
         else:                                               # hybrid
             for j, sp in enumerate(lp):
                 x = _mamba_step(sp, x, _at(layers, i, j), cfg)
@@ -409,9 +461,11 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
                 shared["attn"], rms_norm(x, shared["ln"], cfg.norm_eps),
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, rope=tables,
-                cache=_at(cache["shared"], i), cache_pos=pos)
+                cache=_at(cache["shared"], i), cache_pos=pos,
+                page_table=page_table, rows=pos_info.get("rows"))
             x = x + h
-    return _logits(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
+    return _logits(params, cfg, x), dict(out_cache,
+                                         pos=out_cache["pos"] + 1)
 
 
 def prefill_audio_cache(params, cfg, cache: dict,

@@ -2,9 +2,7 @@
 counterpart of ``repro.serve.api``, field for field).
 
 Pure-host dataclasses: nothing here touches a device, so schedulers and
-drivers can be unit-tested without one. The port's engine fills the greedy
-counters; the paged-prefix, fan-out and overlap counters stay 0 until the
-rest of serving (ROADMAP queue 1 item 8).
+drivers can be unit-tested without one.
 """
 from __future__ import annotations
 

@@ -1,28 +1,40 @@
-"""Slot-based cache pool over the ``init_cache`` layout (the counterpart of
+"""Slot-based cache pool over the ``init_cache`` layouts (the counterpart of
 ``repro.serve.cache``).
 
 A *slot* is one batch row of the decode cache from
-``repro_torch.models.init_cache``. The pool owns slot bookkeeping
-(allocate / free / defrag) and the slot operations on the cache; the engine
-owns the cache itself and threads it through the k-step decode block.
+``repro_torch.models.init_cache``: attention K/V rows for the attention
+families, the recurrent (conv, ssm) state for mamba2 and zamba2 (and
+zamba2's shared-attention K/V), self-attention rows and cross-attention K/V
+for whisper. The pool owns slot bookkeeping (allocate / free / defrag) and
+the slot operations on the cache; the engine owns the cache itself and
+threads it through the k-step decode block.
 
-The batch axis of every leaf is declared, not inferred: the dense cache is
-``pos`` (scalar, no batch axis) and ``layers`` k/v (n_layers, B, max_len,
-Hkv, Dh), batch axis 1. (JAX infers it by diffing ``eval_shape``s at two
-batch sizes, to cover every family's layout.) Slot operations write the
-cache tensors in place, so the views a caller holds stay valid.
+The batch axis of every leaf is *inferred*, not declared per family: the
+pool builds ``init_cache`` on the ``meta`` device at two batch sizes and
+diffs the shapes (JAX diffs ``eval_shape``s), so zamba2's
+``(n_super, period, B, ...)`` stacked state and whisper's
+``(n_layers, B, enc_len, ...)`` cross cache need no special cases. Slot
+operations write the cache tensors in place, so the views a caller holds
+stay valid.
+
+RNG state: each slot also carries a per-request PRNG key (``seed_slot`` /
+``set_slot_key`` / ``slot_keys``) that the sampled decode path draws from
+(``repro_torch.serve.sampling``). The key is request state, kept on the
+host and never fetched from the device: it is seeded at admission, zeroed
+on free, and follows the request through defrag, which makes sampled token
+streams independent of slot placement.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch.models import init_cache
-from repro_torch.models.transformer import require_supported
+from repro_torch.models.transformer import require_supported, slot_rows
 
 _NO_BATCH = -1
 
@@ -35,49 +47,67 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def meta_cache(cfg, batch: int, max_len: int, enc_len: Optional[int]):
+    """``init_cache`` on the ``meta`` device: shapes and dtypes only."""
+    return init_cache(cfg, batch, max_len, device="meta", enc_len=enc_len)
+
+
+def _batch_axes(cfg, max_len: int, enc_len: Optional[int]) -> dict:
+    """Tree of batch-axis indices (``_NO_BATCH`` for batchless leaves)."""
+    a = meta_cache(cfg, 2, max_len, enc_len)
+    b = meta_cache(cfg, 3, max_len, enc_len)
+
+    def diff(x, y):
+        axes = [i for i, (p, q) in enumerate(zip(x.shape, y.shape)) if p != q]
+        assert len(axes) <= 1, f"ambiguous batch axis for shape {x.shape}"
+        return axes[0] if axes else _NO_BATCH
+
+    return tree_map(diff, a, b)
+
+
 class SlotError(RuntimeError):
     """Invalid slot transition (double allocate/free)."""
-
-
-def require_servable(cfg) -> None:
-    """Raise for a family the engine's pools do not hold yet: they hold
-    the dense family's attention K/V. The other families' model runs
-    (classic decode, ``launch.serve --engine off``); their pools and
-    admission (the recurrent leaves of mamba2 and zamba2, MoE, whisper's
-    cross K/V, qwen2-vl's prefix) come with the rest of serving."""
-    require_supported(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: serving family {cfg.family!r} through the engine "
-            f"is not ported yet; its pools and admission come with ROADMAP "
-            f"queue 1 item 8 (the rest of serving)")
 
 
 class CachePool:
     """Bookkeeping + slot ops for a ``num_slots``-row decode cache on
     ``device`` (``cuda`` unless the caller names another; raises without a
-    card, as the engine does)."""
+    card, as the engine does). ``enc_len``: whisper's encoder length (the
+    cross K/V rows), ignored by the other families."""
 
     def __init__(self, cfg, num_slots: int, max_len: int, *,
-                 device=None):
-        require_servable(cfg)
+                 enc_len: Optional[int] = None, device=None):
+        require_supported(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
+        self.enc_len = enc_len
         self.device = resolve_device(device)
-        self.batch_axes = dict(pos=_NO_BATCH, layers=dict(k=1, v=1))
+        self.batch_axes = _batch_axes(cfg, self.max_len, enc_len)
         # min-heap: lowest-index-first allocation keeps live slots packed at
         # the front, and free stays O(log n) instead of a full re-sort
         self._free: List[int] = list(range(num_slots))
         self._owner: Dict[int, str] = {}
+        # per-slot PRNG key words (jax.random.PRNGKey rows) for sampling
+        self._keys = np.zeros((num_slots, 2), np.uint32)
 
     # ----------------------------------------------------------- construction
     def make_cache(self) -> dict:
-        """Fresh pool cache; ownership passes to the caller."""
-        return init_cache(self.cfg, self.num_slots, self.max_len,
-                          device=self.device)
+        """Fresh pool cache; ownership passes to the caller. Its K/V rows
+        are ``max_len`` rounded up to whole pages of the decode's slot view
+        (``models.transformer.slot_rows``); the rows past ``max_len`` are
+        never read."""
+        return init_cache(self.cfg, self.num_slots, slot_rows(self.max_len),
+                          device=self.device, enc_len=self.enc_len)
 
     # ------------------------------------------------------------ bookkeeping
     @property
@@ -91,6 +121,9 @@ class CachePool:
     def live_slots(self) -> List[int]:
         return sorted(self._owner)
 
+    def owner(self, slot: int) -> Optional[str]:
+        return self._owner.get(slot)
+
     def allocate(self, request_id: str) -> int:
         if not self._free:
             raise SlotError("cache pool exhausted")
@@ -103,7 +136,33 @@ class CachePool:
         if slot not in self._owner:
             raise SlotError(f"slot {slot} is not allocated")
         del self._owner[slot]
+        self._keys[slot] = 0               # request key dies with the request
         heapq.heappush(self._free, slot)
+
+    # ------------------------------------------------------------- rng keys
+    def seed_slot(self, slot: int, seed: int) -> None:
+        """Bind a slot's PRNG key to a request seed (sampled decode): the
+        threefry2x32 layout of ``jax.random.PRNGKey``, [seed >> 32,
+        seed & 0xffffffff], built on the host. The key survives defrag
+        with the request and is zeroed when the slot is freed."""
+        if slot not in self._owner:
+            raise SlotError(f"slot {slot} is not allocated")
+        self._keys[slot] = np.array([seed >> 32, seed & 0xFFFFFFFF],
+                                    np.uint32)
+
+    def set_slot_key(self, slot: int, key) -> None:
+        """Bind a slot to pre-derived raw key words ((2,) uint32). The n>1
+        fan-out path derives stream i's key as ``host_fold_in(base_key,
+        i)``, on the host as :meth:`seed_slot` does."""
+        if slot not in self._owner:
+            raise SlotError(f"slot {slot} is not allocated")
+        self._keys[slot] = np.asarray(key, np.uint32).reshape(2)
+
+    @property
+    def slot_keys(self) -> np.ndarray:
+        """(num_slots, 2) uint32 per-slot key words (zeros for greedy and
+        free slots)."""
+        return self._keys
 
     def fragmentation(self) -> float:
         """Hole fraction of the occupied span [0, max live slot]."""
@@ -114,8 +173,9 @@ class CachePool:
 
     # -------------------------------------------------------------- slot ops
     def zero_slot(self, cache: dict, slot: int) -> dict:
-        """Zero one slot's rows in place (for attention the stale rows are
-        already invisible behind per-slot kv_valid; JAX zeroes them too)."""
+        """Zero one slot's rows in place (required for recurrent state
+        reuse; for attention the stale rows are already invisible behind
+        per-slot kv_valid)."""
         def f(leaf, ax):
             if ax != _NO_BATCH:
                 leaf.select(ax, slot).zero_()
@@ -123,7 +183,8 @@ class CachePool:
         return tree_map(f, cache, self.batch_axes)
 
     def set_slot(self, cache: dict, slot: int, row_cache: dict) -> dict:
-        """Write a batch=1 cache into a slot, in place."""
+        """Write a batch=1 cache (whisper's cross K/V prefill) into a slot,
+        in place, in each leaf's dtype."""
         def f(leaf, row, ax):
             if ax != _NO_BATCH:
                 leaf.select(ax, slot).copy_(row.select(ax, 0))
@@ -153,6 +214,7 @@ class CachePool:
         self._owner = {mapping[s]: rid for s, rid in self._owner.items()}
         # ascending range is already a valid min-heap
         self._free = list(range(len(live), self.num_slots))
+        self._keys = self._keys[np.asarray(perm)]   # keys follow their request
         return cache, perm, mapping
 
     def take_rows(self, per_slot: torch.Tensor, perm) -> torch.Tensor:

@@ -40,7 +40,10 @@ from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.obs.sync_audit import block_until_ready
-from repro_torch.serve import Engine, PagedCachePool, Request
+from repro_torch.serve import (Engine, PagedCachePool, Request,
+                               SamplingParams, SlotSampling, host_fold_in,
+                               sample_tokens)
+from repro_torch.serve import sampling as tsampling
 from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
@@ -810,7 +813,7 @@ def _paged_case(device, *, B, Hq, Hkv, D, P, npages, kv, seed=0,
     (5, 7, 128, 16, 8),          # odd page size
     (5, 4, 16, 4, 2),            # smoke config
     (3, 9, 64, 8, 1),            # group of 8
-    (16, 8, 80, 32, 32),         # zamba2's heads, D=80 run padded to 128
+    (16, 8, 80, 32, 32),         # zamba2's heads, the D=80 instance
 ])
 def test_paged_decode_cuda_matches_plain(cuda, kv, P, npages, D, Hq, Hkv):
     args, scales = _paged_case(cuda, B=8, Hq=Hq, Hkv=Hkv, D=D, P=P,
@@ -1013,7 +1016,8 @@ def test_teacher_forced_paged_decode_matches_forward(cuda):
 def test_engine_streams_do_not_depend_on_k(cuda, mode):
     """Token streams at k=4 equal those at k=1 bit for bit, the k-step
     block makes no hidden host sync (sync_debug raises on one), and the
-    paged engine launches paged_decode once per layer per step."""
+    engine launches paged_decode once per layer per step: the paged pool
+    through its table, the slot pool through its in-place page view."""
     params = _params(cuda)
     streams = {}
     for k in (1, 4):
@@ -1026,8 +1030,7 @@ def test_engine_streams_do_not_depend_on_k(cuda, mode):
         s = eng.stats
         assert s.retired == len(PROMPTS) and s.steps == s.syncs * k
         assert all(len(r.tokens) == 6 for r in out)
-        want = s.steps * CFG.n_layers if "page_size" in mode else 0
-        assert launches["paged_decode"] == want
+        assert launches["paged_decode"] == s.steps * CFG.n_layers
         assert launches["flash_attention"] == 0
         streams[k] = {r.id: r.tokens for r in out}
     assert streams[1] == streams[4]
@@ -1432,7 +1435,9 @@ def test_engine_audit_on_the_card_equals_its_stats(cuda, mode):
                                for i, p in enumerate(PROMPTS)])
             s = eng.stats
             assert a.syncs == s.syncs == a.dispatches, a.as_dict()
-            assert a.device_get == s.syncs and a.runtime_uncounted == 0
+            # the round's wait: the event behind the outputs' pinned copy
+            assert a.block_until_ready == a.transfers == s.syncs
+            assert a.runtime_uncounted == 0
             if on:
                 assert a.by_span == {"serve.decode_block": s.syncs}
             streams[on] = {r.id: r.tokens for r in out}
@@ -1519,3 +1524,145 @@ def test_prox_block_vjp_on_the_card(cuda, op):
             assert g.abs().max() == 0
         else:
             assert _normwise(g, want) <= 1e-5
+
+
+# ------------------------------------------------ the rest of serving --
+def test_paged_decode_d80_reads_the_pool_in_place(cuda, monkeypatch):
+    """zamba2's head dim runs its own instance: no padded call (no copy of
+    the pools), one launch a call, and the pools' tensor maps encoded once
+    and found again on the next call."""
+    def no_pad(*a, **kw):
+        raise AssertionError("paged_decode at D=80 went through call_padded")
+    monkeypatch.setattr(fa_ops, "call_padded", no_pad)
+    args, _ = _paged_case(cuda, B=8, Hq=32, Hkv=32, D=80, P=16, npages=16,
+                          kv="bf16")
+    fa_ops._MAPS.clear()
+    before = fa_ops.paged_decode_cuda.launches
+    a = fa_ops.paged_decode_cuda(*args)
+    b = fa_ops.paged_decode_cuda(*args)
+    torch.cuda.synchronize()
+    assert fa_ops.paged_decode_cuda.launches - before == 2
+    assert len(fa_ops._MAPS) == 1
+    assert torch.equal(a, b)
+    want = fa_ref.paged_decode(*args)
+    assert _normwise(a.float(), want.float()) <= ATTN_RTOL[a.dtype]
+
+
+#: chi-squared critical values at alpha = 0.001 (tests/test_sampling.py)
+CHI2_999 = {1: 10.83, 2: 13.82, 3: 16.27, 4: 18.47}
+SAMPLER_LOGITS = [2.0, 1.0, 0.0, -1.0, 0.5]
+
+
+def _card_draws(cuda, sp, n, seed):
+    """n draws through the sampler on the card: one row a draw, row i keyed
+    fold_in(PRNGKey(seed), i) (built on the host), draw index 0."""
+    base = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    keys = np.stack([host_fold_in(base, i) for i in range(n)])
+    samp = SlotSampling(
+        temperature=torch.full((n,), sp.temperature, device=cuda),
+        top_p=torch.full((n,), sp.top_p, device=cuda),
+        top_k=torch.full((n,), sp.top_k, dtype=torch.int32, device=cuda),
+        key=torch.from_numpy(keys.astype(np.int64)).to(cuda))
+    L = torch.tensor(SAMPLER_LOGITS, device=cuda).expand(n, 5).contiguous()
+    greedy = L.argmax(-1).to(torch.int32)
+    return sample_tokens(L, greedy, samp,
+                         torch.zeros(n, dtype=torch.int32, device=cuda)
+                         ).cpu().numpy()
+
+
+@pytest.mark.parametrize("sp,support", [
+    (SamplingParams(temperature=0.7), [0, 1, 2, 3, 4]),
+    (SamplingParams(temperature=1.0, top_p=0.7), None),
+    (SamplingParams(temperature=1.0, top_k=3), [0, 1, 4]),
+], ids=["temperature", "top_p", "top_k"])
+def test_sampled_draws_on_the_card_match_the_distribution(cuda, sp, support):
+    """The on-card draws against the renormalised truncated softmax by the
+    chi-squared harness of tests/test_sampling.py; the random bits equal
+    the CPU's bit for bit (integer arithmetic)."""
+    n = 8000
+    toks = _card_draws(cuda, sp, n, seed=11)
+    x = np.asarray(SAMPLER_LOGITS, np.float64) / sp.temperature
+    probs = np.exp(x - x.max())
+    probs /= probs.sum()
+    if support is None:                       # the nucleus of top_p
+        order = np.argsort(-probs)
+        cum = np.cumsum(probs[order])
+        support = sorted(order[:int(np.searchsorted(cum, sp.top_p) + 1)])
+    assert set(np.unique(toks)) == set(support)
+    p = probs[support] / probs[support].sum()
+    counts = np.array([(toks == i).sum() for i in support], float)
+    stat = float(((counts - p * n) ** 2 / (p * n)).sum())
+    assert stat < CHI2_999[len(support) - 1], stat
+    key = torch.tensor([[3, 5], [7, 2 ** 32 - 1]], dtype=torch.int64)
+    assert torch.equal(tsampling.random_bits(key.to(cuda), 1000).cpu(),
+                       tsampling.random_bits(key, 1000))
+
+
+FAMILY_ARCHS = ["internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-780m",
+                "zamba2-2.7b", "whisper-medium", "qwen2-vl-2b"]
+
+
+def _family_requests(cfg, sampled):
+    rng = np.random.RandomState(0)
+    reqs = []
+    for i, p in enumerate([[7], [3, 11, 5], [9, 2], [4, 4, 4, 8], [13]]):
+        enc = rng.randn(16, cfg.d_model).astype(np.float32) \
+            if cfg.family == "audio" else None
+        sp = SamplingParams(temperature=0.8, top_p=0.9, top_k=8, seed=i) \
+            if sampled else None
+        reqs.append(Request(id=f"r{i}", prompt=p, max_new_tokens=6,
+                            enc_embeds=enc, sampling=sp))
+    return reqs
+
+
+def _family_drain(cuda, cfg, params, sampled, **kw):
+    eng = Engine(params, cfg, num_slots=3, max_len=32, k=kw.pop("k", 4),
+                 max_prompt=8, enc_len=16 if cfg.family == "audio" else None,
+                 device=cuda, sync_debug=True, **kw)
+    out = eng.run(_family_requests(cfg, sampled))
+    return {r.id: r.tokens for r in out}, eng
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("name", FAMILY_ARCHS)
+def test_paged_engine_matches_slot_engine_per_family(cuda, name, sampled):
+    """Every family at its smoke config on the card: the paged engine (page
+    16, ``paged_decode`` on the pool) gives the slot engine's streams bit
+    for bit (its slot cache read through the same kernel), k=1 gives
+    k=4's, and the kernel runs once a step per attention layer (never for
+    mamba2)."""
+    cfg = smoke_config(get_arch(name))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.bfloat16, device=cuda)
+    slot, _ = _family_drain(cuda, cfg, params, sampled)
+    kernels.reset_launch_counts()
+    paged, eng = _family_drain(cuda, cfg, params, sampled, page_size=16)
+    launches = kernels.launch_counts()["paged_decode"]
+    one, _ = _family_drain(cuda, cfg, params, sampled, page_size=16, k=1)
+    assert paged == slot == one
+    assert all(len(t) == 6 for t in paged.values())
+    per_step = (0 if cfg.family == "ssm" else
+                cfg.n_layers // cfg.shared_attn_period
+                if cfg.family == "hybrid" else cfg.n_layers)
+    assert launches == eng.stats.steps * per_step
+    assert eng.paged == (cfg.family != "ssm")
+
+
+def test_overlap_streams_equal_blocking_on_the_card(cuda):
+    """The double-buffered loop on the card, sampled, paged: the blocking
+    engine's streams bit for bit, hidden syncs counted by the engine and
+    by the audit alike."""
+    cfg = smoke_config(get_arch("internlm2-1.8b"))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.bfloat16, device=cuda)
+    want, _ = _family_drain(cuda, cfg, params, True, page_size=16)
+    with obs.sync_audit(cuda) as audit:
+        got, eng = _family_drain(cuda, cfg, params, True, page_size=16,
+                                 overlap=True)
+    assert got == want
+    s = eng.stats
+    assert s.hidden_syncs > 0 and s.steps == s.syncs * 4
+    assert audit.syncs == s.syncs == audit.dispatches
+    assert audit.overlap_epochs == s.hidden_syncs
+    assert audit.runtime_uncounted == 0
+    assert not eng._pipe

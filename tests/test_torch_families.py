@@ -37,6 +37,7 @@ import repro_torch.models.transformer as ttransformer
 from repro_torch.kernels import registry
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
+from repro_torch.serve import PagedCachePool
 from repro_torch.models import (decode_step, forward, init_cache, init_params,
                                 loss_fn, param_count, params_from_numpy,
                                 prefill_audio_cache)
@@ -553,27 +554,62 @@ def test_prefill_audio_cache_matches_jax():
 
 
 def test_paged_decode_of_the_other_families_raises():
-    cfg, tcfg, jp = _model("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        decode_step(_port(tcfg, jp), tcfg, init_cache(tcfg, B, 16),
-                    torch.zeros(B, 1, dtype=torch.int32),
-                    positions=torch.zeros(B, dtype=torch.int32),
-                    page_table=torch.zeros(B, 2, dtype=torch.int32))
+    """Once refused, now served: a paged ``decode_step`` of every family of
+    this file (deepseek's dense first layer, zamba2's shared attention,
+    whisper's self-attention beside its slot cross K/V, qwen2-vl's M-RoPE)
+    gives the slot cache's logits bit for bit on the CPU (both read through
+    the chunked attention), and only a page table without per-row positions
+    raises, or a slot cache read at per-row positions whose rows are not
+    whole pages of the slot view."""
+    P, steps = 4, 6
+    for name in ARCHS:
+        cfg, tcfg, jp = _model(name)
+        tp = _port(tcfg, jp)
+        pool = PagedCachePool(tcfg, B, 16, page_size=P, enc_len=ENC,
+                              device="cpu")
+        paged = pool.make_cache()
+        slot = init_cache(tcfg, B, 16, enc_len=ENC)
+        batch = _batch(cfg, seed=7, seq=steps)
+        if cfg.family == "audio":
+            slot = prefill_audio_cache(tp, tcfg, slot,
+                                       torch.from_numpy(batch["enc_embeds"]))
+            paged["cross"] = {n: t.clone() for n, t in slot["cross"].items()}
+        for b in range(B):
+            pool.allocate(f"r{b}")
+            pool.reserve(b, 16)
+        table = torch.from_numpy(pool.tables.copy())
+        for t in range(steps):
+            tok = torch.from_numpy(batch["tokens"][:, t:t + 1])
+            pos = torch.full((B,), t, dtype=torch.int32)
+            ls, slot = decode_step(tp, tcfg, slot, tok, positions=pos)
+            lp, paged = decode_step(tp, tcfg, paged, tok, positions=pos,
+                                    page_table=table)
+            assert torch.equal(ls, lp), (name, t)
+        with pytest.raises(ValueError, match="per-row positions"):
+            decode_step(tp, tcfg, paged, tok, page_table=table)
+        with pytest.raises(ValueError, match="whole pages"):
+            decode_step(tp, tcfg, init_cache(tcfg, B, 15, enc_len=ENC), tok,
+                        positions=pos)
 
 
 # ------------------------------------------------------------------- CLIs --
 @pytest.mark.parametrize("name", ARCHS)
 def test_classic_serve_cli_runs_every_family(capsys, name):
     """``launch.serve --engine off`` decodes every family (whisper after a
-    cross K/V prefill from seeded frames); the engine refuses them, naming
-    the rest of serving."""
+    cross K/V prefill from seeded frames), and the engine serves every
+    family too, on the paged pool (whisper: its requests' seeded frames
+    prefilled at admission)."""
     out = serve_cli.main(["--device", "cpu", "--arch", name, "--engine",
                           "off", "--batch", "2", "--new-tokens", "3",
                           "--max-len", "16"])
     assert tuple(out.shape) == (2, 3)
     assert f"arch={name}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        serve_cli.main(["--device", "cpu", "--arch", name])
+    out = serve_cli.main(["--device", "cpu", "--arch", name, "--batch", "2",
+                          "--new-tokens", "3", "--requests", "3",
+                          "--max-len", "16", "--page-size", "4"])
+    text = capsys.readouterr().out
+    assert "engine=on" in text and "retired=3" in text and "paged:" in text
+    assert len(out) == 3 and all(len(r.tokens) == 3 for r in out)
 
 
 @pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "zamba2-2.7b"])

@@ -12,10 +12,11 @@
   same bits as the solve without the host loop and within
   ``tests/test_torch_solvers.py``'s tolerances of the JAX solve.
 - The engine: the audited round trips equal ``EngineStats.syncs`` bitwise
-  at k in {1, 4, 16} for internlm2's smoke config (mamba2's engine waits
-  for the ssm slot pool, ROADMAP queue 1 item 8), all inside the
-  ``serve.decode_block`` span; its metrics mirror its stats; streams are
-  the same with obs on and off.
+  at k in {1, 4, 16} for internlm2's smoke config and for the other
+  families (mamba2's slot pool among them), all inside the
+  ``serve.decode_block`` span; its metrics mirror its stats, the prefix,
+  copy-on-write and hidden-sync counters too; streams are the same with
+  obs on and off.
 - The registry's dispatch counter, the training runner's counters and
   spans after an injected failure, and both CLIs' ``--metrics`` and
   ``--trace-out``.
@@ -417,8 +418,8 @@ def _audited_drain(params, k, n=4, slots=4, **kw):
 @pytest.mark.parametrize("k", [1, 4, 16])
 def test_engine_sync_audit_bitwise_equals_stats(params, k):
     """The audited round trips equal ``EngineStats.syncs`` exactly, one
-    marked dispatch a round. mamba2 is not here: its engine waits for the
-    ssm slot pool (ROADMAP queue 1 item 8)."""
+    marked dispatch a round (the other families:
+    :func:`test_engine_sync_audit_equals_stats_for_every_family`)."""
     audit, stats, _ = _audited_drain(params, k)
     assert audit.syncs == stats.syncs == audit.dispatches, audit.as_dict()
     assert audit.transfers == stats.syncs      # the one fetch a round
@@ -467,7 +468,8 @@ def test_engine_metrics_mirror_stats(params):
     assert r.get("repro_serve_tpot_seconds").count() == s.retired
     assert r.get("repro_serve_host_blocked_seconds").count() == s.syncs
     assert r.get("repro_sched_queue_depth") is not None
-    # the features item 8 brings are defined and stay at 0
+    # no prefix cache, no overlap here: their counters are defined and 0
+    # (they move in test_prefix_cow_and_hidden_sync_counters_move)
     for name in ("repro_serve_prefix_hits_total",
                  "repro_serve_prefix_tokens_total",
                  "repro_serve_cow_copies_total",
@@ -476,6 +478,45 @@ def test_engine_metrics_mirror_stats(params):
     text = obs.to_prometheus()
     _prometheus_parses(text)
     assert f"repro_serve_syncs_total {s.syncs}" in text
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
+                                  "granite-moe-1b-a400m", "whisper-medium"])
+def test_engine_sync_audit_equals_stats_for_every_family(arch):
+    cfg = smoke_config(get_arch(arch))
+    p = init_params(cfg, torch.Generator().manual_seed(0),
+                    dtype=torch.bfloat16, device="cpu")
+    rng = np.random.RandomState(0)
+    reqs = [Request(id=f"r{i}", prompt=[3 + i, 5], max_new_tokens=5,
+                    enc_embeds=rng.randn(16, cfg.d_model).astype(np.float32)
+                    if cfg.family == "audio" else None) for i in range(3)]
+    eng = Engine(p, cfg, num_slots=2, max_len=16, k=4, max_prompt=4,
+                 enc_len=16, page_size=4, device="cpu")
+    with obs.sync_audit(CPU) as audit:
+        eng.run(reqs)
+    s = eng.stats
+    assert audit.syncs == s.syncs == audit.dispatches == audit.transfers
+    assert s.retired == 3 and s.steps == s.syncs * 4
+
+
+def test_prefix_cow_and_hidden_sync_counters_move(params):
+    obs.enable()
+    shared = [5, 9, 2, 7, 1, 8]              # 1.5 pages of 4
+    eng = Engine(params, CFG, num_slots=2, max_len=32, k=2, max_prompt=8,
+                 page_size=4, prefix_cache=True, overlap=True, device="cpu")
+    # a publishes two whole prompt pages; each b matches the first and 2
+    # tokens of the second: a copy-on-write each
+    eng.run([Request(id="a", prompt=shared + [3, 3], max_new_tokens=3)])
+    eng.run([Request(id=f"b{i}", prompt=shared + [4 + i, 6],
+                     max_new_tokens=3) for i in range(3)])
+    s, r = eng.stats, obs.REGISTRY
+    assert s.prefix_hits == 3 and s.cow_copies == 3 and s.hidden_syncs > 0
+    assert r.get("repro_serve_prefix_hits_total").total() == s.prefix_hits
+    assert r.get("repro_serve_prefix_tokens_total").total() == \
+        s.prefix_tokens == 3 * 6
+    assert r.get("repro_serve_cow_copies_total").total() == s.cow_copies
+    assert r.get("repro_serve_hidden_syncs_total").total() == \
+        s.hidden_syncs
 
 
 def test_scheduler_gate_sheds_into_the_counter():

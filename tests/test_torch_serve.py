@@ -2,8 +2,12 @@
 of ``repro_torch.serve.Engine`` equal the JAX ``Engine``'s (its auto
 backend on the CPU) over the slot pool, the paged pool (page size 5) and
 int8 pages at k in {1, 4}; the port's paged streams equal its slot
-streams; the serve regressions of the JAX suite that apply to what is
-ported; page refcounts; the options not ported yet raise; and the CLI."""
+streams; the serve regressions of the JAX suite; page refcounts; the
+options of the rest of serving (sampling, fan-out, the prefix cache,
+overlap, every family) served and the JAX engine's refusals kept; and the
+CLI with every flag. Sampling, fan-out, paging, the prefix cache and
+overlap against the JAX engine are in tests/test_torch_sampling.py,
+test_torch_fanout.py, test_torch_paged.py and test_torch_overlap.py."""
 import functools
 
 import jax
@@ -18,7 +22,7 @@ from repro.serve import (Engine as JEngine, PagedCachePool as JPagedCachePool,
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.dist import DeadlineGate
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import forward
+from repro_torch.models import forward, init_params
 from repro_torch.serve import (CachePool, Engine, FINISH_EOS, FINISH_ERROR,
                                FINISH_LENGTH, PagedCachePool, PageError,
                                Request, SamplingParams, Scheduler)
@@ -217,33 +221,42 @@ def test_engine_defrags_slots_and_pages_without_changing_tokens():
     assert got == _port("slot", 2)[1]
 
 
-# ---------------------------------------------------- options not ported --
+# ------------------------------- the options the rest of serving brings --
 def test_unported_options_raise():
+    """The options that once raised here (sampling, fan-out, the prefix
+    cache, the double-buffered loop, the recurrent and MoE families) are
+    served; what still raises is what the JAX engine refuses too."""
     params = _weights()[1]
-    eng = Engine(params, TCFG, num_slots=2, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        eng.submit(Request(id="s", prompt=[1],
-                           sampling=SamplingParams(temperature=0.8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        eng.submit(Request(id="n", prompt=[1], n=2))
-    for kw in (dict(prefix_cache=True, page_size=5), dict(overlap=True)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 8"):
-            Engine(params, TCFG, num_slots=2, max_len=16, device="cpu", **kw)
-    # the ssm model runs (item 6), its recurrent slot pool does not yet
-    ssm = smoke_config(t_get_arch("mamba2-780m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        Engine(params, ssm, num_slots=2, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        serve_cli.main(["--device", "cpu", "--arch", "mamba2-780m"])
-    # the moe model runs (item 6, done), its pools come with item 8
-    moe = smoke_config(t_get_arch("granite-moe-1b-a400m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        Engine(params, moe, num_slots=2, max_len=16, device="cpu")
-    # a greedy SamplingParams is served as greedy
-    out = eng.run([Request(id="g", prompt=[1], max_new_tokens=2,
+    eng = Engine(params, TCFG, num_slots=2, max_len=16, device="cpu",
+                 page_size=5, prefix_cache=True, overlap=True)
+    out = eng.run([Request(id="s", prompt=[1], max_new_tokens=3,
+                           sampling=SamplingParams(temperature=0.8, seed=1)),
+                   Request(id="n", prompt=[2, 3], max_new_tokens=3, n=2),
+                   Request(id="g", prompt=[1], max_new_tokens=2,
                            sampling=SamplingParams())])
-    assert len(out[0].tokens) == 2
+    assert sorted((r.id, r.stream, len(r.tokens)) for r in out) == [
+        ("g", 0, 2), ("n", 0, 3), ("n", 1, 3), ("s", 0, 3)]
+    assert eng.stats.fanout_groups == 1
+    for arch in ("mamba2-780m", "granite-moe-1b-a400m"):
+        cfg = smoke_config(t_get_arch(arch))
+        p = init_params(cfg, torch.Generator().manual_seed(0),
+                        dtype=torch.bfloat16, device="cpu")
+        e = Engine(p, cfg, num_slots=2, max_len=16, device="cpu")
+        assert len(e.run([Request(id="x", prompt=[1],
+                                  max_new_tokens=2)])[0].tokens) == 2
+    with pytest.raises(ValueError, match="n must be"):
+        eng.submit(Request(id="z", prompt=[1], n=0))
+    with pytest.raises(ValueError, match="exceeds num_slots"):
+        eng.submit(Request(id="w", prompt=[1], n=3))
+    with pytest.raises(ValueError, match="kv_dtype requires a paged pool"):
+        Engine(params, TCFG, num_slots=2, max_len=16, kv_dtype="int8",
+               device="cpu")
+    whisper = smoke_config(t_get_arch("whisper-medium"))
+    wp = init_params(whisper, torch.Generator().manual_seed(0),
+                     dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(ValueError, match="enc_embeds"):
+        Engine(wp, whisper, num_slots=2, max_len=16,
+               device="cpu").submit(Request(id="a", prompt=[1]))
 
 
 def test_engine_and_cli_default_to_the_card():
@@ -263,7 +276,13 @@ def test_engine_and_cli_default_to_the_card():
 # --------------------------------------------------------------------- CLI --
 @pytest.mark.parametrize("argv", [
     ["--page-size", "5"], ["--page-size", "5", "--kv-dtype", "int8"],
-    [], ["--engine", "off"]], ids=["paged", "int8", "slot", "classic"])
+    [], ["--engine", "off"],
+    ["--temperature", "0.8", "--top-p", "0.9", "--top-k", "20",
+     "--sample-seed", "3"],
+    ["--page-size", "4", "--prefix-cache", "--overlap"],
+    ["--page-size", "4", "--temperature", "0.7", "--n", "2"]],
+    ids=["paged", "int8", "slot", "classic", "sampled", "prefix-overlap",
+         "fanout"])
 def test_serve_cli_on_cpu(capsys, argv):
     out = serve_cli.main(["--device", "cpu", "--preset", "tiny",
                           "--batch", "2", "--new-tokens", "4",
@@ -272,5 +291,20 @@ def test_serve_cli_on_cpu(capsys, argv):
     if argv == ["--engine", "off"]:
         assert tuple(out.shape) == (2, 4)
         return
-    assert "steady-state" in text and "retired=3" in text
-    assert len(out) == 3 and all(len(r.tokens) == 4 for r in out)
+    n = 2 if "--n" in argv else 1
+    assert "steady-state" in text and f"retired={3 * n}" in text
+    assert len(out) == 3 * n and all(len(r.tokens) == 4 for r in out)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "whisper-medium"])
+def test_serve_cli_streams_every_family(capsys, arch):
+    """``--stream`` with sampling prints each request's deltas; the engine
+    serves the ssm family (slot pool) and whisper (cross K/V prefilled at
+    admission from seeded frames)."""
+    eng = serve_cli.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                          "--new-tokens", "3", "--requests", "3",
+                          "--max-len", "16", "--stream", "--temperature",
+                          "0.8", "--page-size", "4"])
+    text = capsys.readouterr().out
+    assert "stream=on" in text and "finish=length total=3" in text
+    assert eng.stats.retired == 3 and eng.stats.steps == eng.stats.syncs * 4

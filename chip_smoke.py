@@ -13,14 +13,15 @@ mamba2-780m's forward and training at full width through the SSD kernels
 (phases 12-14), and the other four model families at their published
 widths (phase 15: granite-moe-1b-a400m, deepseek-moe-16b, zamba2-2.7b,
 qwen2-vl-2b, whisper-medium), the rest of training (phase 16: the
-data-parallel CA step and the CA-sync solvers in an NCCL group of one,
+single-device CA step and the CA-sync solvers in an NCCL group of one,
 whisper and qwen2-vl trained at published widths, grad_smoke, gradient
-compression, the prox VJP), the rest of serving (phase 17: sampled
-decode, the prefix cache, fan-out, the double-buffered loop, and every
-family through the engine); and the observability layer
-(``repro_torch.obs``) over the Lasso solves and the engine (phases 6e, 9b
-and 17(d)). ``--only families`` builds the kernels and runs phase 15
-alone, ``--only training`` phase 16, ``--only serving`` phase 17.
+compression, the prox VJP), the sharded train step on a (1, 1) mesh
+(phase 18), the rest of serving (phase 17: sampled decode, the prefix
+cache, fan-out, the double-buffered loop, and every family through the
+engine); and the observability layer (``repro_torch.obs``) over the
+Lasso solves and the engine (phases 6e, 9b and 17(d)). ``--only
+families`` builds the kernels and runs phase 15 alone, ``--only
+training`` phases 16 and 18, ``--only serving`` phase 17.
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -307,12 +308,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    package's training checks at the smoke config and the train CLI with
    a failure;
 16. the rest of training (one arch at a time, each freed before the
-   next): (a) the data-parallel CA step (``make_train_step(cfg, rules)``,
-   ``Rules`` over an NCCL group of one in this process) at phase 11's
-   configuration: one all-reduce of the flat gradient buffer a step (its
-   words printed) and ca_k under ``sync_every_microbatch``, the params
-   after three steps bit-identical to ``make_train_step(rules=None)`` on
-   the same batches, both steps' ms, and the all-reduce call's host us;
+   next): (a) the single-device step (``make_train_step(cfg)``) at
+   phase 11's configuration, two CA steps and then one classical step
+   (``sync_every_microbatch``) on a third batch: ms, peak memory, metrics,
+   and every master and moment copied to the host after each schedule
+   (phase 18's yardstick);
    (b) ``ca_local_sgd_solver`` and ``ca_stale_k_solver`` at internlm2's
    widths (float32 params, k = 4 local steps on 8 x 1,024 rows, three
    rounds): one all-reduce a round each, every stale-k collective waited
@@ -330,6 +330,18 @@ What it does, in order; any failure raises and the exit code is not 0:
    compression of internlm2's embedding grad: rebuilt exactly, timed; (f)
    the prox block ops' recompute backward at the covtype and susy block
    shapes, within 1e-5 normwise of autograd through the plain block;
+   then phase 18: ``make_train_step(cfg, rules)`` on a (data=1, model=1)
+   mesh (``make_rules`` over an NCCL group of one in this process) for
+   16(a)'s two CA steps from the same weights and then its classical
+   step: after each, every master, moment and metric bitwise 16(a)'s (the
+   sharded state in JAX's stacked layout, compared layer by layer), the
+   layout (every leaf whole), the collectives (every leaf whole, so no
+   gather and no reduce-scatter: an all-reduce of every gradient and the
+   loss, one of the squared norm, a step under CA and a microbatch under
+   the classical schedule), the flash kernels' launches (the lse forward
+   2 x 24 x ca_k, flash_dq and flash_dkv 24 x ca_k a step), ms and peak
+   memory; then the host and card time of one all-reduce of every
+   gradient and the loss;
 17. the rest of serving: (a) phase 9's engine and its 16 requests on
    internlm2-1.8b with prompts of 32-128 tokens (phase 9's 32-512 cut so
    that the phase's drains of them fit the run's time limit), sampled
@@ -361,7 +373,7 @@ What it does, in order; any failure raises and the exit code is not 0:
    per attention layer (zamba2: its 9 shared blocks, at the D = 80
    instance; mamba2: never), whisper's cross-attention through
    flash_attention once a layer and step, ms a step;
-18. prints ``{"kernels": [...]}``, the card's name and power limit, and as
+19. prints ``{"kernels": [...]}``, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -2127,7 +2139,12 @@ FAMILY_BWD_SHAPES = (
     (2, 16, 16, 1500, 1500, 64, False, "bfloat16"),
     (2, 16, 16, 448, 1500, 64, False, "bfloat16"),
     (8, 16, 8, 1024, 1024, 64, True, "bfloat16"),
-    (2, 12, 2, 1536, 1536, 128, True, "bfloat16"))
+    (2, 12, 2, 1536, 1536, 128, True, "bfloat16"),
+    # llama3-8b's local heads under tensor parallelism, a microbatch of 8
+    # rows: model = 4 (8 query heads, 2 kv heads) and (2, 2)'s model = 2
+    # on 4 rows (16 and 4)
+    (8, 8, 2, 1024, 1024, 128, True, "bfloat16"),
+    (4, 16, 4, 1024, 1024, 128, True, "bfloat16"))
 
 
 def backward_kernel_phase(dev):
@@ -3050,6 +3067,8 @@ def families_phase(dev):
 # ------------------------------------------------------------ phase 16 ---
 #: phase 16's CA step: phase 11's configuration
 DP_CA_K, DP_BATCH, DP_SEQ = 4, 32, 1024
+DP_KW = dict(ca_k=DP_CA_K, peak_lr=3e-4, warmup=10, total_steps=100,
+             remat=True)
 #: (b): k local steps a round on 8 x 1,024 microbatches, three rounds
 SYNC_K, SYNC_ROWS, SYNC_ROUNDS, SYNC_LR = 4, 8, 3, 1e-3
 #: (b): stale-k's finalize against the synchronous params
@@ -3082,102 +3101,152 @@ def _timed_steps(step, state, batches):
 
 
 def dp_step_phase(dev, cfg, total):
-    """Phase 16(a): the data-parallel CA step (``make_train_step(cfg,
-    rules)``) at phase 11's configuration in the NCCL group of one: one
-    all-reduce a step under CA and ca_k under ``sync_every_microbatch``,
-    with their words; the params after three steps bit-identical to the
-    single-device step's on the same batches; both steps' ms; the host
-    time of the all-reduce call. Returns internlm2's embedding grad of one
-    microbatch (phase 16(e)'s leaf)."""
+    """Phase 16(a): the single-device step (``make_train_step(cfg)``) at
+    phase 11's configuration: two CA steps (ms, peak memory, metrics, every
+    master and moment copied to the host after them), then one classical
+    step (``sync_every_microbatch``) from there on a third batch, its
+    metrics and state copied to the host too. Returns (the batches, the CA
+    metrics and host copies in ``leaves`` order of the state, the classical
+    ones, internlm2's embedding grad of one microbatch after the CA steps
+    (phase 16(e)'s leaf))."""
     import torch
-    import torch.distributed as dist
     from repro_torch import kernels
-    from repro_torch.core.distributed import CollectiveCount
     from repro_torch.data import TokenStream
-    from repro_torch.dist import data_rules
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.models import loss_fn
     from repro_torch.tree import leaves, tree_map
 
     stream = TokenStream(DP_BATCH, DP_SEQ, cfg.vocab, seed=0, device=dev)
     try:
-        batches = [next(stream) for _ in range(4)]
+        batches = [next(stream) for _ in range(3)]
     finally:
         stream.close()
-    kw = dict(ca_k=DP_CA_K, peak_lr=3e-4, warmup=10, total_steps=100,
-              remat=True)
-    rules = data_rules(dist.group.WORLD)
-    runs = {}
-    for label, rules_ in (("single", None), ("dp", rules)):
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    step = make_train_step(cfg, None, **DP_KW)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, walls, logs = _timed_steps(step, state, batches[:2])
+    launches = kernels.launch_counts()
+    _add(total, launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (a) {[round(w * 1e3, 1) for w in walls]} ms a step, peak "
+          f"{peak / 2 ** 30:.2f} GiB; launches "
+          f"{ {op: n for op, n in launches.items() if n} }; loss "
+          f"{[lg['loss'] for lg in logs]}")
+    for lg in logs:
+        check(math.isfinite(lg["loss"]) and math.isfinite(lg["grad_norm"]),
+              f"(a) loss not finite {lg}")
+    host = [t.detach().cpu() for t in leaves(list(state))]
+    # phase 16(e)'s leaf: the embedding grad of one microbatch
+    p = tree_map(lambda t: t.detach().to(torch.bfloat16), state.params)
+    p["embed"].requires_grad_()
+    mb = {k: v[:DP_BATCH // DP_CA_K] for k, v in batches[0].items()}
+    g_embed = torch.autograd.grad(loss_fn(p, cfg, mb, remat=True),
+                                  p["embed"])[0].float()
+    del p
+    # the classical schedule, one step on the third batch
+    classical = make_train_step(cfg, None, sync_every_microbatch=True,
+                                **DP_KW)
+    kernels.reset_launch_counts()
+    state, cwalls, clogs = _timed_steps(classical, state, batches[2:])
+    _add(total, kernels.launch_counts())
+    print(f"  (a) sync_every_microbatch: {cwalls[0] * 1e3:.1f} ms, loss "
+          f"{clogs[0]['loss']:.5f}")
+    check(math.isfinite(clogs[0]["loss"]) and math.isfinite(
+        clogs[0]["grad_norm"]), f"(a) classical loss not finite {clogs}")
+    chost = [t.detach().cpu() for t in leaves(list(state))]
+    del state, step, classical
+    torch.cuda.empty_cache()
+    return batches, (logs, host), (clogs, chost), g_embed
+
+
+def sharded_step_phase(dev, cfg, total, batches, ca, classical):
+    """Phase 18: ``make_train_step(cfg, rules)`` on a (data=1, model=1)
+    mesh in an NCCL group of one, from the weights 16(a) started from
+    (``init_train_state`` with the rules shards what one device draws):
+    16(a)'s two CA steps, then its classical step on the third batch.
+    After each, every master, moment and metric bitwise 16(a)'s (``ca``
+    and ``classical``: its metrics and host copies); the layout, the
+    collectives and the flash kernels' launches; ms and peak memory. Then
+    the host and card time of one all-reduce of a step's words."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.distributed import CollectiveCount
+    from repro_torch.dist import Mesh, make_rules
+    from repro_torch.launch import mesh
+    from repro_torch.launch.steps import (init_train_state, layout,
+                                          make_train_step)
+    from repro_torch.tree import leaves
+
+    def run(label, state, batches, logs, host, **kw):
         count = CollectiveCount()
-        state = init_train_state(cfg, torch.Generator(
-            device=dev).manual_seed(0), device=dev)
-        step = make_train_step(cfg, rules_, counter=count, **kw)
+        step = make_train_step(cfg, rules, counter=count, **DP_KW, **kw)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        state, walls, logs = _timed_steps(step, state, batches[:3])
+        state, walls, got = _timed_steps(step, state, batches)
         launches = kernels.launch_counts()
-        if label == "dp":
-            _add(total, launches)
+        _add(total, launches)
         peak = torch.cuda.max_memory_allocated()
-        ms = sorted(walls)[1] * 1e3
-        runs[label] = (walls, logs, count)
-        print(f"  (a) {label}: {[round(w * 1e3, 1) for w in walls]} ms a "
-              f"step, median {ms:.1f} ms, {DP_BATCH * DP_SEQ / ms * 1e3:.0f}"
-              f" tokens/s, peak {peak / 2 ** 30:.2f} GiB; all-reduces "
-              f"{count.all_reduces} ({count.words} words); launches "
+        print(f"  {label}: {[round(w * 1e3, 1) for w in walls]} ms a step, "
+              f"peak {peak / 2 ** 30:.2f} GiB; collectives in "
+              f"{len(batches)} step(s): {vars(count)}; launches "
               f"{ {op: n for op, n in launches.items() if n} }")
-        for lg in logs:
-            check(math.isfinite(lg["loss"]) and math.isfinite(
-                lg["grad_norm"]), f"(a) {label}: loss not finite {lg}")
-        if label == "single":
-            host = [t.detach().cpu() for t in leaves(state.params)]
-        else:
-            same = all(torch.equal(t, h.to(dev)) for t, h in
-                       zip(leaves(state.params), host))
-            print(f"  (a) params after 3 steps bit-identical to "
-                  f"make_train_step(rules=None): {same}; metrics equal: "
-                  f"{logs == runs['single'][1]}")
-            check(same and logs == runs["single"][1],
-                  "(a) the DP step at world 1 is not the single-device step")
-            n = sum(t.numel() for t in leaves(state.params)) + 1
-            check(count.all_reduces == 3 and count.words == 3 * n,
-                  f"(a) CA: {count.all_reduces} all-reduces, {count.words} "
-                  f"words in 3 steps, want 3 and {3 * n}")
-            check(launches["flash_dq"] == 3 * DP_CA_K * cfg.n_layers,
-                  f"(a) flash_dq launched {launches['flash_dq']}")
-            # the classical schedule: ca_k all-reduces a step
-            count = CollectiveCount()
-            classical = make_train_step(cfg, rules, counter=count,
-                                        sync_every_microbatch=True, **kw)
-            kernels.reset_launch_counts()
-            state, cwalls, clogs = _timed_steps(classical, state,
-                                                batches[3:])
-            _add(total, kernels.launch_counts())
-            print(f"  (a) sync_every_microbatch: {count.all_reduces} "
-                  f"all-reduces ({count.words} words) a step, "
-                  f"{cwalls[0] * 1e3:.1f} ms, loss {clogs[0]['loss']:.5f}")
-            check(count.all_reduces == DP_CA_K and count.words == DP_CA_K * n,
-                  f"(a) classical: {count.all_reduces} all-reduces")
-            # the collective's own cost on the host and the card
-            buf = torch.zeros(n, device=dev)
-            host_us = _host_us(lambda: dist.all_reduce(buf), iters=20)
-            dev_ms = time_ms(lambda: dist.all_reduce(buf), 5)
-            print(f"  (a) all_reduce of the step's {n} words at world 1: "
-                  f"{host_us:.1f} us of host a call, {dev_ms:.4f} ms on the "
-                  f"card (multi-rank time: not measured, one card)")
-            del buf
-            # phase 16(e)'s leaf: the embedding grad of one microbatch
-            p = tree_map(lambda t: t.detach().to(torch.bfloat16),
-                         state.params)
-            p["embed"].requires_grad_()
-            mb = {k: v[:DP_BATCH // DP_CA_K] for k, v in batches[0].items()}
-            g_embed = torch.autograd.grad(
-                loss_fn(p, cfg, mb, remat=True), p["embed"])[0].float()
-            del p
-        del state, step
+        # every leaf whole: no gather, no reduce-scatter; an all-reduce of
+        # every gradient and the loss and one of the squared norm, a step
+        # (CA) or a microbatch (classical)
+        calls = len(batches) * (DP_CA_K if kw.get("sync_every_microbatch")
+                                else 1)
+        want = dict(all_reduces=2 * calls, words=calls * (n + 2),
+                    all_gathers=0, reduce_scatters=0)
+        check(vars(count) == want,
+              f"{label}: collectives {vars(count)}, want {want}")
+        per = len(batches) * DP_CA_K * cfg.n_layers
+        check(launches["flash_dq"] == per and launches["flash_dkv"] == per
+              and launches["flash_attention"] == 2 * per,
+              f"{label}: flash launches {launches}, want {per} (lse "
+              f"forward {2 * per})")
+        check(got == logs, f"{label}: metrics {got} are not 16(a)'s {logs}")
+        mine = []
+        for tree in (state.params, state.opt.step, state.opt.m,
+                     state.opt.v):
+            mine += ([tree] if isinstance(tree, torch.Tensor)
+                     else leaves(lay.unstack(leaves(tree))))
+        same = len(mine) == len(host) and all(
+            torch.equal(t, h.to(dev)) for t, h in zip(mine, host))
+        print(f"  {label}: every master, moment and metric bitwise 16(a)'s "
+              f"single-device step: {same} ({len(host)} tensors)")
+        check(same, f"{label}: the sharded step at (1, 1) is not 16(a)'s")
+        return state
+
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        rules = make_rules(Mesh(("data", "model"), (1, 1)), dist.group.WORLD)
+        lay = layout(cfg, rules)
+        whole = all(lf.local == lf.shape for lf in lay.leaves)
+        print(f"  {len(lay.leaves)} stacked leaves, every leaf whole: "
+              f"{whole}")
+        check(whole and not lay.sharded, "layout at (1, 1) splits a leaf")
+        n = lay.n_replicated
+        state = init_train_state(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev, rules=rules)
+        state = run("CA", state, batches[:2], *ca)
+        state = run("sync_every_microbatch", state, batches[2:], *classical,
+                    sync_every_microbatch=True)
+        del state
         torch.cuda.empty_cache()
-    return g_embed
+        # the collective's own cost on the host and the card
+        buf = torch.zeros(n + 1, device=dev)
+        host_us = _host_us(lambda: dist.all_reduce(buf), iters=20)
+        dev_ms = time_ms(lambda: dist.all_reduce(buf), 5)
+        print(f"  all_reduce of every gradient and the loss ({n + 1} words) "
+              f"at world 1: "
+              f"{host_us:.1f} us of host a call, {dev_ms:.4f} ms on the "
+              f"card (multi-rank time: tools/dp_step_time.py)")
+        del buf
+    finally:
+        mesh.shutdown()
 
 
 def ca_sync_phase(dev, cfg, total):
@@ -3429,7 +3498,8 @@ def prox_vjp_phase(dev, total):
 
 def training_dist_phase(dev):
     """Phase 16: the rest of training, (a)-(f), one arch at a time, each
-    freed before the next. Returns the kernel launches of its paths."""
+    freed before the next, then phase 18 on 16(a)'s batches and host
+    copies. Returns the kernel launches of their paths."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_arch
@@ -3440,9 +3510,10 @@ def training_dist_phase(dev):
     mesh.init("cuda", rank=0, world_size=1)
     try:
         t0 = time.perf_counter()
-        print(f"phase 16(a): the data-parallel CA step, {cfg.name}, ca_k="
-              f"{DP_CA_K}, batch {DP_BATCH} x {DP_SEQ}, an NCCL group of one")
-        g_embed = dp_step_phase(dev, cfg, total)
+        print(f"phase 16(a): the single-device CA and classical steps, "
+              f"{cfg.name}, ca_k="
+              f"{DP_CA_K}, batch {DP_BATCH} x {DP_SEQ}")
+        batches, ca, classical, g_embed = dp_step_phase(dev, cfg, total)
         print(f"  (a): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         print(f"phase 16(b): CA local-SGD and stale-k at {cfg.name}'s "
@@ -3482,6 +3553,13 @@ def training_dist_phase(dev):
     for op in ("flash_attention", "flash_dq", "flash_dkv", "ssd", "ssd_bwd",
                "prox_step_block", "prox_loop_block"):
         check(total.get(op, 0) > 0, f"{op} was not launched in phase 16")
+    t0 = time.perf_counter()
+    print(f"phase 18: the sharded CA and classical steps on a (data=1, "
+          f"model=1) mesh, {cfg.name}, an NCCL group of one, 16(a)'s "
+          f"batches")
+    sharded_step_phase(dev, cfg, total, batches, ca, classical)
+    del ca, classical
+    print(f"phase 18: {time.perf_counter() - t0:.1f}s")
     return total
 
 
@@ -4598,9 +4676,9 @@ def main(argv=None) -> int:
               f"{name} was not launched in the families phase")
         entries[name]["launches"] += fam15[name]
 
-    # 16. the rest of training: the data-parallel CA step, the CA-sync
-    # solvers, whisper and qwen2-vl trained, grad_smoke, compression, the
-    # prox VJP
+    # 16 and 18. the rest of training: the single-device CA step, the
+    # CA-sync solvers, whisper and qwen2-vl trained, grad_smoke,
+    # compression, the prox VJP; then the sharded step on a (1, 1) mesh
     t_phase = time.perf_counter()
     train16 = training_dist_phase(dev)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f}s; launches "
@@ -4621,7 +4699,7 @@ def main(argv=None) -> int:
     for name, e in entries.items():
         e["launches"] += serve17.get(name, 0)
 
-    # 18. the result
+    # 19. the result
     for name in ("flash_attention", "paged_decode", "flash_dq", "flash_dkv",
                  "ssd", "ssd_bwd"):
         check(entries[name]["launches"] > 0,

@@ -13,13 +13,15 @@ Subpackages ported so far:
               ``paged_decode``, ``ssd``, ``ssd_bwd``) beside their plain
               PyTorch versions
   configs     the ten architecture configs
-  models      the dense model: init, forward, loss, decode
+  models      the six model families: init, forward, loss, decode, and
+              the dense family's tensor parallelism (``models.tp``)
   serve       the continuous-batching engine over slot and paged caches
   optim       AdamW and the cosine schedule, the CA-sync solvers
               (local-SGD, stale-k), gradient compression
   checkpoint  async, atomic checkpoints
   dist        the serve scheduler's deadline gate, the training runner,
-              the sharding rules and the elastic remesh
+              the sharding rules and their layout of a training state,
+              the elastic remesh
   data        the paper's Table II dataset stand-ins, the token stream
   obs         spans, metrics and the host<->device sync audit
   launch      ``python -m repro_torch.launch.{lasso_solve,

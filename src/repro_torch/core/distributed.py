@@ -46,10 +46,13 @@ _RULES = {"sfista": sstep.FISTA_RULE, "spnm": sstep.PNM_RULE,
 
 @dataclasses.dataclass
 class CollectiveCount:
-    """What a distributed solve communicated: its all-reduces and the
-    float32 words they moved (each rank's buffer size)."""
+    """What a distributed solve or train step communicated: its collectives
+    by kind and the words they moved (each rank's buffer size: the input of
+    an all-reduce or a reduce-scatter, the output of an all-gather)."""
     all_reduces: int = 0
     words: int = 0
+    all_gathers: int = 0
+    reduce_scatters: int = 0
 
 
 def rank_seed(seed: int, rank: int) -> int:

@@ -3,10 +3,11 @@ counterpart of ``repro.dist.elastic``.
 
 Follows the asynchronous-relaxation direction of Devarakonda et al.
 (arXiv:1712.06047): rather than blocking until a failed host returns, the
-runner rebuilds on the ranks that survive. The port has no model axis (it
-trains data-parallel over replicated masters), so losing ranks only shrinks
-the data axis, which costs throughput, not correctness (the CA-k schedule
-is batch-linear).
+runner rebuilds on the ranks that survive: on the largest (data, model)
+mesh they fill with the model axis kept (:func:`largest_mesh_shape`), its
+sharded state restored from the newest checkpoint into the new layout.
+Losing ranks shrinks the data axis, which costs throughput, not
+correctness (the CA-k schedule is batch-linear).
 """
 from __future__ import annotations
 

@@ -8,9 +8,12 @@ atomic commit) and, on an injected or real node failure, restores the
 newest committed checkpoint, fast-forwards the data pipeline to the
 restored step (the data factory is seeded by step index, so recovery is
 deterministic: a crashed run and an uninterrupted one take the same
-trajectory), rebuilds the step function — with ``elastic``, over the
-surviving ranks of the data-parallel group (``dist.elastic.remesh``) — and
-resumes. Restarts are budgeted; blowing the budget is an error, not a
+trajectory), rebuilds the step function — with ``elastic``, on the
+largest mesh the surviving ranks fill (``dist.elastic.largest_mesh_shape``
+over ``dist.elastic.remesh``'s group) — and resumes. A sharded state
+(``layout``) is checkpointed as global leaves in one directory for the
+job and restored into the layout of the mesh in force, so a lost rank's
+shard comes back from disk. Restarts are budgeted; blowing the budget is an error, not a
 hang. The JAX loop's observability is ported (``repro_torch.obs``): the
 ``repro_train_step_seconds`` histogram, the ``repro_train_ckpt_saves_total``
 and ``repro_train_restarts_total`` counters, the ``train.restore``,
@@ -29,8 +32,9 @@ import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.dist.elastic import remesh
-from repro_torch.dist.sharding import data_rules
+from repro_torch.dist.elastic import largest_mesh_shape, remesh
+from repro_torch.dist.sharding import Mesh, make_rules
+from repro_torch.tree import leaves, unflatten
 
 _M_STEP_S = obs.histogram("repro_train_step_seconds",
                           "wall time per training step (dispatch + host "
@@ -106,21 +110,26 @@ class TrainingRunner:
 
     step_builder(rules) -> step; step(state, batch) -> (state, metrics dict
     of device scalars). ``rules``: the ``dist.sharding.Rules`` the step is
-    built for (its data-parallel group), or None on one device.
+    built for (bound to its process group), or None on one device.
     data_factory(start_step) -> batch iterator positioned at
     ``start_step`` (the deterministic fast-forward contract), closed by
     the runner when it has a ``close`` method. init_state() ->
     the initial state, used for a cold start and as the template a restore
-    copies into. With ``elastic``, a failure's survivors (``NodeFailure
-    .survivors``) get a new group (``remesh``) and a step built for it; a
-    rank that is not among them leaves: :meth:`run` returns None and
-    ``left`` is True.
+    copies into. ``layout``: for a sharded state, rules ->
+    ``dist.sharding.Layout`` of the state under them; the runner then
+    calls ``init_state(rules)`` and checkpoints through the layout (one
+    directory, rank 0 writing). With ``elastic``, a failure's survivors
+    (``NodeFailure.survivors``) get a new group (``remesh``) on the
+    largest mesh they fill with the model axis kept, new rules and a step
+    built for them; a rank that is not among them leaves: :meth:`run`
+    returns None and ``left`` is True.
     """
 
     def __init__(self, step_builder: Callable, rules, data_factory: Callable,
                  init_state: Callable, ckpt_dir, *, ckpt_every: int = 100,
                  keep: int = 3, failure_source: Optional[FailureSource] = None,
-                 max_restarts: int = 10, elastic: bool = False):
+                 max_restarts: int = 10, elastic: bool = False,
+                 layout: Optional[Callable] = None):
         self.step_builder = step_builder
         self.rules = rules
         self.data_factory = data_factory
@@ -130,6 +139,8 @@ class TrainingRunner:
         self.failure_source = failure_source
         self.max_restarts = int(max_restarts)
         self.elastic = elastic
+        self.layout = layout
+        self._lay = None
         self.left = False
         self.restarts = 0
         self.metrics_log: List[dict] = []
@@ -138,24 +149,55 @@ class TrainingRunner:
     def _build(self) -> None:
         self.step = self.step_builder(self.rules)
 
+    def _layout(self):
+        """The state's layout under the rules in force (None: unsharded)."""
+        if self.layout is None:
+            return None
+        if self._lay is None or self._lay[0] is not self.rules:
+            self._lay = (self.rules, self.layout(self.rules))
+        return self._lay[1]
+
     def _remesh(self, survivors) -> bool:
-        """Shrink the rules' group to ``survivors``; whether this rank is
+        """Shrink the rules' group to the first of ``survivors`` that fill
+        ``largest_mesh_shape`` (the model axis kept); whether this rank is
         still in the job."""
-        group = remesh(self.rules.group, survivors)
+        mesh = self.rules.mesh
+        members = dist.get_process_group_ranks(self.rules.group)
+        alive = sorted(members if survivors is None else survivors)
+        tp = self.rules.tp_size
+        data, model = largest_mesh_shape(len(alive), tp)
+        group = remesh(self.rules.group, alive[:data * model])
         if group is self.rules.group:
             return True
         if group == dist.GroupMember.NON_GROUP_MEMBER:
             return False
-        self.rules = data_rules(group)
+        shape = (Mesh(("data", "model"), (data, model))
+                 if "model" in mesh.axis_names
+                 else Mesh(("data",), (data,)))
+        self.rules = make_rules(shape, group)
         return True
 
     def _init_or_restore(self, state=None):
         """(state, first step): a fresh state, or the newest checkpoint
-        copied into ``state`` (a fresh one when None)."""
+        copied into a template: ``state`` (a fresh one when None); for a
+        sharded state, empty shards of the layout in force, shaped as
+        ``state``'s tree."""
+        lay = self._layout()
+        fresh = (self.init_state if lay is None else
+                 lambda: self.init_state(self.rules))
         if self.ckpt.latest_step() is None:
-            return self.init_state(), 0
-        template = self.init_state() if state is None else state
-        state, step, _ = self.ckpt.restore(template)
+            return fresh(), 0
+        if state is None:
+            template = fresh()
+        elif lay is None:
+            template = state
+        else:
+            dev = leaves(state)[0].device
+            shapes = [lf.local for lf in lay.leaves]
+            template = unflatten(state, [
+                torch.empty(s, dtype=t.dtype, device=dev) for s, t in
+                zip(shapes + [()] + shapes + shapes, leaves(state))])
+        state, step, _ = self.ckpt.restore(template, layout=lay)
         return state, step
 
     def run(self, total_steps: int):
@@ -172,7 +214,8 @@ class TrainingRunner:
                     # not when the restored step is already at the target
                     # (a shorter re-run against an old directory): that
                     # would overwrite a genuine checkpoint with later state
-                    self.ckpt.save(total_steps, state, blocking=True)
+                    self.ckpt.save(total_steps, state, blocking=True,
+                                   layout=self._layout())
                 return state
             except NodeFailure as failure:
                 self.restarts += 1
@@ -206,7 +249,7 @@ class TrainingRunner:
                     # snapshot BEFORE the step: the manifest's step is the
                     # first to run again on restore
                     with obs.span("train.ckpt_save", step=step):
-                        self.ckpt.save(step, state)
+                        self.ckpt.save(step, state, layout=self._layout())
                     _M_CKPT.inc()
                 if self.failure_source is not None:
                     self.failure_source.maybe_fail(step)

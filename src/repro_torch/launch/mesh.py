@@ -1,13 +1,17 @@
-"""Process-group setup for the distributed solvers.
+"""Process-group setup and the meshes of the training and the
+distributed solvers.
 
-The JAX package builds device meshes for ``shard_map``: the production
-16 x 16 TPU pod (and a 2 x 16 x 16 multi-pod one) and whatever the host
-offers. The port has no mesh: it runs one process a card (or a CPU rank)
-in a ``torch.distributed`` process group, the samples sharded across the
-ranks (``core.distributed``), and the TPU pod's mesh has no analogue here.
-:func:`init` joins the default group, with ``nccl`` for CUDA and ``gloo``
-for the CPU, from the ``torchrun`` environment or from an explicit rank,
-world size and store; :func:`shutdown` leaves it.
+The JAX package builds device meshes: the production 16 x 16 TPU pod (and
+a 2 x 16 x 16 multi-pod one) and whatever the host offers. The port runs
+one process a card (or a CPU rank) in a ``torch.distributed`` process
+group; a :class:`~repro_torch.dist.sharding.Mesh` names the group's ranks
+on the mesh's axes in JAX's device order (``dist.sharding.make_rules``).
+:func:`make_host_mesh` is JAX's rule for the devices at hand and
+:func:`make_production_mesh` the pod's two shapes (no devices: the port
+checks its specs on them). :func:`init` joins the default group, with
+``nccl`` for CUDA and ``gloo`` for the CPU, from the ``torchrun``
+environment or from an explicit rank, world size and store;
+:func:`shutdown` leaves it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import Mesh
 
 
 def init(device: Optional[str] = "cuda", *, rank: Optional[int] = None,
@@ -65,3 +70,25 @@ def shutdown() -> None:
     """Leave the default process group, if this process is in one."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (data=16, model=16), 256 chips; multi-pod: (pod=2,
+    data=16, model=16), 512 chips (``repro.launch.mesh``'s shapes)."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(n: Optional[int] = None, *,
+                   tensor_parallel: bool = True) -> Mesh:
+    """JAX's mesh for ``n`` devices (default: the default group's world
+    size, 1 outside one): the model axis takes 4, 2 or 1 of them, the
+    first that divides ``n``, and the data axis the rest. With
+    ``tensor_parallel`` False (a family the port does not split over the
+    model axis yet) it is the data-only (n, 1)."""
+    if n is None:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+    model = next(m for m in (4, 2, 1) if n % m == 0) \
+        if tensor_parallel else 1
+    return Mesh(("data", "model"), (n // model, model))

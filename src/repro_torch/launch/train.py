@@ -1,7 +1,7 @@
-"""Training driver: the CA train step, data-parallel over a
-``torch.distributed`` group when launched by ``torchrun``, the
-fault-tolerant runner, async checkpoints and the restartable token stream
-(the counterpart of ``repro.launch.train``).
+"""Training driver: the CA train step, sharded over a
+``torch.distributed`` group's mesh when launched by ``torchrun``, the
+fault-tolerant runner, checkpoints and the restartable token stream (the
+counterpart of ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --preset tiny --steps 12 --ckpt-every 4 --fail-at 6 \\
@@ -11,11 +11,14 @@ fault-tolerant runner, async checkpoints and the restartable token stream
 
 With ``RANK`` and ``WORLD_SIZE`` set (``torchrun``) every rank joins the
 default group (``launch.mesh.init``: nccl on the card, gloo with
-``--device cpu``; a process already in one keeps it), takes its slice of each microbatch of the global batch
-and reduces the step's gradients in one ``all_reduce`` (``Rules`` over a
-data mesh of the group); each rank checkpoints its (equal) state under
-``--ckpt-dir``/rank<r>. Without them it trains on one device and makes no
-collective. The run resumes from the newest checkpoint in ``--ckpt-dir``
+``--device cpu``; a process already in one keeps it) and the job trains on
+the mesh JAX's CLI picks for the world (``launch.mesh.make_host_mesh``:
+the model axis 4, 2 or 1 ranks, the first that divides it; a family the
+port does not split over the model axis yet gets the data-only mesh), its
+state sharded by JAX's specs (``launch.steps.make_train_step``). Rank 0
+prints the mesh, every rank its shard bytes and the step's collectives;
+the job checkpoints its global leaves in the one ``--ckpt-dir``. Without
+them it trains on one device and makes no collective. The run resumes from the newest checkpoint in ``--ckpt-dir``
 (default ``$TMPDIR/repro_torch_ckpt``), so a fresh run needs an empty
 directory.
 
@@ -44,10 +47,12 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import TokenStream
-from repro_torch.dist import FailureSource, TrainingRunner, data_rules
+from repro_torch.core.distributed import CollectiveCount
+from repro_torch.dist import FailureSource, TrainingRunner, make_rules
 from repro_torch.launch import mesh
 from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.launch.steps import (init_train_state, layout,
+                                      make_train_step)
 from repro_torch.models.transformer import require_supported
 
 
@@ -99,31 +104,45 @@ def main(argv=None):
             f"repro_torch.launch.grad_smoke")
     distributed = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     joined = distributed and not dist.is_initialized()
-    ckpt_dir = args.ckpt_dir
-    rules = None
+    rules, count = None, CollectiveCount()
     if distributed:
         if joined:
             device = mesh.init(device.type)
-        rules = data_rules(dist.group.WORLD)
+        host = mesh.make_host_mesh(
+            tensor_parallel=cfg.family == "dense")
+        rules = make_rules(host, dist.group.WORLD)
         rank = dist.get_rank()
-        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
+        if rank == 0:
+            print(f"mesh (data, model) = {host.sizes} over {rules.n_devices}"
+                  f" ranks" + ("" if cfg.family == "dense" else
+                              f" (data only: the {cfg.family!r} family is "
+                              f"not split over the model axis yet)"))
+
+    calls = [0]
 
     def step_builder(rules_):
-        return make_train_step(cfg, rules_, ca_k=args.ca_k, peak_lr=args.lr,
-                               warmup=10, total_steps=args.steps, remat=True)
+        step = make_train_step(cfg, rules_, ca_k=args.ca_k, peak_lr=args.lr,
+                               warmup=10, total_steps=args.steps, remat=True,
+                               counter=count)
+
+        def counted(state, batch):
+            calls[0] += 1
+            return step(state, batch)
+        return counted
 
     def data_factory(start_step):
         return TokenStream(batch=batch, seq=seq, vocab=cfg.vocab, seed=0,
                            start_step=start_step, device=device)
 
-    def init_state():
+    def init_state(rules_=None):
         gen = torch.Generator(device=device).manual_seed(0)
-        return init_train_state(cfg, gen, device=device)
+        return init_train_state(cfg, gen, device=device, rules=rules_)
 
     runner = TrainingRunner(
-        step_builder, rules, data_factory, init_state, ckpt_dir,
+        step_builder, rules, data_factory, init_state, args.ckpt_dir,
         ckpt_every=args.ckpt_every,
-        failure_source=FailureSource(args.fail_at))
+        failure_source=FailureSource(args.fail_at),
+        layout=None if rules is None else lambda r: layout(cfg, r))
 
     observing = obs_begin(args)
     t0 = time.time()
@@ -135,8 +154,15 @@ def main(argv=None):
             mesh.shutdown()
     dt = time.time() - t0
     if distributed:
-        print(f"rank {rank} of {rules.dp_size}: data-parallel, one "
-              f"all_reduce a step")
+        ran = max(calls[0], 1)
+        print(f"rank {rank} at {runner.rules.coords} of mesh "
+              f"{runner.rules.mesh.sizes}: shard "
+              f"{layout(cfg, runner.rules).shard_bytes()} bytes of float32 "
+              f"masters (and as much for each moment); collectives a step: "
+              f"{count.all_gathers / ran:g} all_gather, "
+              f"{count.reduce_scatters / ran:g} reduce_scatter, "
+              f"{count.all_reduces / ran:g} all_reduce, "
+              f"{count.words / ran:.0f} words")
     for m in runner.metrics_log[::args.log_every]:
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
               f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}")

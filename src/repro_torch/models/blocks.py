@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.attention import attention, paged_attention, quantize_kv
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.models.mlp import init_swiglu, swiglu
@@ -83,10 +84,21 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     decode's single query too, as JAX runs its Pallas kernel there.
     """
     B, S, d = x.shape
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, n_heads, head_dim)
+    q = tp.matmul(x, params["wq"].to(x.dtype)).reshape(B, S, n_heads,
+                                                       head_dim)
+    split = tp.is_tp(q)
     if kv_override is None:
-        k = (x @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
-        v = (x @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+        k = tp.matmul(x, params["wk"].to(x.dtype)).reshape(B, S, n_kv,
+                                                           head_dim)
+        v = tp.matmul(x, params["wv"].to(x.dtype)).reshape(B, S, n_kv,
+                                                           head_dim)
+        if split:
+            # the kernels run on this rank's heads (models.tp)
+            like = q
+            if cache is not None:
+                raise NotImplementedError(
+                    "tensor-parallel decode waits for sharded serving")
+            q, k, v = tp.heads(q), tp.heads(k), tp.heads(v)
         if rope is not None:
             q = apply_rope(q, None, tables=rope)
             k = apply_rope(k, None, tables=rope)
@@ -128,8 +140,10 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
 
     o = attention(q, k, v, causal=causal, chunk=attn_chunk,
                   kv_valid_len=kv_valid)
+    if split:
+        o = tp.from_heads(o, like)
     o = o.reshape(B, S, n_heads * head_dim)
-    return o @ params["wo"].to(x.dtype), cache
+    return tp.replicate(tp.matmul(o, params["wo"].to(x.dtype))), cache
 
 
 def init_attn_cache(batch: int, max_len: int, n_kv: int, head_dim: int,

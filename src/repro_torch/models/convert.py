@@ -10,7 +10,9 @@ per-layer dicts (zamba2's, stacked (n_super, period, ...), a list of
 ``n_super`` lists of ``period`` dicts), whisper's ``encoder`` a list of
 ``n_enc_layers`` dicts, and the unstacked entries (``embed``, ``ln_f``,
 ``lm_head``, deepseek's ``dense0``, zamba2's ``shared``, ``enc_ln``) are
-carried as they are.
+carried as they are. :func:`shard_state_from_numpy` cuts a JAX training
+state into one rank's shard of the port's sharded state instead, its
+stacks kept stacked.
 
 The weights may be held in bf16 (the default) without changing a number
 where the JAX model casts the float32 master to the bf16 stream before
@@ -94,6 +96,41 @@ def train_state_from_numpy(cfg, state, *, device=None):
 
     def tree(t):
         return params_from_numpy(cfg, t, device=device, dtype=torch.float32)
+
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(params=tree(state.params),
+                      opt=OptState(step=step, m=tree(state.opt.m),
+                                   v=tree(state.opt.v)))
+
+
+def shard_state_from_numpy(cfg, state, rules, *, coords=None, device=None):
+    """A JAX ``TrainState`` with numpy leaves (its layers stacked, as the
+    port's sharded state holds them) -> one rank's shard of it under
+    ``rules``: the port's ``TrainState`` of float32 shards (and the int32
+    step) in JAX's stacked layout, each cut where ``NamedSharding`` puts
+    the shard of the device at ``coords`` (default: this rank's,
+    ``rules.coords``). A cold start off the card draws nothing there."""
+    from repro_torch.dist.sharding import shard_tensor
+    from repro_torch.launch.steps import TrainState, layout
+    from repro_torch.optim import OptState
+
+    lay = layout(cfg, rules)
+    coords = rules.coords if coords is None else coords
+
+    def tree(t):
+        got = leaves(t)
+        if len(got) != len(lay.leaves):
+            raise ValueError(f"{cfg.name}: {len(got)} leaves, the layout "
+                             f"has {len(lay.leaves)}")
+        out = []
+        for a, lf in zip(got, lay.leaves):
+            a = np.asarray(a)
+            if tuple(a.shape) != lf.shape:
+                raise ValueError(f"leaf {a.shape}, the layout's {lf.shape}")
+            out.append(_tensor(shard_tensor(a, lf.spec, rules.mesh, coords),
+                               torch.float32, device))
+        return lay.tree(out)
 
     step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
                         device=device)

@@ -12,15 +12,18 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.models import tp
+
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with float32 statistics and application in x's dtype:
     ``x * rsqrt(mean(x^2) + eps).astype(x.dtype) * gamma.astype(x.dtype)``,
-    two products each rounded to x's dtype, as in JAX."""
+    two products each rounded to x's dtype, as in JAX. A gain split over
+    the model axis is gathered first (``models.tp``)."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * gamma.to(x.dtype)
+    return x * inv * tp.replicate(gamma).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4,

@@ -6,6 +6,7 @@ import math
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init
 
 
@@ -21,15 +22,21 @@ def init_swiglu(gen: torch.Generator, d: int, ff: int, dtype=torch.float32,
 def silu(h: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` with its rounding points: XLA expands it to
     h * 1/(1 + exp(-h)) and rounds every op to the stream dtype, where
-    ``F.silu`` rounds once; the two differ in half the bf16 outputs."""
+    ``F.silu`` rounds once; the two differ in half the bf16 outputs. Its
+    backward is autograd's of these ops: JAX's own rule, g s + (h g)
+    s (1 - s), moves one mamba2 update past the train test's limit
+    (ROADMAP queue 3 item 6)."""
     return h * torch.reciprocal(1 + torch.exp(-h))
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B,S,d) -> (B,S,d); weights cast to x's dtype first, as in JAX."""
-    h = x @ params["w_gate"].to(x.dtype)
-    u = x @ params["w_up"].to(x.dtype)
-    return (silu(h) * u) @ params["w_down"].to(x.dtype)
+    """x (B,S,d) -> (B,S,d); weights cast to x's dtype first, as in JAX.
+    Under tensor parallelism the products follow the weights' split and
+    the output is replicated (``models.tp``)."""
+    h = tp.matmul(x, params["w_gate"].to(x.dtype))
+    u = tp.matmul(x, params["w_up"].to(x.dtype))
+    return tp.replicate(tp.matmul(silu(h) * u,
+                                  params["w_down"].to(x.dtype)))
 
 
 def init_gelu_mlp(gen: torch.Generator, d: int, ff: int, dtype=torch.float32,

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import registry
-from repro_torch.models import encdec
+from repro_torch.models import encdec, tp
 from repro_torch.models.blocks import (attn_forward, dense_block, init_attn,
                                        init_dense_block, init_moe_block,
                                        moe_block, paged_rows)
@@ -122,7 +122,10 @@ def param_count(params) -> int:
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings in the bf16 stream (JAX: take, then astype)."""
+    """Token embeddings in the bf16 stream (JAX: take, then astype); a
+    table split over the model axis read through ``tp.embedding``."""
+    if tp.is_tp(params["embed"]):
+        return tp.embedding(tokens, params["embed"]).to(torch.bfloat16)
     return F.embedding(tokens.long(), params["embed"]).to(torch.bfloat16)
 
 
@@ -149,7 +152,7 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["ln_f"].float(), cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(x.dtype)
-    return x @ head
+    return tp.matmul(x, head)
 
 
 def _dense(lp, x, cfg, pos_info):
@@ -251,8 +254,14 @@ def loss_fn(params, cfg, batch: dict, *, remat: bool = False,
     (B, S), the counterpart of ``repro.models.transformer.loss_fn``: the
     bf16 logits upcast to float32 (qwen2-vl: the text tail only),
     logsumexp minus the gold logit, the mean over tokens, plus
-    ``aux_weight`` times the aux loss (MoE; 0 for the other families)."""
+    ``aux_weight`` times the aux loss (MoE; 0 for the other families).
+    Logits split over the model axis (the dense family's tensor
+    parallelism) take DTensor's vocab-parallel cross entropy
+    (``tp.cross_entropy``, called and differentiated inside
+    ``tp.loss_context``), and the loss is this rank's plain scalar."""
     logits, aux = forward(params, cfg, batch, remat=remat)
+    if tp.is_tp(logits):
+        return tp.cross_entropy(logits, batch["labels"]) + aux_weight * aux
     if cfg.family == "vlm":
         logits = logits[:, cfg.vision_patches:]
     logits = logits.float()

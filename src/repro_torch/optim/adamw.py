@@ -37,15 +37,19 @@ def adamw_init(params) -> OptState:
 @torch.no_grad()
 def adamw_update(params, grads, state: OptState, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 gnorm=None):
     """One AdamW step, in place: returns (params, OptState, grad norm), the
     params, m and v being the tensors passed in, updated. ``lr`` may be a
     float or a device scalar (a schedule value). ``grads`` mirrors
-    ``params`` in any float dtype; the update runs in float32."""
+    ``params`` in any float dtype; the update runs in float32. ``gnorm``:
+    the global gradient norm, when the caller computed it (a sharded step,
+    from every rank's shards); by default that of ``grads``."""
     ps, gs = leaves(params), leaves(grads)
     ms, vs = leaves(state.m), leaves(state.v)
-    gnorm = torch.sqrt(sum(torch.dot(g.float().reshape(-1),
-                                     g.float().reshape(-1)) for g in gs))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.dot(g.float().reshape(-1),
+                                         g.float().reshape(-1)) for g in gs))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()

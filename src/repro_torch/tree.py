@@ -24,3 +24,22 @@ def tree_map(fn: Callable, tree):
         return type(tree)(*subs) if hasattr(tree, "_fields") else \
             type(tree)(subs)
     return fn(tree)
+
+
+def unflatten(like, flat):
+    """A tree shaped as ``like`` whose leaves are ``flat``, taken in the
+    order :func:`leaves` walks ``like``."""
+    it = iter(flat)
+
+    def build(sub):
+        if isinstance(sub, dict):
+            return {key: build(sub[key]) for key in sorted(sub)}
+        if isinstance(sub, (list, tuple)):
+            subs = [build(s) for s in sub]
+            return type(sub)(*subs) if hasattr(sub, "_fields") else \
+                type(sub)(subs)
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out

@@ -7,10 +7,14 @@ package's on a mesh of the first P spoofed devices.
 - The DP step (internlm2 and mamba2 at the smoke config, CA k=2 and the
   classical schedule, two steps): loss, grad norm, lr, the first moment and
   each leaf's update against JAX's ``make_train_step(cfg,
-  make_rules(mesh))``, at the tolerances of ``tests/test_torch_train.py``;
-  one all-reduce a step under CA and ``ca_k`` classical, with their words;
-  the masters bitwise equal across ranks; and, in a gloo group of one in
-  this process, bitwise the single-device step.
+  make_rules(mesh))``, at the tolerances of ``tests/test_torch_train.py``
+  (the ranks' shards gathered whole on rank 0); its collectives a step
+  (``ca_k`` reduce-scatters and one all-reduce under CA, each once a
+  microbatch classical, with their words); every rank's masters in JAX's
+  layout, which at the smoke widths replicates every leaf, so bitwise
+  equal across ranks; and, in a gloo group of one in this process,
+  bitwise the single-device step. ``tests/test_torch_fsdp.py`` holds the
+  sharded layouts shard for shard.
 - ``ca_local_sgd_solver`` and ``ca_stale_k_solver`` against JAX's on
   ``tests/test_stale_k.py``'s Lasso objective at its tolerances, one
   collective a round, the staleness bound of exactly one round, and on the
@@ -23,10 +27,12 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as PSpec
 
 import repro.configs as jconfigs
 from repro.data import make_lasso_data, make_token_batch
 from repro.dist.sharding import make_rules as j_make_rules
+from repro.dist.sharding import param_specs as j_param_specs
 from repro.kernels import registry as jregistry
 from repro.launch.steps import init_train_state as j_init_train_state
 from repro.launch.steps import make_train_step as j_make_train_step
@@ -35,7 +41,7 @@ from repro.optim import ca_stale_k_solver as j_stale_k
 from repro_torch.core.distributed import CollectiveCount
 from repro_torch.dist import data_rules
 from repro_torch.launch import mesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_train_step, shard_train_state
 from repro_torch.models import params_from_numpy, train_state_from_numpy
 from repro_torch.tree import leaves
 
@@ -100,33 +106,44 @@ import torch.distributed as dist
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core.distributed import CollectiveCount
 from repro_torch.dist import data_rules
-from repro_torch.launch.steps import init_train_state, make_train_step
-from repro_torch.models import loss_fn
+from repro_torch.launch.steps import (TrainState, init_train_state, layout,
+                                      make_train_step, shard_train_state)
+from repro_torch.models import init_params, loss_fn
 from repro_torch.optim.ca_sync import ca_local_sgd_solver, ca_stale_k_solver
 from repro_torch.tree import leaves
 
 
+def whole(lay, tree):
+    # the port's tree of whole leaves on rank 0 (None elsewhere)
+    full = [lay.full_leaf(i, t) for i, t in enumerate(leaves(tree))]
+    return None if full[0] is None else leaves(lay.unstack(full))
+
+
 def dp_case(p, name, classical):
     cfg = smoke_config(get_arch(name))
-    state = init_train_state(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
     with torch.no_grad():
-        for t, v in zip(leaves(state.params), p["params"][name]):
+        for t, v in zip(leaves(params), p["params"][name]):
             t.copy_(v)
+    rules = data_rules(dist.group.WORLD)
+    lay = layout(cfg, rules)
+    state = shard_train_state(cfg, TrainState(params, None), rules)
     count = CollectiveCount()
-    step = make_train_step(cfg, data_rules(dist.group.WORLD),
-                           remat=name.startswith("mamba2"),
+    step = make_train_step(cfg, rules, remat=name.startswith("mamba2"),
                            sync_every_microbatch=classical, counter=count,
                            **p["kw"])
-    out = dict(metrics=[], params=[], m=[], counts=[])
+    out = dict(metrics=[], params=[], m=[], counts=[], shards=[],
+               n_replicated=lay.n_replicated)
     for batch in p["batches"][name]:
-        before = count.all_reduces, count.words
+        before = dict(vars(count))
         state, m = step(state, batch)
         out["metrics"].append({k: float(v) for k, v in m.items()})
-        out["params"].append([t.clone() for t in leaves(state.params)])
-        out["m"].append([t.clone() for t in leaves(state.opt.m)])
-        out["counts"].append((count.all_reduces - before[0],
-                              count.words - before[1]))
+        out["params"].append(whole(lay, state.params))
+        out["m"].append(whole(lay, state.opt.m))
+        out["shards"].append([t.clone() for t in leaves(state.params)])
+        out["counts"].append({k: v - before[k]
+                              for k, v in vars(count).items()})
     return out
 
 
@@ -310,18 +327,32 @@ def test_dp_step_matches_jax_sharded_step(spawned, name, classical):
 @pytest.mark.parametrize("classical", [False, True], ids=["ca2", "classical"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_dp_step_counts_and_replicated_masters(spawned, name, classical):
-    """One all-reduce of the flat buffer (every parameter and the loss) a
-    step under CA, ``ca_k`` classical; every rank's masters bitwise rank
-    0's after every step."""
-    P, ranks, _ = spawned
+    """JAX's layout on the data mesh: at the smoke widths its specs
+    replicate every leaf (each under ``_MIN_SHARD_BYTES_ELEMS``), so every
+    rank holds each master whole, in JAX's stacked shape, bitwise rank 0's
+    after every step. Nothing is split over the data axis, so no gather
+    and no reduce-scatter: a CA step makes one all-reduce of every
+    gradient and the loss over the data group, and one of the squared
+    norm; classical, the two a microbatch."""
+    P, ranks, ref = spawned
     key = f"{name}/{int(classical)}"
-    n = sum(t.numel() for t in ranks[0][key]["params"][0]) + 1
+    jrules = j_make_rules(Mesh(np.array(jax.devices()[:P]), ("data",)))
+    jstate = j_init_train_state(_cfg(name), jax.random.PRNGKey(0))
+    specs = jax.tree.leaves(j_param_specs(jstate.params, jrules),
+                            is_leaf=lambda x: isinstance(x, PSpec))
+    shapes = [t.shape for t in jax.tree.leaves(jstate.params)]
+    assert all(e is None for s in specs for e in s)
+    per = CA_K if classical else 1
     for r, out in enumerate(ranks):
+        n = out[key]["n_replicated"]
+        assert n == sum(int(np.prod(s)) for s in shapes)
         for counts in out[key]["counts"]:
-            assert counts == ((CA_K, CA_K * n) if classical else (1, n)), \
-                (r, counts)
-        for step, (a_s, b_s) in enumerate(zip(out[key]["params"],
-                                              ranks[0][key]["params"])):
+            assert counts == dict(all_gathers=0, reduce_scatters=0,
+                                  all_reduces=2 * per,
+                                  words=per * (n + 2)), (r, counts)
+        for step, (a_s, b_s) in enumerate(zip(out[key]["shards"],
+                                              ranks[0][key]["shards"])):
+            assert [tuple(a.shape) for a in a_s] == shapes
             for a, b in zip(a_s, b_s):
                 assert torch.equal(a, b), (r, step)
 
@@ -338,16 +369,20 @@ def group_of_one():
 @pytest.mark.parametrize("classical", [False, True], ids=["ca2", "classical"])
 def test_dp_step_at_world_one_is_bitwise_the_single_device_step(
         group_of_one, classical):
-    """In a gloo group of one the all-reduce is the identity: two steps of
-    the DP step (1 or ca_k all-reduces a step) leave every master, moment
-    and metric bitwise the single-device step's."""
+    """In a gloo group of one the collectives are the identity: two steps
+    of the sharded step on the data mesh of one (2 or 2 ca_k all-reduces a
+    step) leave every master, moment and metric bitwise the single-device
+    step's, its tree stacked as JAX's."""
     cfg = _cfg("internlm2-1.8b")
     tcfg = to_torch_config_arch(cfg)
     jstate = _np_tree(j_init_train_state(cfg, jax.random.PRNGKey(0)))
     count = CollectiveCount()
     runs = []
-    for rules in (data_rules(torch.distributed.group.WORLD), None):
+    world = data_rules(torch.distributed.group.WORLD)
+    for rules in (world, None):
         state = train_state_from_numpy(tcfg, jstate)
+        if rules is not None:
+            state = shard_train_state(tcfg, state, rules)
         step = make_train_step(tcfg, rules, remat=False, counter=count,
                                sync_every_microbatch=classical, **KW)
         ms = []
@@ -356,8 +391,9 @@ def test_dp_step_at_world_one_is_bitwise_the_single_device_step(
                                     for k, v in b.items()})
             ms.append(m)
         runs.append((state, ms))
-    assert count.all_reduces == STEPS * (CA_K if classical else 1)
+    assert count.all_reduces == 2 * STEPS * (CA_K if classical else 1)
     (a, ma), (b, mb) = runs
+    b = shard_train_state(tcfg, b, world)        # JAX's stacked layout
     for x, y in zip(leaves(list(a)), leaves(list(b))):
         assert torch.equal(x, y)
     for x, y in zip(ma, mb):

@@ -1451,13 +1451,17 @@ def test_engine_audit_on_the_card_equals_its_stats(cuda, mode):
 @pytest.mark.parametrize("classical", [False, True], ids=["ca2", "classical"])
 def test_dp_train_step_nccl_world_one_is_bitwise_the_single_process(
         cuda, classical):
-    """The data-parallel train step in an NCCL group of one (an in-process
-    store), smoke config, two steps: one all-reduce a step under CA and
-    ca_k classical, and every master, moment and metric bitwise the
-    single-process step's (the kernels on both)."""
+    """The sharded train step on the data mesh of an NCCL group of one (an
+    in-process store), smoke config, two steps: every leaf whole, so two
+    all-reduces a step under CA (a microbatch classical) and no
+    reduce-scatter, and
+    every master, moment and metric bitwise the single-process step's (the
+    kernels on both; its tree stacked as JAX's)."""
     from repro_torch.core.distributed import CollectiveCount
     from repro_torch.dist import data_rules
     from repro_torch.launch import mesh
+    from repro_torch.launch.steps import shard_train_state
+    from repro_torch.tree import leaves
     rng = np.random.default_rng(0)
     toks = [torch.from_numpy(rng.integers(0, CFG.vocab, (8, 17),
                                           dtype=np.int32)).to(cuda)
@@ -1467,9 +1471,10 @@ def test_dp_train_step_nccl_world_one_is_bitwise_the_single_process(
     mesh.init("cuda", rank=0, world_size=1)
     try:
         runs = []
-        for rules in (data_rules(torch.distributed.group.WORLD), None):
+        world = data_rules(torch.distributed.group.WORLD)
+        for rules in (world, None):
             state = init_train_state(CFG, torch.Generator(
-                device=cuda).manual_seed(0), device=cuda)
+                device=cuda).manual_seed(0), device=cuda, rules=rules)
             step = make_train_step(CFG, rules, ca_k=2, remat=True, warmup=1,
                                    counter=count,
                                    sync_every_microbatch=classical)
@@ -1478,15 +1483,77 @@ def test_dp_train_step_nccl_world_one_is_bitwise_the_single_process(
                 state, m = step(state, b)
                 ms.append(m)
             runs.append((state, ms))
+        (a, ma), (b, mb) = runs
+        b = shard_train_state(CFG, b, world)
     finally:
         mesh.shutdown()
-    assert count.all_reduces == 2 * (2 if classical else 1)
-    (a, ma), (b, mb) = runs
-    from repro_torch.tree import leaves
+    n = 2 * (2 if classical else 1)
+    assert (count.all_reduces, count.reduce_scatters, count.all_gathers) == \
+        (2 * n, 0, 0)
     for x, y in zip(leaves(list(a)), leaves(list(b))):
         assert torch.equal(x, y)
     for x, y in zip(ma, mb):
         assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+def test_sharded_step_world_one_launches_the_flash_kernels(cuda):
+    """The sharded CA step at (data, model) = (1, 1) in an NCCL group of
+    one dispatches attention to the CUDA kernels (the registry's counts)
+    and launches them: the lse forward twice a layer and microbatch
+    (remat), flash_dq and flash_dkv once."""
+    from repro_torch import kernels
+    from repro_torch.dist import Mesh, make_rules
+    from repro_torch.kernels import registry
+    from repro_torch.launch import mesh
+    rng = np.random.default_rng(1)
+    t = torch.from_numpy(rng.integers(0, CFG.vocab, (8, 17),
+                                      dtype=np.int32)).to(cuda)
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        rules = make_rules(Mesh(("data", "model"), (1, 1)),
+                           torch.distributed.group.WORLD)
+        state = init_train_state(CFG, torch.Generator(
+            device=cuda).manual_seed(0), device=cuda, rules=rules)
+        step = make_train_step(CFG, rules, ca_k=2, remat=True, warmup=1)
+        registry.reset_dispatch_counts()
+        kernels.reset_launch_counts()
+        state, m = step(state, dict(tokens=t[:, :-1], labels=t[:, 1:]))
+        torch.cuda.synchronize()
+    finally:
+        mesh.shutdown()
+    n = 2 * CFG.n_layers
+    assert kernels.launch_counts()["flash_dq"] == n
+    assert kernels.launch_counts()["flash_dkv"] == n
+    assert kernels.launch_counts()["flash_attention"] == 2 * n
+    assert registry.dispatch_counts()[("flash_dq", "cuda")] == n
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+def test_sharded_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A sharded state saved through NCCL (each leaf gathered to rank 0)
+    and restored into a template of its layout: every leaf bitwise."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.dist import Mesh, make_rules
+    from repro_torch.launch import mesh
+    from repro_torch.launch.steps import layout
+    from repro_torch.tree import leaves
+    mesh.init("cuda", rank=0, world_size=1)
+    try:
+        rules = make_rules(Mesh(("data", "model"), (1, 1)),
+                           torch.distributed.group.WORLD)
+        lay = layout(CFG, rules)
+        state = init_train_state(CFG, torch.Generator(
+            device=cuda).manual_seed(0), device=cuda, rules=rules)
+        ck = Checkpointer(tmp_path)
+        ck.save(3, state, layout=lay)
+        like = init_train_state(CFG, torch.Generator(
+            device=cuda).manual_seed(1), device=cuda, rules=rules)
+        got, at, _ = ck.restore(like, layout=lay)
+    finally:
+        mesh.shutdown()
+    assert at == 3
+    for x, y in zip(leaves(list(got)), leaves(list(state))):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("op", ["fista", "pnm"])

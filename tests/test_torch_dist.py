@@ -141,20 +141,25 @@ def test_largest_mesh_shape_matches_jax():
 
 # ------------------------------------------------------ elastic remesh ---
 #: each spawned rank: the fault-tolerant runner over the smoke config's
-#: data-parallel CA step. ``fail`` at step 3 with ranks 0-2 surviving
-#: (elastic), or a clean run from the checkpoint the directory holds.
+#: sharded CA step on a (world, 1) mesh, the leaves sharded as a full
+#: config's are (``_MIN_SHARD_BYTES_ELEMS`` lowered to 128: at data 4 the
+#: projections split over the data axis, at 3, which divides none of the
+#: smoke widths, they are whole). ``fail`` at step 3 with ranks 0-2
+#: surviving (elastic), or a clean run from the checkpoint the directory
+#: holds.
 _RUNNER_JOB = r"""
-import os
 import torch
 import torch.distributed as dist
+import repro_torch.dist.sharding as sharding
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import TokenStream
-from repro_torch.dist import FailureSource, TrainingRunner, data_rules
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.dist import FailureSource, Mesh, TrainingRunner, make_rules
+from repro_torch.launch.steps import init_train_state, layout, make_train_step
 from repro_torch.tree import leaves
 
 
 def main(rank, world, p):
+    sharding._MIN_SHARD_BYTES_ELEMS = 128
     cfg = smoke_config(get_arch("internlm2-1.8b"))
     built = []
 
@@ -167,18 +172,22 @@ def main(rank, world, p):
         return TokenStream(batch=24, seq=16, vocab=cfg.vocab, seed=0,
                            start_step=start, device="cpu")
 
-    def init_state():
+    def init_state(rules):
         return init_train_state(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
+                                device="cpu", rules=rules)
 
     fail = FailureSource(p["fail_at"], survivors=p["survivors"])
-    runner = TrainingRunner(builder, data_rules(dist.group.WORLD), data,
-                            init_state, os.path.join(p["dir"], f"rank{rank}"),
-                            ckpt_every=2, failure_source=fail, elastic=True)
+    rules = make_rules(Mesh(("data", "model"), (world, 1)), dist.group.WORLD)
+    runner = TrainingRunner(builder, rules, data, init_state, p["dir"],
+                            ckpt_every=2, failure_source=fail, elastic=True,
+                            layout=lambda r: layout(cfg, r))
     state = runner.run(6)
     if state is None:
         return dict(left=runner.left, built=built)
     return dict(left=runner.left, built=built, restarts=runner.restarts,
+                mesh=runner.rules.mesh.sizes,
+                split=[lf.data_dim is not None for lf in
+                       layout(cfg, runner.rules).leaves],
                 params=[t.clone() for t in leaves(state.params)],
                 steps=[m["step"] for m in runner.metrics_log],
                 losses=[m["loss"] for m in runner.metrics_log])
@@ -187,11 +196,12 @@ def main(rank, world, p):
 
 def test_remesh_world4_to_3_restores_and_matches_a_clean_world3_run(
         tmp_path):
-    """World 4 fails at step 3 with ranks 0-2 surviving: rank 3 leaves,
-    the survivors remesh to a group of 3, rebuild the step, restore the
-    step-2 checkpoint and finish; the final params equal those of a clean
-    world-3 run from that checkpoint, bit for bit, and every survivor holds
-    the same."""
+    """World 4 on a (4, 1) mesh fails at step 3 with ranks 0-2 surviving:
+    rank 3 leaves, the survivors remesh to the (3, 1) mesh
+    (``largest_mesh_shape``), rebuild the step, restore the step-2
+    checkpoint, written once for the job as global leaves, into the (3, 1)
+    layout, and finish; every survivor's master shards equal those of a
+    clean world-3 run from that checkpoint, bit for bit."""
     run = tmp_path / "elastic"
     got = spawn_gloo(4, _RUNNER_JOB, dict(fail_at=[3], survivors=[0, 1, 2],
                                           dir=str(run)), tmp_path / "j4",
@@ -199,21 +209,21 @@ def test_remesh_world4_to_3_restores_and_matches_a_clean_world3_run(
     assert got[3]["left"] and got[3]["built"] == [4]
     for r in range(3):
         assert not got[r]["left"] and got[r]["restarts"] == 1
-        assert got[r]["built"] == [4, 3]
+        assert got[r]["built"] == [4, 3] and got[r]["mesh"] == (3, 1)
         assert got[r]["steps"] == list(range(6))
-        for a, b in zip(got[r]["params"], got[0]["params"]):
-            assert torch.equal(a, b)
+    assert sorted(p.name for p in run.iterdir()) == [
+        "step_2", "step_4", "step_6"]          # one directory for the job
     clean = tmp_path / "clean"
-    for r in range(3):
-        shutil.copytree(run / f"rank{r}" / "step_2",
-                        clean / f"rank{r}" / "step_2")
+    shutil.copytree(run / "step_2", clean / "step_2")
     want = spawn_gloo(3, _RUNNER_JOB, dict(fail_at=[], survivors=None,
                                            dir=str(clean)), tmp_path / "j3",
                       timeout=240)
     assert want[0]["steps"] == [2, 3, 4, 5] and want[0]["restarts"] == 0
     assert want[0]["losses"] == got[0]["losses"][2:]
-    for a, b in zip(got[0]["params"], want[0]["params"]):
-        assert torch.equal(a, b)
+    assert any(want[0]["split"]) is False
+    for r in range(3):
+        for a, b in zip(got[r]["params"], want[r]["params"]):
+            assert torch.equal(a, b)
 
 
 #: each spawned rank: the train CLI in the rank's group (RANK and
@@ -229,23 +239,27 @@ def main(rank, world, p):
                          "6", "--ckpt-every", "2", "--fail-at", "3",
                          "--ckpt-dir", p["dir"]])
     return dict(restarts=runner.restarts, log=runner.metrics_log,
-                rules=(runner.rules.dp_size, runner.rules.mesh.axis_names))
+                rules=(runner.rules.mesh.sizes, runner.rules.mesh.axis_names,
+                       runner.rules.coords))
 """
 
 
 def test_train_cli_trains_data_parallel_in_a_group(tmp_path):
-    """The train CLI at world 2 (gloo): rules over the group's data mesh,
+    """The train CLI at world 2 (gloo): the mesh JAX's CLI picks for two
+    devices, (data, model) = (1, 2), internlm2 tensor-parallel over it,
     one restart after the failure at step 3, the same metrics on both
-    ranks, a checkpoint directory a rank."""
+    ranks, one checkpoint directory for the job."""
     got = spawn_gloo(2, _CLI_JOB, dict(dir=str(tmp_path / "ck")),
                      tmp_path / "job", timeout=240)
-    for out in got:
-        assert out["restarts"] == 1 and out["rules"] == (2, ("data",))
+    for r, out in enumerate(got):
+        assert out["restarts"] == 1
+        assert out["rules"] == ((1, 2), ("data", "model"), (0, r))
         assert [m["step"] for m in out["log"]] == list(range(6))
         assert out["log"] == got[0]["log"]
         assert all(np.isfinite(m["loss"]) for m in out["log"])
-    for r in range(2):
-        assert (tmp_path / "ck" / f"rank{r}" / "step_6").is_dir()
+    assert (tmp_path / "ck" / "step_6").is_dir()
+    assert not any(p.name.startswith("rank")
+                   for p in (tmp_path / "ck").iterdir())
 
 
 # --------------------------------------------------------- compression ---

@@ -22,6 +22,10 @@ engine); and the observability layer (``repro_torch.obs``) over the
 Lasso solves and the engine (phases 6e, 9b and 17(d)). ``--only
 families`` builds the kernels and runs phase 15 alone, ``--only
 training`` phases 16 and 18, ``--only serving`` phase 17.
+Every kernel's bound is its registry op's work function
+(``kernels.registry.work``: the FLOPs and bytes of the call) against the
+card's peaks in ``repro_torch.roofline.hw.H100`` (``roofline.bound_ms``);
+this script keeps no peak or bound formula of its own.
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch version
@@ -74,7 +78,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    the card with the same draws and step (1e-4). Then the solve wall of
    each schedule on the same draws: one untimed warm-up solve of each, then
    three timed solves of each in the order CA, classical, classical, CA,
-   CA, classical, reported as all six walls and the two medians;
+   CA, classical, reported as all six walls and the two medians; 5b: one
+   more warm CA-SFISTA covtype solve under ``repro_torch.roofline.analyze``
+   (its 8 ``gram_gather`` and 8 ``prox_step_block`` counted by their work
+   functions), its three terms beside the measured warm wall;
 6. a profiled CA and classical solve of covtype and of susy: device time
    by kernel, the launches and the device's busy share of the wall time;
    no gather or index kernel may run on the solve (the sampled rows are
@@ -227,8 +234,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    recompute); for one microbatch every attention call of the forward and
    the backward held to its plain version on that call's own inputs
    (normwise 8e-3 for o, dq, dk and dv; each lse absolute, 1e-4);
-   ms/step, tokens/s, the share of 989 TFLOP/s the model's FLOPs reach,
-   peak memory and one profiled step (each port kernel's device time and
+   ms/step, tokens/s, the share of the bf16 peak the model's FLOPs reach,
+   peak memory; 11b: one more step under ``repro_torch.roofline.analyze``
+   (its FLOPs, HBM and collective bytes, the three terms and the
+   bottleneck beside the measured ms a step, and ``mfu``, JAX's 6 N D
+   model FLOPs over that time at the bf16 peak); and one profiled step (each port kernel's device time and
    share of the step, and the backward pair's together). Then the JAX
    package's own training checks (tests/test_train.py) on the card at the
    smoke config:
@@ -256,7 +266,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    two launches of each bit-equal; kernel and plain version timed with
    CUDA events at the training shape, both bodies, and the forward at
    zamba2's heads (tensor-core body), beside their bounds:
-   bytes over 3.35 TB/s or the products the scan needs at 989 TFLOP/s
+   bytes over HBM bandwidth or the products the scan needs at the bf16
+   peak
    (the float32 CUDA-core bound beside it, and the FLOP the tensor-core
    bodies run counting each bf16 term, not part of the bound), the L x L
    products over the pairs t >= s only (no PyTorch call computes the
@@ -394,13 +405,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
-#: outside the tensor cores, dense bf16 and int8 tensor-core rates, at the
-#: full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
-INT8_OP_PER_S = 1979e12
 #: kernel vs plain version, normwise (see the module docstring)
 KERNEL_RTOL = 1e-5
 GRAM_RTOL = 2e-6
@@ -456,12 +460,20 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
-    """The least time the card could take: the larger of bytes over HBM
-    bandwidth and operations over the peak ``rate`` for the inputs' type
-    (default float32 outside the tensor cores)."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+def bound(op: str, *args, f32: bool = False, **kwargs):
+    """The least time the card could take for one call of registry op
+    ``op`` on these arguments, in ms, and what bounds it ("bytes" or
+    "operations"): the op's work function (``kernels.registry.work``)
+    against the card's peaks (``repro_torch.roofline``). With ``f32`` the
+    same work at the float32 CUDA-core peak, whatever its dtype."""
+    import dataclasses
+    import torch
+    from repro_torch import roofline
+    from repro_torch.kernels import registry
+    w = registry.work(op, *args, **kwargs)
+    if f32:
+        w = dataclasses.replace(w, dtype=torch.float32)
+    return roofline.bound_ms(w)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -621,12 +633,6 @@ def _ptxas_report(log: str):
     return out
 
 
-def _rate(dtype) -> float:
-    import torch
-    return {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S,
-            torch.int8: INT8_OP_PER_S}[dtype]
-
-
 #: how the bf16 flash kernels (the forward, flash_dq and flash_dkv) reach
 #: the tensor cores and load their tiles
 FLASH_ROUTE = "wgmma+tma"
@@ -717,6 +723,7 @@ def prox_block_phase(dev, gen, blocks, compare, time_ms):
     (bitwise the same W). Returns the two JSON entries."""
     import torch
     from repro_torch.core import update_rules as ur
+    from repro_torch.kernels import registry
     from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.kernels.prox_step import ref as prox_ref
     print("kernel phase: prox_step_block, prox_loop_block")
@@ -812,7 +819,8 @@ def prox_block_phase(dev, gen, blocks, compare, time_ms):
                 st = ur.IterState(w_prev=wp, w=w0, j=1)
                 for i in range(k):
                     st = ur.fista_update(G[i], R[i], st, scal)
-            chain, flops = k, k * (2.0 * d * d + 12 * d)
+            chain, op, kw = k, "prox_step_block", dict(j0=1)
+            vecs = (wp, w0)
             shape = [k, d]
             replaces = "src/repro/kernels/prox_step/kernel.py:89"
         else:
@@ -827,14 +835,14 @@ def prox_block_phase(dev, gen, blocks, compare, time_ms):
                 for i in range(k):
                     z = ur.pnm_update(G[i], R[i], ur.IterState(z, z, 1),
                                       scal, Q).w
-            chain, flops = k * Q, k * Q * (2.0 * d * d + 8 * d)
+            chain, op, kw = k * Q, "prox_loop_block", dict(Q=Q)
+            vecs = (w0,)
             shape = [k, d, Q]
             replaces = "src/repro/kernels/prox_step/kernel.py:77"
         # G and R read once, the input vectors (w_prev and w; z0) and the
         # scalars, W written once
-        nvec = 2 if name == "prox_step_block" else 1
-        nbytes = 4.0 * (k * (d * d + d) + nvec * d + 5 + k * d)
-        bms, by = bound_ms(nbytes, flops)
+        nbytes = registry.work(op, G, R, *vecs, scal, **kw).bytes
+        bms, by = bound(op, G, R, *vecs, scal, **kw)
         Gu = torch.empty(G.numel() + 1, device=dev)[1:].view_as(G).copy_(G)
         check(torch.equal(call(), call(Gu)),
               f"{name} {label}: the ring and global memory disagree")
@@ -983,23 +991,22 @@ def large_d_phase(dev, gen, compare, time_ms):
         # one dependent step of each, k = 1: G_i read once a product
         G1, R1 = G[:1], R[:1]
         iters = 20 if d == ROWS_D[0] else 5
-        vec = 4.0 * (5 * d + 6)      # R, the vectors in and out, scalars
-        for name, call, plain, reads in (
+        for name, call, plain, reads, (bms, by) in (
                 ("fista", lambda: prox_ops.prox_step_block_cuda(
                     G1, R1, wp, w, scal, j0=5),
                  lambda: prox_ref.prox_step_block(G1, R1, wp, w, scal, j0=5),
-                 1),
+                 1, bound("prox_step_block", G1, R1, wp, w, scal, j0=5)),
                 ("pnm", lambda: prox_ops.prox_loop_block_cuda(
                     G1, R1, w, scal, Q=Q),
-                 lambda: prox_ref.prox_loop_block(G1, R1, w, scal, Q=Q), Q),
+                 lambda: prox_ref.prox_loop_block(G1, R1, w, scal, Q=Q), Q,
+                 bound("prox_loop_block", G1, R1, w, scal, Q=Q)),
                 ("pdhg", lambda: prox_ops.pdhg_block_cuda(
                     G1, R1, w, u, scal, sigma),
-                 lambda: prox_ref.pdhg_block(G1, R1, w, u, scal, sigma), 1)):
+                 lambda: prox_ref.pdhg_block(G1, R1, w, u, scal, sigma), 1,
+                 bound("pdhg_block", G1, R1, w, u, scal, sigma))):
             ms = time_ms(call, iters)
             queued = _event_ms(call, iters, queued=True)
             plain_ms = time_ms(plain, iters)
-            bms, by = bound_ms(4.0 * reads * d * d + vec,
-                               reads * (2.0 * d * d + 10 * d))
             print(f"  time rows {name} d={d} (one step, {reads} product"
                   f"{'s' if reads > 1 else ''} of G): kernel={ms:.4f}ms back "
                   f"to back, {queued:.4f}ms queued; plain={plain_ms:.4f}ms "
@@ -1151,8 +1158,7 @@ def family_phase(dev, gen, compare, compare_offdiag, time_ms, problem):
     host = _host_us(call)
     plain_ms = time_ms(lambda: prox_ref.pdhg_block(G, R, w0, u0, scal,
                                                    sigma), 10)
-    nbytes = 4.0 * (k * (d * d + d) + 2 * d + 6 + k * d + d)
-    bms, by = bound_ms(nbytes, k * (2.0 * d * d + 16 * d))
+    bms, by = bound("pdhg_block", G, R, w0, u0, scal, sigma)
     Gu = torch.empty(G.numel() + 1, device=dev)[1:].view_as(G).copy_(G)
     check(torch.equal(call()[0], call(Gu)[0]),
           "pdhg_block: the ring and global memory disagree")
@@ -1242,8 +1248,7 @@ def family_phase(dev, gen, compare, compare_offdiag, time_ms, problem):
     ms = time_ms(lambda: gram_ops.gram_cuda(BU[None]), 20)
     plain_ms = time_ms(lambda: gram_ref.gram(BU[None]), 20)
     lib = time_ms(lambda: torch.mm(BU, BU.T), 20)
-    r, m = BU.shape
-    bms, by = bound_ms(4.0 * (r * m + r * r), 1.0 * r * (r + 1) * m)
+    bms, by = bound("gram", BU[None])
     print(f"  time gram {list(shape)} (BCD's cross-Gram): kernel={ms:.4f}ms "
           f"plain={plain_ms:.4f}ms torch.mm={lib:.4f}ms bound={bms:.5f}ms "
           f"({by}) max_abs_err={err:.3e}")
@@ -1310,9 +1315,7 @@ def svm_phase(dev, compare, time_ms, problem):
     ms = time_ms(lambda: gram_ops.gram_cuda(Bs), 20)
     plain_ms = time_ms(lambda: gram_ref.gram(Bs), 5)
     lib = time_ms(lambda: torch.bmm(Bs, Bs.transpose(1, 2)), 20)
-    k, r, m = shape
-    bms, by = bound_ms(4.0 * (k * r * m + k * r * r),
-                       1.0 * k * r * (r + 1) * m)
+    bms, by = bound("gram", Bs)
     print(f"  time gram {list(shape)} (the dual SVM's G): kernel={ms:.4f}ms "
           f"plain={plain_ms:.4f}ms torch.bmm={lib:.4f}ms bound={bms:.5f}ms "
           f"({by}) max_abs_err={err:.3e}")
@@ -1452,6 +1455,7 @@ def attention_kernel_phase(dev):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -1527,14 +1531,12 @@ def attention_kernel_phase(dev):
         del qt, kt, vt
         host = _host_us(lambda: fa_ops.flash_attention_cuda(
             q, k, v, causal=causal), 50)
-        esz = q.element_size()
-        nbytes = esz * (2 * Bq * Sq * Hq * D + 2 * Bq * Skv * Hkv * D)
         # causal work counts the visible (query, key) pairs only
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-        flops = 4.0 * Bq * Hq * pairs * D
-        bms, by = bound_ms(nbytes, flops, _rate(dtype))
-        cuda_core_ms = max(nbytes / HBM_BYTES_PER_S,
-                           flops / F32_FLOP_PER_S) * 1e3
+        flops = registry.work("flash_attention", q, k, v,
+                              causal=causal).flops
+        bms, by = bound("flash_attention", q, k, v, causal=causal)
+        cuda_core_ms = bound("flash_attention", q, k, v, causal=causal,
+                             f32=True)[0]
         print(f"  time flash_attention {str(shape):44s} kernel={ms:.4f}ms "
               f"plain={plain:.4f}ms sdpa={lib:.4f}ms bound={bms:.5f}ms "
               f"({by}, {str(dtype).split('.')[1]} peak) float32-CUDA-core "
@@ -1672,11 +1674,7 @@ def paged_decode_phase(dev):
         pair = _event_ms(gather_sdpa, 100, flush)
         # bytes: q and out once, the valid K/V rows (and their scales) once
         tokens = float(valid.sum())
-        row = Hkv * D * kp.element_size() + (Hkv * 4 if scales else 0)
-        nbytes = 2 * q.numel() * q.element_size() + 2 * tokens * row \
-            + table.nbytes + valid.nbytes
-        flops = 4.0 * tokens * Hq * D
-        bms, by = bound_ms(nbytes, flops, _rate(kp.dtype))
+        bms, by = bound("paged_attention", q, kp, vp, t, n, **scales)
         print(f"  time paged_decode {str(shape):62s} kernel={ms:.4f}ms "
               f"(behind the flush; {ms - floor:.4f}ms above its floor "
               f"{floor:.4f}ms; {warm:.4f}ms back to back) "
@@ -2155,6 +2153,7 @@ def backward_kernel_phase(dev):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -2255,26 +2254,27 @@ def backward_kernel_phase(dev):
         t["sdpa_bwd"] = _event_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), 10)
         del qt, kt, vt, dot, out
-        esz = q.element_size()
-        qb = Bq * Sq * Hq * D * esz          # q, do, o, dq
-        kb = Bq * Skv * Hkv * D * esz        # k, v, dk, dv
-        rows = Bq * Hq * Sq * 4              # lse, delta
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-        pf = 2.0 * Bq * Hq * pairs * D       # one product over the pairs
-        b_lse = bound_ms(2 * qb + 2 * kb + rows, 2 * pf, _rate(dtype))
-        b_dq = bound_ms(3 * qb + 2 * kb + 2 * rows, 3 * pf, _rate(dtype))
-        b_dkv = bound_ms(2 * qb + 4 * kb + 2 * rows, 4 * pf, _rate(dtype))
+        # one product over the visible pairs
+        pf = registry.work("flash_attention", q, k, v,
+                           causal=causal).flops / 2
+        calls = {"lse forward": ("flash_attention", (q, k, v),
+                                 dict(causal=causal, return_lse=True)),
+                 "flash_dq": ("flash_dq", args, dict(causal=causal)),
+                 "flash_dkv": ("flash_dkv", args, dict(causal=causal))}
+        b_lse, b_dq, b_dkv = (bound(op, *a, **kw)
+                              for op, a, kw in calls.values())
         # (name, bound, kernel ms, plain ms, model products, products the
         # tensor cores run with p (and ds) split in two halves)
         for name, (bms, by), ms, plain, n_model, n_split in (
                 ("lse forward", b_lse, t["lse"], t["lse_plain"], 2, 3),
                 ("flash_dq", b_dq, t["dq"], t["dq_plain"], 3, 4),
                 ("flash_dkv", b_dkv, t["dkv"], t["dkv_plain"], 4, 6)):
+            op, a, kw = calls[name]
             print(f"  time {name:11s} {str(shape):44s} kernel={ms:.4f}ms "
                   f"plain={plain:.4f}ms sdpa_backward={t['sdpa_bwd']:.4f}ms "
                   f"bound={bms:.5f}ms ({by}, "
                   f"{tname} peak) float32-CUDA-core bound="
-                  f"{bms * _rate(dtype) / F32_FLOP_PER_S:.5f}ms"
+                  f"{bound(op, *a, f32=True, **kw)[0]:.5f}ms"
                   + (_tensor_core_line(n_model * pf, ms, bms,
                                        n_split * pf)
                      if tname == "bfloat16" else ""))
@@ -2330,11 +2330,6 @@ SSD_SHAPES = (
 SSD_BODIES = {True: ("ssd_fwd_bf16_kernel", "ssd_bwd_bf16_kernel"),
               False: ("ssd_fwd_f32_kernel", "ssd_bwd_f32_kernel")}
 SSD_ROUTE = "wgmma+tma"
-#: bf16 terms the tensor-core bodies carry each float32 operand in
-#: (csrc/ssd.cu notes 3 and 4; tests/test_torch_ssd.py::KERNEL_TERMS)
-SSD_TERMS = dict(M=2, h=2, U=3, G=3, DD=3, dh=2, hin=2, eY=2)
-
-
 def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay, bc):
     """x as a strided view of a wider projection (as the model hands it),
     dt, A float32, B and C float32 or, with ``bc`` bf16, views of the same
@@ -2363,44 +2358,6 @@ def _ssd_inputs(dev, Bt, S, H, P, N, dtype, seed, decay, bc):
     return (x, t(dt), t(A), B, C), dy, dh
 
 
-def _ssd_work(Bt, S, H, P, N, L, esz, bc_esz=4, states=False):
-    """One launch's work: forward and backward bytes (each input read once,
-    each output written once), the FLOP of their products as the scan
-    needs them (``*_f32``: what the float32 CUDA-core bodies run, and what
-    the bound counts on either route) and as the tensor-core bodies run
-    them (``*_tc``, printed beside it only: each product counted once per
-    bf16 term of its float32 operand, ``SSD_TERMS``; a product of two bf16
-    operands once). Per chunk of l rows and head-row, the L x L-shaped products are
-    counted over the l (l + 1) / 2 pairs t >= s that the causal decay
-    leaves: the forward's C B^T and M' x; the backward's C B^T, dy x^T
-    (twice on the tensor cores, once per layout), (decay C B)^T dy, DD B
-    and DD^T C. The state products run over all l rows: the forward's
-    C h^T and the state update, the backward's B dh^T, x dh (C h_in^T on
-    the CUDA cores), dy h_in, (w xdt) dh and (e dy)^T C. Elementwise work
-    is not counted."""
-    nc = -(-S // L)
-    lens = [L] * (S // L) + ([S % L] if S % L else [])
-    rows, state = Bt * S * H, Bt * H * P * N
-    tr = SSD_TERMS
-    f32 = {"fwd": 0.0, "bwd": 0.0}
-    tc = {"fwd": 0.0, "bwd": 0.0}
-    for l in lens:
-        pairs, st = l * (l + 1.0), 2.0 * l * P * N
-        f32["fwd"] += pairs * (N + P) + 2 * st
-        f32["bwd"] += pairs * (3 * N + 2 * P) + 5 * st
-        tc["fwd"] += pairs * (N + tr["M"] * P) + (tr["h"] + tr["U"]) * st
-        tc["bwd"] += (pairs * (N + 2 * P + tr["G"] * P + 2 * tr["DD"] * N)
-                      + (2 * tr["dh"] + tr["hin"] + tr["eY"]) * st)
-    common = rows * P * esz + rows * 4 + H * 4 + 2 * Bt * S * N * bc_esz
-    fwd_bytes = common + rows * P * esz + state * 4 + (
-        nc * state * 4 if states else 0)
-    bwd_bytes = (common + rows * P * esz + nc * state * 4 + state * 4
-                 + rows * P * 4 + rows * 4 + 2 * rows * N * 4)
-    return dict(fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
-                **{f"{k}_f32": Bt * H * v for k, v in f32.items()},
-                **{f"{k}_tc": Bt * H * v for k, v in tc.items()})
-
-
 def ssd_kernel_phase(dev):
     """Phase 12: ssd and ssd_bwd against their plain versions by the body
     the operand types choose, bit-equal across launches, bf16 y within the
@@ -2408,6 +2365,7 @@ def ssd_kernel_phase(dev):
     the training shape."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ops import ssd_work_counts
     from repro_torch.kernels.ssd import ref as ssd_ref
 
     entries = {}
@@ -2459,9 +2417,9 @@ def ssd_kernel_phase(dev):
             # zamba2's heads, as its forward launches the scan
             ms = _event_ms(lambda: fwd(*args, chunk=L), 20)
             plain = _event_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=L), 3)
-            w = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
-                          args[3].element_size())
-            bms, by = bound_ms(w["fwd_bytes"], w["fwd_f32"], BF16_FLOP_PER_S)
+            w = ssd_work_counts(Bt, S, H, P, N, L, y.element_size(),
+                                args[3].element_size())
+            bms, by = bound("ssd", *args, chunk=L)
             print(f"  time ssd (zamba2) {str(shape):46s} kernel={ms:.4f}ms "
                   f"plain={plain:.4f}ms bound={bms:.5f}ms ({by}; "
                   f"{w['fwd_bytes'] / 1e6:.1f} MB, "
@@ -2482,10 +2440,15 @@ def ssd_kernel_phase(dev):
                 *args, chunk=L), 3),
             bwd_plain=_event_ms(lambda: ssd_ref.ssd_bwd(
                 *args, dy, st, dh, chunk=L), 2))
-        w = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
-                      args[3].element_size())
-        ws_ = _ssd_work(Bt, S, H, P, N, L, y.element_size(),
-                        args[3].element_size(), states=True)
+        w = ssd_work_counts(Bt, S, H, P, N, L, y.element_size(),
+                            args[3].element_size())
+        ws_ = ssd_work_counts(Bt, S, H, P, N, L, y.element_size(),
+                              args[3].element_size(), states=True)
+        calls = {"ssd": ("ssd", args, dict(chunk=L)),
+                 "ssd+states": ("ssd", args, dict(chunk=L,
+                                                  return_states=True)),
+                 "ssd_bwd": ("ssd_bwd", (*args, dy, st, dh),
+                             dict(chunk=L))}
         body = SSD_BODIES[tc]
         rows = []
         for name, nbytes, kind, ms, plain in (
@@ -2495,9 +2458,9 @@ def ssd_kernel_phase(dev):
                 ("ssd_bwd", w["bwd_bytes"], "bwd", t["bwd"], t["bwd_plain"])):
             # the bound counts the work the scan needs; the bf16 terms the
             # tensor-core bodies run for it are printed beside it only
-            b32 = bound_ms(nbytes, w[f"{kind}_f32"])
-            bms, by = (bound_ms(nbytes, w[f"{kind}_f32"], BF16_FLOP_PER_S)
-                       if tc else b32)
+            op, a, kw = calls[name]
+            b32 = bound(op, *a, f32=True, **kw)
+            bms, by = bound(op, *a, **kw)
             print(f"  time {name:10s} {str(shape):52s} kernel={ms:.4f}ms "
                   f"({body[kind == 'bwd']}) plain={plain:.4f}ms "
                   f"bound={bms:.5f}ms ({by}; {nbytes / 1e6:.1f} MB, "
@@ -2624,7 +2587,7 @@ def _model_flops(cfg, n_params, B, S, chunk=64) -> float:
     FLOP per product, 2 products forward and 4 backward; for the ssm family
     the SSD's instead: per token and head (L + 1) (N + P) for the
     intra-chunk products over their visible pairs (L (L + 1) / 2 a chunk,
-    as ``_ssd_work`` counts them) and 4 P N for the state's carry in and
+    as ``kernels.ssd.ops.ssd_work_counts`` counts them) and 4 P N for the state's carry in and
     out, times 3 for forward and backward."""
     n = n_params - cfg.vocab * cfg.d_model
     if cfg.family == "moe":
@@ -2642,21 +2605,58 @@ def _model_flops(cfg, n_params, B, S, chunk=64) -> float:
             + 12.0 * cfg.n_layers * B * cfg.n_heads * pairs * cfg.head_dim)
 
 
-def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
+def _roof_terms(r) -> str:
+    """A Roofline's counts and terms, for a line."""
+    return (f"{r.flops:.4e} FLOP, {r.bytes_hbm:.4e} HBM bytes, "
+            f"{r.bytes_collective:.4e} collective bytes; t_compute "
+            f"{r.t_compute * 1e3:.3f} ms, t_memory {r.t_memory * 1e3:.3f} ms, "
+            f"t_collective {r.t_collective * 1e3:.3f} ms; bottleneck "
+            f"{r.bottleneck}")
+
+
+def roofline_step_line(cfg, step, state, batch, ms, B, S):
+    """Phase 11b: one more CA train step under ``roofline.analyze``: its
+    FLOPs (registry ops by their work functions, the rest by
+    ``torch.utils.flop_counter``), HBM and collective bytes, the three
+    terms and the bottleneck, beside the timed steps' median ``ms``; and
+    ``mfu``, JAX's model FLOPs (6 N D, N the active parameters) over that
+    time at the bf16 peak."""
+    import torch
+    from repro_torch import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import active_params
+    r = roofline.analyze(step, state, batch)
+    check(r.registry_ops.get("flash_dq", 0) > 0 and r.flops > 0,
+          f"analyze: the step's kernels were not counted: {r.registry_ops}")
+    n = active_params(cfg, state.params)
+    mf = roofline.model_flops(cfg, ShapeConfig("train", S, B, "train"), n,
+                              "train")
+    largest = max(r.t_compute, r.t_memory, r.t_collective)
+    print(f"  analyzed step (phase 11b): {_roof_terms(r)}; registry ops "
+          f"{r.registry_ops}; max_memory_allocated "
+          f"{r.per_device_memory['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
+          f"measured {ms:.1f} ms a step, {100 * largest * 1e3 / ms:.1f}% of "
+          f"it the largest term; model FLOPs {mf:.4e} (6 N D, N = {n} "
+          f"active), mfu {roofline.mfu(mf, ms * 1e-3):.4f} "
+          f"({torch.cuda.get_device_name(0)}, {nvidia_smi()})")
+
+
+def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3, analyze=False):
     """Phases 11 and 14: the CA train step at full width
     (``make_train_step(ca_k)`` on ``TokenStream(B, S)``: a warm-up step,
     ``steps`` timed ones), its kernels held to their plain versions over
     one microbatch (attention for the dense family, the SSD scans for the
     ssm family), the JAX package's own training checks at the smoke config,
-    and the CLI with a failure. Returns the kernel launches of the timed
-    steps."""
+    and the CLI with a failure; with ``analyze``, phase 11b (one more step
+    under ``roofline.analyze``: :func:`roofline_step_line`). Returns the
+    kernel launches of the timed steps."""
     import re
 
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
     from repro_torch.configs import smoke_config
     from repro_torch.data import TokenStream
     from repro_torch.launch import train as train_cli
@@ -2727,9 +2727,14 @@ def train_phase(dev, cfg, *, ca_k=4, B=32, S=1024, steps=3):
         flops = _model_flops(cfg, param_count(state.params), B, S)
         print(f"  median {ms:.1f} ms/step, {B * S / ms * 1e3:.0f} tokens/s, "
               f"model FLOPs {flops:.4e} a step: "
-              f"{100 * flops / (ms * 1e-3) / BF16_FLOP_PER_S:.2f}% of "
-              f"989 TFLOP/s; peak memory {peak / 2 ** 30:.2f} GiB "
+              f"{100 * roofline.mfu(flops, ms * 1e-3):.2f}% of "
+              f"{roofline.H100.peak_flops_bf16 / 1e12:g} TFLOP/s; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB "
               f"(max_memory_allocated)")
+        if analyze:
+            t_phase = time.perf_counter()
+            roofline_step_line(cfg, step, state, next(stream), ms, B, S)
+            print(f"phase 11b: {time.perf_counter() - t_phase:.1f}s")
 
         # every kernel call of one microbatch against its plain version
         mb = {k: v[:B // ca_k] for k, v in batch.items()}
@@ -4197,7 +4202,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
     from repro_torch.core import sstep
     from repro_torch.core.sampling import gather_columns, sample_index_batch
     from repro_torch.data import make_dataset_like
@@ -4300,8 +4305,7 @@ def main(argv=None) -> int:
         plain = time_ms(lambda: gram_ref.gram(Xs), iters)
         lib = time_ms(lambda: torch.bmm(Xs, Xs.transpose(1, 2)), iters)
         # G is symmetric: d(d+1)/2 distinct entries of 2m FLOP each
-        bms, by = bound_ms(4.0 * (k * d * m + k * d * d),
-                           1.0 * k * d * (d + 1) * m)
+        bms, by = bound("gram", Xs)
         e = dict(name="gram", route="cuda",
                  source="src/repro_torch/csrc/gram.cu",
                  replaces="src/repro/kernels/gram/kernel.py:44",
@@ -4350,12 +4354,10 @@ def main(argv=None) -> int:
                                                               1.0 / m))
             # each distinct row read once, the draws, G and R written once;
             # r(r+1)/2 entries of m FMAs each
-            out_bytes = 4.0 * k * (r - 1) * r
-            flops = 1.0 * k * m * r * (r + 1)
-            bms, by = bound_ms(4.0 * distinct * r + 8.0 * k * m + out_bytes,
-                               flops)
-            every, _ = bound_ms(4.0 * k * m * r + 8.0 * k * m + out_bytes,
-                                flops)
+            bms, by = bound("gram_gather", rows, draws, r, 1.0 / m,
+                            distinct=distinct)
+            every, _ = bound("gram_gather", rows, draws, r, 1.0 / m,
+                             distinct=k * m)
             print(f"  gram_gather {dataset} {shape}: {distinct} distinct rows "
                   f"of {k * m} draws; kernel={ms:.4f}ms plain={plain:.4f}ms "
                   f"bound={bms:.5f}ms ({by}; {every:.5f}ms if every drawn "
@@ -4406,19 +4408,18 @@ def main(argv=None) -> int:
                 prox_ref.prox_loop(G, R, v, scal, Q=Q, variant=variant))
         if d not in (54, 18):
             continue
-        nbytes = 4.0 * (d * d + 3 * d + 5)
         for name in ("prox_step", "prox_loop"):
             if name == "prox_step":
                 ms = time_ms(lambda: prox_ops.prox_step_cuda(G, R, v, scal), 500)
                 plain = time_ms(lambda: prox_ref.prox_step(G, R, v, scal), 500)
-                bms, by = bound_ms(nbytes, 2.0 * d * d + 6 * d)
+                bms, by = bound("prox_step", G, R, v, scal)
                 replaces = "src/repro/kernels/prox_step/kernel.py:89"
             else:
                 ms = time_ms(lambda: prox_ops.prox_loop_cuda(G, R, v, scal, Q=Q),
                              500)
                 plain = time_ms(lambda: prox_ref.prox_loop(G, R, v, scal, Q=Q),
                                 200)
-                bms, by = bound_ms(nbytes, Q * (2.0 * d * d + 6 * d))
+                bms, by = bound("prox_loop", G, R, v, scal, Q=Q)
                 replaces = "src/repro/kernels/prox_step/kernel.py:77"
             e = dict(name=name, route="cuda",
                      source="src/repro_torch/csrc/prox_step.cu",
@@ -4511,6 +4512,18 @@ def main(argv=None) -> int:
         print(f"  {dataset}: warm solve wall, median of 3: {ca_name} "
               f"{med[True]!r}s {walls[True]!r}, {cl_name} {med[False]!r}s "
               f"{walls[False]!r}, classical/CA {med[False] / med[True]!r}")
+        if dataset == "covtype":
+            # phase 5b: one more warm CA-SFISTA solve under the roofline
+            r = roofline.analyze(sstep.solve, problem, cfg, None, rule,
+                                 name="analyzed", ca=True, idx=draws)
+            check(r.registry_ops == {"gram_gather": T // K,
+                                     "prox_step_block": T // K},
+                  f"analyze: the solve's ops {r.registry_ops}")
+            largest = max(r.t_compute, r.t_memory, r.t_collective)
+            print(f"  covtype analyzed {ca_name} solve (phase 5b): "
+                  f"{_roof_terms(r)}; registry ops {r.registry_ops}; "
+                  f"measured warm wall {med[True] * 1e3:.3f} ms, the "
+                  f"largest term {100 * largest / med[True]:.1f}% of it")
         profiled[dataset] = (problem, cfg, draws, rule, (ca_name, cl_name))
         del runs, ca_run, cl_run, problem, w_plain
 
@@ -4627,7 +4640,7 @@ def main(argv=None) -> int:
     entries.update(bwd_entries)
     print(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
     t_phase = time.perf_counter()
-    launches = train_phase(dev, cfg)
+    launches = train_phase(dev, cfg, analyze=True)
     print(f"train phase: {time.perf_counter() - t_phase:.1f}s")
     # flash_attention's two paths: the serving forward and the training
     # step's lse forward

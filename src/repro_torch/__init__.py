@@ -35,6 +35,15 @@ import torch
 __version__ = "0.1.0"
 
 
+class Unsupported(NotImplementedError):
+    """What the port refuses by name until a ROADMAP item ports it: tensor
+    parallelism outside the dense family or over heads that do not divide
+    the model axis, sharded serving, a leaf split over a part of the data
+    axes. ``launch.dryrun`` reports a cell that raises it as
+    ``unsupported`` and any other exception, a ``NotImplementedError`` of
+    PyTorch's or the registry's among them, as an error."""
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Raises when CUDA is asked for (or defaulted to) and there is

@@ -2,8 +2,10 @@
 
 T = gamma * F + alpha * L + beta * W
 
-A copy of the JAX package's model with the paper's Comet/MPI machine only;
-the launcher prints its predicted CA speedup, as the JAX launcher does.
+A copy of the JAX package's model with the paper's Comet/MPI machine and,
+where the JAX package has a TPU's, the H100's constants as measured on
+four cards (``MachineParams.h100``); the launcher prints its predicted CA
+speedup, as the JAX launcher does.
 """
 from __future__ import annotations
 
@@ -29,6 +31,20 @@ class MachineParams:
         # overhead and collective software stack is ~5us (matches the
         # latency-dominated behavior the paper measures on Comet).
         return MachineParams("comet", gamma=2.0e-12, alpha=5.0e-6, beta=1.4e-9)
+
+    @staticmethod
+    def h100() -> "MachineParams":
+        # Four NVIDIA H100 80GB HBM3 (SXM) of one host at their 700 W
+        # limit, joined by NVLink, measured by tools/machine_params.py
+        # under torchrun (one process a card, NCCL). alpha and beta: an
+        # eager dist.all_reduce of float32 words (the buffer the
+        # distributed solvers reduce) from 1 to 2^26 words, fitted jointly
+        # at worlds 2 and 4 as T_P(w) = log2(P) (alpha + beta w), the hops
+        # CostModel counts; alpha is host-bound (one eager call's cost).
+        # gamma: seconds per flop of the covtype CA block's gram_gather
+        # (32, 55, 58,101) over the k d^2 m flops flops() counts for it.
+        return MachineParams("h100", gamma=5.3001e-14, alpha=3.7003e-05,
+                             beta=1.2217e-11)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,8 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import Unsupported
+from repro_torch.roofline import category
 from repro_torch.tree import leaves, unflatten
 
 Entry = Union[str, Tuple[str, ...], None]
@@ -242,7 +244,11 @@ def make_rules(mesh: Mesh, group=None) -> Rules:
         tp_group = along((tp,))
         from torch.distributed.device_mesh import DeviceMesh
         kind = "cuda" if dist.get_backend(tp_group) == "nccl" else "cpu"
-        tp_mesh = DeviceMesh.from_group(tp_group, kind)
+        # the dim named after the group: DTensor keys its cached plans by
+        # meshes, which compare by ranks and names, so a mesh over another
+        # group of the same ranks (a later process group's) finds none
+        tp_mesh = DeviceMesh.from_group(
+            tp_group, kind, mesh_dim_names=(tp_group.group_name,))
     return dataclasses.replace(rules, group=group, rank=rank,
                                dp_group=dp_group, tp_group=tp_group,
                                tp_mesh=tp_mesh)
@@ -421,7 +427,7 @@ class Layout:
                 data_dim=ddim, lead=t.lead))
             if ddim is not None and set(_axes_of(spec[ddim])) != dp_axes \
                     and rules.group is not None:
-                raise NotImplementedError(
+                raise Unsupported(
                     f"a leaf {shape} split over a part of the data axes "
                     f"({spec}): the flat collectives take whole data groups")
         self.sharded = [i for i, lf in enumerate(self.leaves)
@@ -524,34 +530,40 @@ class Layout:
         rank's shards over the data group (none when no leaf is split);
         the others are cast from the rank's own master."""
         dev = shards[0].device
-        buf = torch.empty(sum(lf.gnumel for lf in self.leaves), dtype=dtype,
-                          device=dev)
+        with category("compute_copy"):
+            buf = torch.empty(sum(lf.gnumel for lf in self.leaves),
+                              dtype=dtype, device=dev)
         out = [v.view(lf.glocal) for v, lf in zip(
             torch.split(buf, [lf.gnumel for lf in self.leaves]),
             self.leaves)]
         if self.sharded:
-            import torch.distributed as dist
-            n, world = self.n_sharded, self.rules.dp_size
-            send = torch.empty(n, dtype=dtype, device=dev)
-            for i in self.sharded:
-                o, lf = self._off[i], self.leaves[i]
-                send[o:o + lf.numel].view(lf.local).copy_(shards[i])
-            recv = torch.empty(world * n, dtype=dtype, device=dev)
-            dist.all_gather_into_tensor(recv, send,
-                                        group=self.rules.dp_group)
-            if counter is not None:
-                counter.all_gathers += 1
-                counter.words += recv.numel()
-            del send
-            for i in self.sharded:
-                o, lf = self._off[i], self.leaves[i]
-                step = lf.local[lf.data_dim]
-                for q in range(world):
-                    out[i].narrow(lf.data_dim, q * step, step).copy_(
-                        recv[q * n + o:q * n + o + lf.numel].view(lf.local))
+            with category("accumulator_staging"):
+                self._gather_sharded(shards, out, dtype, dev, counter)
         for i in self.replicated:
             out[i].copy_(shards[i])
         return out
+
+    def _gather_sharded(self, shards, out, dtype, dev, counter) -> None:
+        """The split leaves of :meth:`gather`'s ``out``: one flat
+        ``all_gather_into_tensor`` over the data group."""
+        import torch.distributed as dist
+        n, world = self.n_sharded, self.rules.dp_size
+        send = torch.empty(n, dtype=dtype, device=dev)
+        for i in self.sharded:
+            o, lf = self._off[i], self.leaves[i]
+            send[o:o + lf.numel].view(lf.local).copy_(shards[i])
+        recv = torch.empty(world * n, dtype=dtype, device=dev)
+        dist.all_gather_into_tensor(recv, send, group=self.rules.dp_group)
+        if counter is not None:
+            counter.all_gathers += 1
+            counter.words += recv.numel()
+        del send
+        for i in self.sharded:
+            o, lf = self._off[i], self.leaves[i]
+            step = lf.local[lf.data_dim]
+            for q in range(world):
+                out[i].narrow(lf.data_dim, q * step, step).copy_(
+                    recv[q * n + o:q * n + o + lf.numel].view(lf.local))
 
     def reduce_scatter(self, grads, counter=None) -> list:
         """Gradients in the ``gather_fsdp`` layout (a tensor or None a
@@ -571,7 +583,9 @@ class Layout:
         import torch.distributed as dist
         first = next(g for g in grads if g is not None)
         world, n = self.rules.dp_size, self.n_sharded
-        send = torch.empty(world * n, dtype=first.dtype, device=first.device)
+        with category("accumulator_staging"):
+            send = torch.empty(world * n, dtype=first.dtype,
+                               device=first.device)
         for i in self.sharded:
             g, o, lf = grads[i], self._off[i], self.leaves[i]
             step = lf.local[lf.data_dim]
@@ -582,8 +596,9 @@ class Layout:
                 else:
                     dst.copy_(g.narrow(lf.data_dim, q * step, step))
             grads[i] = None
-        recv = torch.empty(n, dtype=send.dtype, device=send.device)
-        dist.reduce_scatter_tensor(recv, send, group=self.rules.dp_group)
+        with category("accumulator_staging"):
+            recv = torch.empty(n, dtype=send.dtype, device=send.device)
+            dist.reduce_scatter_tensor(recv, send, group=self.rules.dp_group)
         if counter is not None:
             counter.reduce_scatters += 1
             counter.words += send.numel()
@@ -598,8 +613,9 @@ class Layout:
         views a leaf (None for a split leaf): what one all-reduce over the
         data group sums."""
         sizes = [self.leaves[i].gnumel for i in self.replicated]
-        buf = torch.zeros(self.n_replicated + extra, dtype=torch.float32,
-                          device=device)
+        with category("accumulator_staging"):
+            buf = torch.zeros(self.n_replicated + extra,
+                              dtype=torch.float32, device=device)
         views = [None] * len(self.leaves)
         for i, v in zip(self.replicated,
                         torch.split(buf[:sum(sizes)], sizes)):

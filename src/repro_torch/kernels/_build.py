@@ -13,6 +13,13 @@ is. ``nvcc``'s ``-Xptxas -v`` report
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when that is not ``cudaSuccess``. Nothing here runs at
 import: the tests import every module on hosts with no card and no nvcc.
+
+The wrappers launch through :func:`launch`, the one point where a launch
+can be skipped: for a ``FakeTensor`` (``launch.dryrun`` traces a step
+with fake tensors, which stand for the card's, on a host with no card)
+nothing is built or launched, while the wrapper allocates its outputs and
+workspaces exactly as on the card. A real tensor always launches, or
+raises.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 SOURCES = ("gram", "prox_step", "flash_attention", "ssd")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -51,6 +59,23 @@ def nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and "
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def is_fake(*args) -> bool:
+    """Whether any argument is a ``FakeTensor`` (a tensor with no memory,
+    made under ``torch._subclasses.fake_tensor.FakeTensorMode``)."""
+    for a in args:
+        if isinstance(a, FakeTensor):
+            return True
+    return False
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` stands for a tensor on the card: a CUDA tensor, or a
+    fake one on any device (the dry run makes its fake tensors on the CPU
+    device: autograd over fake ``cuda`` tensors aborts in a build of
+    PyTorch without CUDA)."""
+    return t.device.type == "cuda" or is_fake(t)
 
 
 def unavailable_reason() -> Optional[str]:
@@ -147,6 +172,20 @@ def function(stem: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+def launch(stem: str, name: str, argtypes: Sequence, what: str,
+           like: torch.Tensor, *args) -> bool:
+    """Call C entry point ``name`` of ``stem``'s library with ``args`` and
+    raise on a CUDA error (:func:`check`, naming ``what``). Returns True
+    when it launched;
+    False, with nothing built or called, when ``like`` (the call's first
+    operand) is a ``FakeTensor``, whose pointers are all 0. The caller
+    counts a launch only when this returns True."""
+    if is_fake(like):
+        return False
+    check(stem, function(stem, name, argtypes)(*args), what)
+    return True
+
+
 def check(stem: str, err: int, what: str) -> None:
     """Raise when a C entry point of ``stem`` reports a CUDA error (every
     source exports ``cuda_error_string`` for the message)."""
@@ -158,14 +197,17 @@ def check(stem: str, err: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
-    device, as an int for ``c_void_p``."""
+    device, as an int for ``c_void_p`` (0 for a ``FakeTensor``)."""
+    if is_fake(t):
+        return 0
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def rejects_cpu(*args, **_kw) -> Optional[str]:
     """Per-call capability of every ``cuda`` impl: all tensor arguments on a
     CUDA device."""
-    devices = {a.device.type for a in args if isinstance(a, torch.Tensor)}
+    devices = {"cuda" if on_card(a) else a.device.type
+               for a in args if isinstance(a, torch.Tensor)}
     if devices != {"cuda"}:
         return f"the CUDA kernel needs CUDA tensors, got {sorted(devices)}"
     return None
@@ -173,7 +215,7 @@ def rejects_cpu(*args, **_kw) -> Optional[str]:
 
 def require(t: torch.Tensor, name: str, what: str, ndim: int) -> None:
     """Validate one kernel operand before its pointer goes to C."""
-    if t.device.type != "cuda":
+    if not on_card(t):
         raise ValueError(f"{what}: {name} must be on a CUDA device, "
                          f"got {t.device}")
     if t.dtype != torch.float32:

@@ -71,7 +71,7 @@ _TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _check(t: torch.Tensor, name: str, what: str, ndim: int,
            dtypes) -> None:
-    if t.device.type != "cuda":
+    if not _build.on_card(t):
         raise ValueError(f"{what}: {name} must be on a CUDA device, "
                          f"got {t.device}")
     if t.dtype not in dtypes:
@@ -187,14 +187,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     strides = _strides(q, k, v, o)
-    fn = _build.function("flash_attention", "flash_attention_fwd",
-                         _FLASH_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr() if return_lse else None, _TYPE[q.dtype], B, Hq,
-             Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
-             int(bool(causal)), scale, _build.stream_of(q))
-    _build.check("flash_attention", err, what)
-    flash_attention_cuda.launches += 1
+    if _build.launch("flash_attention", "flash_attention_fwd", _FLASH_ARGS,
+                     what, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     o.data_ptr(), lse.data_ptr() if return_lse else None,
+                     _TYPE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+                     ctypes.cast(strides, ctypes.c_void_p),
+                     int(bool(causal)), scale, _build.stream_of(q)):
+        flash_attention_cuda.launches += 1
     return (o, lse) if return_lse else o
 
 
@@ -216,14 +215,13 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     scale = D ** -0.5 if scale is None else float(scale)
     dq = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     strides = _strides(q, k, v, do, dq)
-    fn = _build.function("flash_attention", "flash_attention_bwd_dq",
-                         _DQ_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _TYPE[q.dtype],
-             B, Hq, Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
-             int(bool(causal)), scale, _build.stream_of(q))
-    _build.check("flash_attention", err, what)
-    flash_dq_cuda.launches += 1
+    if _build.launch("flash_attention", "flash_attention_bwd_dq", _DQ_ARGS,
+                     what, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), _TYPE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+                     ctypes.cast(strides, ctypes.c_void_p),
+                     int(bool(causal)), scale, _build.stream_of(q)):
+        flash_dq_cuda.launches += 1
     return dq
 
 
@@ -246,15 +244,13 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     dk = torch.empty(B, Skv, Hkv, D, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     strides = _strides(q, k, v, do, dk)
-    fn = _build.function("flash_attention", "flash_attention_bwd_dkv",
-                         _DKV_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             _TYPE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
-             ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)), scale,
-             _build.stream_of(q))
-    _build.check("flash_attention", err, what)
-    flash_dkv_cuda.launches += 1
+    if _build.launch("flash_attention", "flash_attention_bwd_dkv", _DKV_ARGS,
+                     what, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), _TYPE[q.dtype], B, Hq,
+                     Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
+                     int(bool(causal)), scale, _build.stream_of(q)):
+        flash_dkv_cuda.launches += 1
     return dk, dv
 
 
@@ -324,7 +320,12 @@ _SCRATCH: dict = {}
 
 
 def _paged_scratch(device: torch.device, stream: int, part_numel: int,
-                   n_tickets: int):
+                   n_tickets: int, fake: bool = False):
+    if fake:
+        # the dry run's fake tensors: allocated as the card's first call
+        # allocates them, kept by no cache the card's calls share
+        return (torch.empty(part_numel, dtype=torch.float32, device=device),
+                torch.zeros(n_tickets, dtype=torch.int32, device=device))
     key = (device.index, stream)
     pair = _SCRATCH.get(key)
     if (pair is None or pair[0].numel() < part_numel
@@ -359,7 +360,10 @@ def _paged_map_key(k_pool: torch.Tensor, v_pool: torch.Tensor) -> tuple:
 
 def _paged_maps(k_pool: torch.Tensor, v_pool: torch.Tensor) -> tuple:
     """The addresses of the K and V pools' tensor maps (and the buffers
-    that hold them), encoded at the first call for a key and kept."""
+    that hold them), encoded at the first call for a key and kept; none
+    for fake pools (the dry run, which launches nothing)."""
+    if _build.is_fake(k_pool):
+        return None, None, None
     key = _paged_map_key(k_pool, v_pool)
     maps = _MAPS.get(key)
     if maps is None:
@@ -451,21 +455,97 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     stream = _build.stream_of(q)
     kmap, vmap, _ = _paged_maps(k_pool, v_pool)
     part, tickets = _paged_scratch(q.device, stream,
-                                   B * Hq * nsplit * (D + 2), B * Hkv)
-    fn = _build.function("flash_attention", "paged_decode", _PAGED_ARGS)
-    err = fn(kmap, vmap, q.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
-             page_table.data_ptr(), kv_valid_len.data_ptr(), part.data_ptr(),
-             tickets.data_ptr(), out.data_ptr(), _TYPE[q.dtype],
-             _TYPE[k_pool.dtype], B, Hq, Hkv, D, P, npages, nsplit, scale,
-             stream)
-    _build.check("flash_attention", err, what)
-    paged_decode_cuda.launches += 1
+                                   B * Hq * nsplit * (D + 2), B * Hkv,
+                                   _build.is_fake(q))
+    if _build.launch("flash_attention", "paged_decode", _PAGED_ARGS, what, q,
+                     kmap, vmap, q.data_ptr(),
+                     k_scale.data_ptr() if quant else None,
+                     v_scale.data_ptr() if quant else None,
+                     page_table.data_ptr(), kv_valid_len.data_ptr(),
+                     part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+                     _TYPE[q.dtype], _TYPE[k_pool.dtype], B, Hq, Hkv, D, P,
+                     npages, nsplit, scale, stream):
+        paged_decode_cuda.launches += 1
     return out
 
 
 paged_decode_cuda.launches = 0
+
+def visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: all Sq Skv, or under
+    the right-aligned causal mask (query i sees keys [0, Skv - Sq + i])
+    those the mask leaves."""
+    if not causal:
+        return Sq * Skv
+    off = Skv - Sq
+    return Sq * off + Sq * (Sq + 1) // 2 if off >= 0 else Skv * (Skv + 1) // 2
+
+
+def _attn_sizes(q, k, causal):
+    """(bytes of q, bytes of k, bytes of a float32 row vector (B, Hq, Sq),
+    FLOP of one product over the visible pairs)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qb = B * Sq * Hq * D * q.element_size()
+    kb = B * Skv * Hkv * D * k.element_size()
+    return qb, kb, B * Hq * Sq * 4, \
+        2.0 * B * Hq * visible_pairs(Sq, Skv, causal) * D
+
+
+@registry.register_work("flash_attention")
+def flash_attention_work(q, k, v, *, causal: bool = True, scale=None,
+                         return_lse: bool = False) -> registry.Work:
+    """q, k, v read once, o (and lse) written once; QK^T and PV over the
+    visible pairs, at the peak of q's dtype."""
+    qb, kb, rows, pf = _attn_sizes(q, k, causal)
+    return registry.Work(flops=2 * pf,
+                         bytes=2 * qb + 2 * kb + (rows if return_lse else 0),
+                         dtype=q.dtype)
+
+
+@registry.register_work("flash_dq")
+def flash_dq_work(q, k, v, do, lse, delta, *, causal: bool = True,
+                  scale=None) -> registry.Work:
+    """q, do, k, v, lse and delta read once, dq written once; QK^T, dO V^T
+    and dS K over the visible pairs."""
+    qb, kb, rows, pf = _attn_sizes(q, k, causal)
+    return registry.Work(flops=3 * pf, bytes=3 * qb + 2 * kb + 2 * rows,
+                         dtype=q.dtype)
+
+
+@registry.register_work("flash_dkv")
+def flash_dkv_work(q, k, v, do, lse, delta, *, causal: bool = True,
+                   scale=None) -> registry.Work:
+    """q, do, k, v, lse and delta read once, dk and dv written once; QK^T,
+    dO V^T, P^T dO and dS^T Q over the visible pairs."""
+    qb, kb, rows, pf = _attn_sizes(q, k, causal)
+    return registry.Work(flops=4 * pf, bytes=2 * qb + 4 * kb + 2 * rows,
+                         dtype=q.dtype)
+
+
+@registry.register_work("paged_attention")
+def paged_attention_work(q, k_pool, v_pool, page_table, kv_valid_len, *,
+                         k_scale=None, v_scale=None,
+                         scale=None) -> registry.Work:
+    """q read and the output written once, each valid K/V row (and its
+    scales) read once, the table and the lengths read once; QK^T and PV
+    over the valid positions, at the peak of the pool's dtype. The valid
+    positions are read from ``kv_valid_len`` (a read of the device), and
+    for a fake one (the dry run) are the most the table reaches."""
+    B, _, Hq, D = q.shape
+    npg, P, Hkv = k_pool.shape[:3]
+    if _build.is_fake(kv_valid_len):
+        tokens = float(B * page_table.shape[1] * P)
+    else:
+        tokens = float(torch.as_tensor(kv_valid_len).sum())
+    row = Hkv * D * k_pool.element_size() + (
+        Hkv * 4 if k_scale is not None else 0)
+    return registry.Work(
+        flops=4.0 * tokens * Hq * D,
+        bytes=(2 * q.numel() * q.element_size() + 2 * tokens * row
+               + page_table.numel() * page_table.element_size() + 4 * B),
+        dtype=k_pool.dtype)
+
 
 registry.register("flash_attention", "cuda",
                   unavailable=_build.unavailable_reason,

@@ -26,7 +26,7 @@ package's Pallas impl (``repro.kernels.gram.ops._gram_bwd``), dXs =
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -73,11 +73,10 @@ def gram_cuda(Xs: torch.Tensor) -> torch.Tensor:
     part = torch.empty(k * nchunks * _triangle(d), dtype=torch.float32,
                        device=X3.device)
     G = torch.empty(k, d, d, dtype=torch.float32, device=X3.device)
-    fn = _build.function("gram", "gram_f32", _ARGS)
-    err = fn(X3.data_ptr(), part.data_ptr(), G.data_ptr(), k, d, m, chunk,
-             nchunks, _build.stream_of(X3))
-    _build.check("gram", err, "gram")
-    gram_cuda.launches += 1
+    if _build.launch("gram", "gram_f32", _ARGS, "gram", X3, X3.data_ptr(),
+                     part.data_ptr(), G.data_ptr(), k, d, m, chunk, nchunks,
+                     _build.stream_of(X3)):
+        gram_cuda.launches += 1
     return G if Xs.dim() == 3 else G[0]
 
 
@@ -113,7 +112,7 @@ def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
     if r_pad % 4 or Xy_rows.data_ptr() % 16:
         raise ValueError(f"{what}: rows must be 16-byte aligned (r_pad a "
                          f"multiple of 4, got {r_pad})")
-    if Xy_rows.device.type != "cuda" or idx.device != Xy_rows.device:
+    if not _build.on_card(Xy_rows) or idx.device != Xy_rows.device:
         raise ValueError(f"{what}: Xy_rows and idx must be on one CUDA "
                          f"device, got {Xy_rows.device} and {idx.device}")
     k, m = idx.shape
@@ -125,12 +124,11 @@ def gram_gather_cuda(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
     part = torch.empty(k * nchunks * _triangle(r), dtype=torch.float32,
                        device=dev)
     G, R = ref.split_out(out, k, r - 1, dev)
-    fn = _build.function("gram", "gram_gather_f32", _GATHER_ARGS)
-    err = fn(Xy_rows.data_ptr(), idx.data_ptr(), part.data_ptr(),
-             G.data_ptr(), R.data_ptr(), k, r, r_pad, m, chunk, nchunks,
-             float(inv_m), _build.stream_of(Xy_rows))
-    _build.check("gram", err, what)
-    gram_gather_cuda.launches += 1
+    if _build.launch("gram", "gram_gather_f32", _GATHER_ARGS, what, Xy_rows,
+                     Xy_rows.data_ptr(), idx.data_ptr(), part.data_ptr(),
+                     G.data_ptr(), R.data_ptr(), k, r, r_pad, m, chunk,
+                     nchunks, float(inv_m), _build.stream_of(Xy_rows)):
+        gram_gather_cuda.launches += 1
     return G, R
 
 
@@ -162,6 +160,37 @@ def gram(Xs: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and Xs.requires_grad:
         return GramFn.apply(Xs, registry.resolved_backend(Xs.device))
     return registry.dispatch("gram", Xs)
+
+@registry.register_work("gram")
+def gram_work(Xs: torch.Tensor) -> registry.Work:
+    """G = Xs Xs^T of (r, m) or (k, r, m): Xs read once and G written once;
+    G is symmetric, so r (r + 1) / 2 distinct entries of 2 m FLOP each."""
+    k, r, m = (1, *Xs.shape) if Xs.dim() == 2 else tuple(Xs.shape)
+    return registry.Work(flops=1.0 * k * r * (r + 1) * m,
+                         bytes=4.0 * (k * r * m + k * r * r),
+                         dtype=torch.float32)
+
+
+@registry.register_work("gram_gather")
+def gram_gather_work(Xy_rows: torch.Tensor, idx: torch.Tensor, r: int,
+                     inv_m: float = 1.0, out=None, *,
+                     distinct: Optional[int] = None) -> registry.Work:
+    """Each distinct row drawn read once (its r floats), the draws read
+    once, G and R written once; r (r + 1) / 2 entries of m FMAs a draw.
+    ``distinct``: how many distinct rows ``idx`` draws; by default counted
+    from ``idx`` (a read of the device, so a measurement's, not a
+    solve's), and for a fake ``idx`` (the dry run: no values) the most it
+    can be, min(k m, n)."""
+    k, m = idx.shape
+    if distinct is None:
+        distinct = (min(k * m, Xy_rows.shape[0]) if _build.is_fake(idx)
+                    else int(torch.unique(idx).numel()))
+    return registry.Work(
+        flops=1.0 * k * m * r * (r + 1),
+        bytes=(4.0 * distinct * r + idx.element_size() * k * m
+               + 4.0 * k * (r - 1) * r),
+        dtype=torch.float32)
+
 
 registry.register("gram", "cuda", unavailable=_build.unavailable_reason,
                   rejects=_build.rejects_cpu)(gram_cuda)

@@ -106,11 +106,11 @@ def prox_step_cuda(G, R, v, scal, *, variant="l1"):
     if rows_route(d):
         return prox_rows_cuda(G[None], R[None], v, scal, variant=variant)[0]
     out = torch.empty_like(v)
-    fn = _build.function("prox_step", "prox_step_f32", _STEP_ARGS)
-    err = fn(G.data_ptr(), R.data_ptr(), v.data_ptr(), scal.data_ptr(),
-             out.data_ptr(), d, vid, _build.stream_of(G))
-    _build.check("prox_step", err, "prox_step")
-    prox_step_cuda.launches += 1
+    if _build.launch("prox_step", "prox_step_f32", _STEP_ARGS, "prox_step",
+                     G, G.data_ptr(), R.data_ptr(), v.data_ptr(),
+                     scal.data_ptr(), out.data_ptr(), d, vid,
+                     _build.stream_of(G)):
+        prox_step_cuda.launches += 1
     return out
 
 
@@ -122,8 +122,8 @@ def prox_loop_cuda(G, R, z0, scal, *, Q: int, variant="l1"):
     G, R = G[None], R[None]
     if _loop_rows(G, R, z0, scal, Q, variant, "prox_loop"):
         return prox_rows_cuda(G, R, z0, scal, Q=Q, variant=variant)[0]
-    W = _loop_block(G, R, z0, scal, Q, variant, "prox_loop")
-    prox_loop_cuda.launches += 1
+    W, launched = _loop_block(G, R, z0, scal, Q, variant, "prox_loop")
+    prox_loop_cuda.launches += launched
     return W[0]
 
 
@@ -162,12 +162,11 @@ def prox_step_block_cuda(G, R, w_prev, w, scal, *, j0: int, variant="l1"):
         return prox_rows_cuda(G, R, w, scal, w_prev=w_prev, j0=j0,
                               variant=variant)
     W = torch.empty(k, d, dtype=torch.float32, device=G.device)
-    fn = _build.function("prox_step", "prox_step_block_f32", _STEP_BLOCK_ARGS)
-    err = fn(G.data_ptr(), R.data_ptr(), w_prev.data_ptr(), w.data_ptr(),
-             scal.data_ptr(), W.data_ptr(), d, k, int(j0), vid,
-             _build.stream_of(G))
-    _build.check("prox_step", err, "prox_step_block")
-    prox_step_block_cuda.launches += 1
+    if _build.launch("prox_step", "prox_step_block_f32", _STEP_BLOCK_ARGS,
+                     "prox_step_block", G, G.data_ptr(), R.data_ptr(),
+                     w_prev.data_ptr(), w.data_ptr(), scal.data_ptr(),
+                     W.data_ptr(), d, k, int(j0), vid, _build.stream_of(G)):
+        prox_step_block_cuda.launches += 1
     return W
 
 
@@ -182,15 +181,14 @@ def _loop_rows(G, R, z0, scal, Q, variant, what) -> bool:
 
 def _loop_block(G, R, z0, scal, Q, variant, what):
     """One launch of ``prox_loop_block_f32`` (operands validated by
-    :func:`_loop_rows`), uncounted."""
+    :func:`_loop_rows`), uncounted: (W, whether it launched)."""
     k, d = G.shape[0], G.shape[1]
     W = torch.empty(k, d, dtype=torch.float32, device=G.device)
-    fn = _build.function("prox_step", "prox_loop_block_f32", _LOOP_BLOCK_ARGS)
-    err = fn(G.data_ptr(), R.data_ptr(), z0.data_ptr(), scal.data_ptr(),
-             W.data_ptr(), d, k, int(Q), _variant_id(variant),
-             _build.stream_of(G))
-    _build.check("prox_step", err, what)
-    return W
+    launched = _build.launch(
+        "prox_step", "prox_loop_block_f32", _LOOP_BLOCK_ARGS, what, G,
+        G.data_ptr(), R.data_ptr(), z0.data_ptr(), scal.data_ptr(),
+        W.data_ptr(), d, k, int(Q), _variant_id(variant), _build.stream_of(G))
+    return W, launched
 
 
 def prox_loop_block_cuda(G, R, z0, scal, *, Q: int, variant="l1"):
@@ -199,8 +197,8 @@ def prox_loop_block_cuda(G, R, z0, scal, *, Q: int, variant="l1"):
     iterating against (G[i], R[i]). Returns the k iterates W (k, d)."""
     if _loop_rows(G, R, z0, scal, Q, variant, "prox_loop_block"):
         return prox_rows_cuda(G, R, z0, scal, Q=Q, variant=variant)
-    W = _loop_block(G, R, z0, scal, Q, variant, "prox_loop_block")
-    prox_loop_block_cuda.launches += 1
+    W, launched = _loop_block(G, R, z0, scal, Q, variant, "prox_loop_block")
+    prox_loop_block_cuda.launches += launched
     return W
 
 
@@ -217,12 +215,12 @@ def pdhg_block_cuda(G, R, w, u, scal, sigma, *, variant="l1"):
                               variant=variant)
     W = torch.empty(k, d, dtype=torch.float32, device=G.device)
     u_out = torch.empty(d, dtype=torch.float32, device=G.device)
-    fn = _build.function("prox_step", "pdhg_block_f32", _PDHG_BLOCK_ARGS)
-    err = fn(G.data_ptr(), R.data_ptr(), w.data_ptr(), u.data_ptr(),
-             scal.data_ptr(), sigma.data_ptr(), W.data_ptr(),
-             u_out.data_ptr(), d, k, vid, _build.stream_of(G))
-    _build.check("prox_step", err, "pdhg_block")
-    pdhg_block_cuda.launches += 1
+    if _build.launch("prox_step", "pdhg_block_f32", _PDHG_BLOCK_ARGS,
+                     "pdhg_block", G, G.data_ptr(), R.data_ptr(),
+                     w.data_ptr(), u.data_ptr(), scal.data_ptr(),
+                     sigma.data_ptr(), W.data_ptr(), u_out.data_ptr(), d, k,
+                     vid, _build.stream_of(G)):
+        pdhg_block_cuda.launches += 1
     return W, u_out
 
 
@@ -248,30 +246,26 @@ def prox_rows_cuda(G, R, x, scal, *, w_prev=None, j0=0, Q=None, u=None,
     if u is not None:
         u_out = torch.empty(d, dtype=torch.float32, device=dev)
         scratch = torch.empty(2 * d, dtype=torch.float32, device=dev)
-        fn = _build.function("prox_step", "prox_rows_pdhg_f32",
-                             _ROWS_PDHG_ARGS)
-        err = fn(G.data_ptr(), R.data_ptr(), x.data_ptr(), u.data_ptr(),
-                 scal.data_ptr(), sigma.data_ptr(), W.data_ptr(),
-                 u_out.data_ptr(), scratch.data_ptr(), d, k, vid, st)
+        entry, argtypes, args = "prox_rows_pdhg_f32", _ROWS_PDHG_ARGS, (
+            G.data_ptr(), R.data_ptr(), x.data_ptr(), u.data_ptr(),
+            scal.data_ptr(), sigma.data_ptr(), W.data_ptr(),
+            u_out.data_ptr(), scratch.data_ptr(), d, k, vid, st)
         launches, result = k, (W, u_out)
     elif Q is not None:
         scratch = torch.empty(2 * d, dtype=torch.float32, device=dev)
-        fn = _build.function("prox_step", "prox_rows_loop_f32",
-                             _ROWS_LOOP_ARGS)
-        err = fn(G.data_ptr(), R.data_ptr(), x.data_ptr(), scal.data_ptr(),
-                 W.data_ptr(), scratch.data_ptr(), d, k, int(Q), vid, st)
+        entry, argtypes, args = "prox_rows_loop_f32", _ROWS_LOOP_ARGS, (
+            G.data_ptr(), R.data_ptr(), x.data_ptr(), scal.data_ptr(),
+            W.data_ptr(), scratch.data_ptr(), d, k, int(Q), vid, st)
         launches, result = k * Q, W
     else:
         on = w_prev is not None
-        fn = _build.function("prox_step", "prox_rows_step_f32",
-                             _ROWS_STEP_ARGS)
-        err = fn(G.data_ptr(), R.data_ptr(),
-                 (w_prev if on else x).data_ptr(), x.data_ptr(),
-                 scal.data_ptr(), W.data_ptr(), d, k, int(j0), int(on), vid,
-                 st)
+        entry, argtypes, args = "prox_rows_step_f32", _ROWS_STEP_ARGS, (
+            G.data_ptr(), R.data_ptr(), (w_prev if on else x).data_ptr(),
+            x.data_ptr(), scal.data_ptr(), W.data_ptr(), d, k, int(j0),
+            int(on), vid, st)
         launches, result = k, W
-    _build.check("prox_step", err, "prox_rows")
-    prox_rows_cuda.launches += launches
+    if _build.launch("prox_step", entry, argtypes, "prox_rows", G, *args):
+        prox_rows_cuda.launches += launches
     return result
 
 
@@ -338,6 +332,68 @@ def prox_loop_block(G, R, z0, scal, *, Q: int, variant="l1"):
     the recompute backward when an input needs grad."""
     return _differentiable("prox_loop_block", ref.prox_loop_block,
                            dict(Q=Q, variant=variant), G, R, z0, scal)
+
+
+def _g_reads(d: int, Q: int) -> int:
+    """How often a prox op reads each G_i: once, or Q times (one read a
+    dependent product) on the rows route, whose G_i (above ROWS_ABOVE_D)
+    no CTA holds on chip between launches."""
+    return Q if rows_route(d) else 1
+
+
+@registry.register_work("prox_step")
+def prox_step_work(G, R, v, scal, *, variant="l1") -> registry.Work:
+    """One FISTA step: G, R, v and the scalars read, the iterate
+    written; Gv and the update, 2 d^2 + 6 d FLOP."""
+    d = G.shape[-1]
+    return registry.Work(flops=2.0 * d * d + 6 * d,
+                         bytes=4.0 * (d * d + 3 * d + 5),
+                         dtype=torch.float32)
+
+
+@registry.register_work("prox_loop")
+def prox_loop_work(G, R, z0, scal, *, Q: int, variant="l1") -> registry.Work:
+    """Q proximal Newton inner steps against one G: G read once (Q times
+    on the rows route), R, z0 and the scalars read, the iterate written."""
+    d = G.shape[-1]
+    return registry.Work(flops=Q * (2.0 * d * d + 6 * d),
+                         bytes=4.0 * (_g_reads(d, Q) * d * d + 3 * d + 5),
+                         dtype=torch.float32)
+
+
+@registry.register_work("prox_step_block")
+def prox_step_block_work(G, R, w_prev, w, scal, *, j0: int,
+                         variant="l1") -> registry.Work:
+    """k FISTA steps: G and R read once, the two input vectors and the
+    scalars read, W written once."""
+    k, d = G.shape[0], G.shape[1]
+    return registry.Work(flops=k * (2.0 * d * d + 12 * d),
+                         bytes=4.0 * (k * (d * d + d) + 2 * d + 5 + k * d),
+                         dtype=torch.float32)
+
+
+@registry.register_work("prox_loop_block")
+def prox_loop_block_work(G, R, z0, scal, *, Q: int,
+                         variant="l1") -> registry.Work:
+    """k proximal Newton steps of Q: each G_i read once (Q times on the
+    rows route), R, z0 and the scalars read, W written once."""
+    k, d = G.shape[0], G.shape[1]
+    return registry.Work(
+        flops=k * Q * (2.0 * d * d + 8 * d),
+        bytes=4.0 * (k * (_g_reads(d, Q) * d * d + d) + d + 5 + k * d),
+        dtype=torch.float32)
+
+
+@registry.register_work("pdhg_block")
+def pdhg_block_work(G, R, w, u, scal, sigma, *,
+                    variant="l1") -> registry.Work:
+    """k PDHG steps: G and R read once, w, u, the scalars and sigma read,
+    W and the last u written once."""
+    k, d = G.shape[0], G.shape[1]
+    return registry.Work(
+        flops=k * (2.0 * d * d + 16 * d),
+        bytes=4.0 * (k * (d * d + d) + 2 * d + 6 + k * d + d),
+        dtype=torch.float32)
 
 
 registry.register("prox_step", "cuda", unavailable=_build.unavailable_reason,

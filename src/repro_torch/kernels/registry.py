@@ -40,6 +40,21 @@ explicitly (``use("torch")``, :func:`set_backend` or the environment
 variable) — as ``chip_smoke.py`` does to hold each kernel against its plain
 version on the card.
 
+Each op also registers one work function (:func:`register_work`), which
+takes the op's arguments and gives the :class:`Work` of one call: the
+FLOPs it must do, the HBM bytes it must move and the dtype whose peak
+applies. ``repro_torch.roofline`` turns a ``Work`` into the least time
+the card could take (``roofline.bound_ms``) and counts a registry op by
+it when it analyses a program (``roofline.analyze`` opens
+:func:`counting` around the program, and :func:`dispatch` tells its
+counter which op runs, so the counter does not count the op's own aten
+ops a second time).
+
+A ``cuda`` impl called on ``FakeTensor`` arguments (``launch.dryrun``)
+skips the process-level availability check and runs its wrapper, which
+allocates as on the card and launches nothing (``_build.launch``); a real
+CPU tensor still raises.
+
 Observability (``repro_torch.obs``): ``repro_kernel_dispatch_total{op,
 backend}`` counts dispatches beside :func:`dispatch_counts`, as the JAX
 registry does. Its other two counters are not ported:
@@ -61,6 +76,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import _build
 
 #: canonical backend names
 BACKENDS = ("cuda", "torch")
@@ -87,6 +103,17 @@ def _any_args(*_args: Any, **_kw: Any) -> Optional[str]:
 
 
 @dataclasses.dataclass(frozen=True)
+class Work:
+    """One call's work: the FLOPs it must do (over the visible pairs and
+    valid rows only, the data it is given), the HBM bytes it must move
+    (each input read once, each output written once) and the dtype whose
+    peak rate bounds the FLOPs."""
+    flops: float
+    bytes: float
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
 class Impl:
     """One backend implementation of a registered op."""
     backend: str
@@ -99,6 +126,7 @@ class Impl:
 
 
 _OPS: Dict[str, Dict[str, Impl]] = {}
+_WORK: Dict[str, Callable[..., Work]] = {}
 _loaded = False
 _load_lock = threading.Lock()
 _tls = threading.local()            # .stack: list[str]
@@ -132,6 +160,30 @@ def register(op_name: str, backend: str, *,
                                                      rejects)
         return fn
     return deco
+
+
+def register_work(op_name: str):
+    """Decorator: register ``fn`` as ``op_name``'s work function. It takes
+    the op's call signature and returns the call's :class:`Work`."""
+    def deco(fn: Callable[..., Work]) -> Callable[..., Work]:
+        _WORK[op_name] = fn
+        return fn
+    return deco
+
+
+def work(name: str, *args: Any, **kwargs: Any) -> Work:
+    """The :class:`Work` of one call of op ``name`` on these arguments."""
+    ensure_loaded()
+    if name not in _WORK:
+        raise KeyError(f"op {name!r} has no work function; registered: "
+                       f"{sorted(_WORK)}")
+    return _WORK[name](*args, **kwargs)
+
+
+def work_functions() -> Dict[str, Callable[..., Work]]:
+    """Every registered work function by op name."""
+    ensure_loaded()
+    return dict(_WORK)
 
 
 def ensure_loaded() -> None:
@@ -232,7 +284,8 @@ def select(name: str, *args: Any, **kwargs: Any) -> Impl:
         raise NotImplementedError(
             f"op {name!r}: no {backend!r} implementation "
             f"(registered: {sorted(impls)})")
-    why = impl.unavailable() or impl.rejects(*args, **kwargs)
+    why = ((None if _build.is_fake(*args) else impl.unavailable())
+           or impl.rejects(*args, **kwargs))
     if why:
         raise RuntimeError(f"op {name!r}: backend {backend!r} cannot run "
                            f"(policy={policy()!r}): {why}")
@@ -244,7 +297,30 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
     impl = select(name, *args, **kwargs)
     _DISPATCH[(name, impl.backend)] += 1
     _M_DISPATCH.inc(op=name, backend=impl.backend)
-    return impl.fn(*args, **kwargs)
+    if _COUNTER is None:
+        return impl.fn(*args, **kwargs)
+    with _COUNTER.registry_op(name, args, kwargs):
+        return impl.fn(*args, **kwargs)
+
+
+#: the counter of the open :func:`counting`, or None
+_COUNTER = None
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """While open, every dispatch runs inside ``counter.registry_op(name,
+    args, kwargs)`` (``roofline.analyze``'s dispatch mode, which counts a
+    registry op by its work function and not its aten ops). It is one
+    flag for the process, not the thread: a backward's ops run on
+    autograd's device threads. With none open, :func:`dispatch` reads the
+    flag and calls the impl."""
+    global _COUNTER
+    outer, _COUNTER = _COUNTER, counter
+    try:
+        yield
+    finally:
+        _COUNTER = outer
 
 
 def dispatch_counts() -> Dict[Tuple[str, str], int]:

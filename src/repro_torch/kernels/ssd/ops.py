@@ -65,7 +65,7 @@ def _check(t: torch.Tensor, name: str, what: str, shape, dtypes) -> None:
 
 def _check_devices(what: str, **tensors) -> None:
     for name, t in tensors.items():
-        if t is not None and t.device.type != "cuda":
+        if t is not None and not _build.on_card(t):
             raise ValueError(f"{what}: {name} must be on a CUDA device, "
                              f"got {t.device}")
 
@@ -151,14 +151,14 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     states = (torch.empty(Bt, H, nc, P, N, dtype=torch.float32, device=dev)
               if return_states else None)
     strides = _strides((x, 3), (dt, 2), (B, 2), (C, 2))
-    fn = _build.function("ssd", "ssd_fwd", _FWD_ARGS)
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), y.data_ptr(), h.data_ptr(),
-             states.data_ptr() if return_states else None, body,
-             Bt, S, H, P, N, chunk, ctypes.cast(strides, ctypes.c_void_p),
-             _build.stream_of(x))
-    _build.check("ssd", err, what)
-    _count(ssd_cuda, body)
+    if _build.launch("ssd", "ssd_fwd", _FWD_ARGS, what, x, x.data_ptr(),
+                     dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                     y.data_ptr(), h.data_ptr(),
+                     states.data_ptr() if return_states else None, body,
+                     Bt, S, H, P, N, chunk,
+                     ctypes.cast(strides, ctypes.c_void_p),
+                     _build.stream_of(x)):
+        _count(ssd_cuda, body)
     return (y, h, states) if return_states else (y, h)
 
 
@@ -191,15 +191,15 @@ def ssd_bwd_cuda(x, dt, A, B, C, dy, states, dh_final=None, *,
     dB = torch.empty(Bt, S, H, N, dtype=torch.float32, device=dev)
     dC = torch.empty_like(dB)
     strides = _strides((x, 3), (dt, 2), (B, 2), (C, 2), (dy, 3))
-    fn = _build.function("ssd", "ssd_bwd", _BWD_ARGS)
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), dy.data_ptr(), states.data_ptr(),
-             dh_final.data_ptr() if dh_final is not None else None,
-             dxdt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-             body, Bt, S, H, P, N, chunk,
-             ctypes.cast(strides, ctypes.c_void_p), _build.stream_of(x))
-    _build.check("ssd", err, what)
-    _count(ssd_bwd_cuda, body)
+    if _build.launch("ssd", "ssd_bwd", _BWD_ARGS, what, x, x.data_ptr(),
+                     dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                     dy.data_ptr(), states.data_ptr(),
+                     dh_final.data_ptr() if dh_final is not None else None,
+                     dxdt.data_ptr(), da.data_ptr(), dB.data_ptr(),
+                     dC.data_ptr(), body, Bt, S, H, P, N, chunk,
+                     ctypes.cast(strides, ctypes.c_void_p),
+                     _build.stream_of(x)):
+        _count(ssd_bwd_cuda, body)
     return dxdt, da, dB, dC
 
 
@@ -293,6 +293,79 @@ def ssd_decode_step(x_t, dt_t, A, B_t, C_t, h):
     h = decay[..., None, None] * h + upd
     y = torch.einsum("bhpn,bn->bhp", h, C_t)
     return y.to(x_t.dtype), h
+
+
+#: bf16 terms the tensor-core bodies carry each float32 operand in
+#: (csrc/ssd.cu notes 3 and 4; tests/test_torch_ssd.py::KERNEL_TERMS)
+SSD_TERMS = dict(M=2, h=2, U=3, G=3, DD=3, dh=2, hin=2, eY=2)
+
+
+def ssd_work_counts(Bt, S, H, P, N, L, esz, bc_esz=4, states=False):
+    """One launch's work: forward and backward bytes (each input read once,
+    each output written once), the FLOP of their products as the scan
+    needs them (``*_f32``: what the float32 CUDA-core bodies run, and what
+    the bound counts on either route) and as the tensor-core bodies run
+    them (``*_tc``, printed beside it only: each product counted once per
+    bf16 term of its float32 operand, :data:`SSD_TERMS`; a product of two
+    bf16 operands once). Per chunk of l rows and head-row, the L x
+    L-shaped products are counted over the l (l + 1) / 2 pairs t >= s that
+    the causal decay leaves: the forward's C B^T and M' x; the backward's
+    C B^T, dy x^T (twice on the tensor cores, once per layout), (decay C
+    B)^T dy, DD B and DD^T C. The state products run over all l rows: the
+    forward's C h^T and the state update, the backward's B dh^T, x dh (C
+    h_in^T on the CUDA cores), dy h_in, (w xdt) dh and (e dy)^T C.
+    Elementwise work is not counted."""
+    nc = -(-S // L)
+    lens = [L] * (S // L) + ([S % L] if S % L else [])
+    rows, state = Bt * S * H, Bt * H * P * N
+    tr = SSD_TERMS
+    f32 = {"fwd": 0.0, "bwd": 0.0}
+    tc = {"fwd": 0.0, "bwd": 0.0}
+    for l in lens:
+        pairs, st = l * (l + 1.0), 2.0 * l * P * N
+        f32["fwd"] += pairs * (N + P) + 2 * st
+        f32["bwd"] += pairs * (3 * N + 2 * P) + 5 * st
+        tc["fwd"] += pairs * (N + tr["M"] * P) + (tr["h"] + tr["U"]) * st
+        tc["bwd"] += (pairs * (N + 2 * P + tr["G"] * P + 2 * tr["DD"] * N)
+                      + (2 * tr["dh"] + tr["hin"] + tr["eY"]) * st)
+    common = rows * P * esz + rows * 4 + H * 4 + 2 * Bt * S * N * bc_esz
+    fwd_bytes = common + rows * P * esz + state * 4 + (
+        nc * state * 4 if states else 0)
+    bwd_bytes = (common + rows * P * esz + nc * state * 4 + state * 4
+                 + rows * P * 4 + rows * 4 + 2 * rows * N * 4)
+    return dict(fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+                **{f"{k}_f32": Bt * H * v for k, v in f32.items()},
+                **{f"{k}_tc": Bt * H * v for k, v in tc.items()})
+
+
+def _scan_dtype(x, B, C) -> torch.dtype:
+    """The peak that bounds the scan: bf16 when x, B and C are all bf16
+    (the tensor-core bodies), else float32 (the CUDA-core bodies)."""
+    tc = x.dtype == B.dtype == C.dtype == torch.bfloat16
+    return torch.bfloat16 if tc else torch.float32
+
+
+@registry.register_work("ssd")
+def ssd_work(x, dt, A, B, C, *, chunk: int = DEFAULT_CHUNK, h0=None,
+             return_states: bool = False) -> registry.Work:
+    """The forward scan (:func:`ssd_work_counts`), with the states when
+    asked for."""
+    Bt, S, H, P = x.shape
+    w = ssd_work_counts(Bt, S, H, P, B.shape[-1], chunk, x.element_size(),
+                        B.element_size(), states=return_states)
+    return registry.Work(flops=w["fwd_f32"], bytes=w["fwd_bytes"],
+                         dtype=_scan_dtype(x, B, C))
+
+
+@registry.register_work("ssd_bwd")
+def ssd_bwd_work(x, dt, A, B, C, dy, states, dh_final=None, *,
+                 chunk: int = DEFAULT_CHUNK) -> registry.Work:
+    """The reverse scan (:func:`ssd_work_counts`)."""
+    Bt, S, H, P = x.shape
+    w = ssd_work_counts(Bt, S, H, P, B.shape[-1], chunk, x.element_size(),
+                        B.element_size())
+    return registry.Work(flops=w["bwd_f32"], bytes=w["bwd_bytes"],
+                         dtype=_scan_dtype(x, B, C))
 
 
 registry.register("ssd", "cuda", unavailable=_build.unavailable_reason,

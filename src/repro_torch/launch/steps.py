@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import Unsupported
+from repro_torch.roofline import category
 from repro_torch.core.distributed import CollectiveCount
 from repro_torch.dist.sharding import Layout
 from repro_torch.kernels import registry
@@ -140,10 +142,17 @@ def make_train_step(cfg, rules=None, *, ca_k: int = 8, peak_lr: float = 3e-4,
     step is built is pinned for every call."""
     backend = registry.policy()
     if rules is not None and rules.tp_size > 1 and cfg.family != "dense":
-        raise NotImplementedError(
+        raise Unsupported(
             f"{cfg.name}: tensor parallelism over the model axis is the "
             f"dense family's so far (ROADMAP queue 1 item 7); train the "
             f"{cfg.family!r} family on a data-only mesh (model = 1)")
+    if rules is not None and (cfg.n_heads % rules.tp_size
+                              or cfg.n_kv_heads % rules.tp_size):
+        raise Unsupported(
+            f"{cfg.name}: tensor parallelism splits attention heads, and "
+            f"{cfg.n_heads} query and {cfg.n_kv_heads} kv heads do not "
+            f"divide a model axis of {rules.tp_size} (ROADMAP queue 1 item "
+            f"7(a))")
     if _sharded(rules):
         step = _sharded_step(cfg, rules, ca_k=ca_k, peak_lr=peak_lr,
                              warmup=warmup, total_steps=total_steps,
@@ -187,12 +196,15 @@ def _single_step(cfg, *, ca_k, peak_lr, warmup, total_steps, remat,
                                grad_norm=torch.stack(gnorms).mean(), lr=lr)
 
         # CA: one bf16 compute copy for the step, float32 accumulation
-        p_comp = tree_map(lambda t: t.detach().to(torch.bfloat16)
-                          .requires_grad_(), state.params)
-        acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-               for t in leaves(state.params)]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=state.opt.step.device)
+        with category("compute_copy"):
+            p_comp = tree_map(lambda t: t.detach().to(torch.bfloat16)
+                              .requires_grad_(), state.params)
+        with category("accumulator_staging"):
+            acc = [torch.zeros(t.shape, dtype=torch.float32,
+                               device=t.device)
+                   for t in leaves(state.params)]
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=state.opt.step.device)
         for mb in micro:
             loss, grads = micro_grads(p_comp, mb)
             loss_sum.add_(loss)
@@ -302,9 +314,10 @@ def _sharded_step(cfg, rules, *, ca_k, peak_lr, warmup, total_steps, remat,
         # once, with the loss, at the end of the step
         flat, params = compute_copy(masters, torch.bfloat16)
         rbuf, acc = lay.replicated_buffer(device, extra=1)
-        for i in lay.sharded:
-            acc[i] = torch.zeros(masters[i].shape, dtype=torch.float32,
-                                 device=device)
+        with category("accumulator_staging"):
+            for i in lay.sharded:
+                acc[i] = torch.zeros(masters[i].shape, dtype=torch.float32,
+                                     device=device)
         loss_sum = rbuf[-1]
         for mb in micro:
             loss, grads = micro_grads(flat, params, mb)
@@ -326,9 +339,13 @@ def _sharded_step(cfg, rules, *, ca_k, peak_lr, warmup, total_steps, remat,
     return step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, rules=None):
     """Returns serve_step(params, cache, tokens, positions=None,
     page_table=None) -> (next_tokens (B,1) int32, logits, cache).
+
+    ``rules``: the mesh to serve on. The port serves on one device: rules
+    on a mesh of more devices raise (sharded serving, the JAX engine's
+    ``rules=``, is ROADMAP queue 1 item 7(b)).
 
     positions: optional (B,) per-slot decode depths (the continuous-batching
     engine); page_table: optional (B, pages_per_slot) int32 when the K/V
@@ -336,6 +353,11 @@ def make_serve_step(cfg):
     built is pinned for every call (``auto`` still resolves by device).
     The next token is the greedy argmax; the engine's k-step block samples
     from the logits (``repro_torch.serve.sampling``) where a slot asks."""
+    if rules is not None and rules.n_devices > 1:
+        raise Unsupported(
+            f"{cfg.name}: the port serves on one device; sharded serving "
+            f"over a mesh of {rules.n_devices} devices is ROADMAP queue 1 "
+            f"item 7(b)")
     backend = registry.policy()
 
     def serve_step(params, cache, tokens, positions=None, page_table=None):

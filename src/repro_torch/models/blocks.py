@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import Unsupported
 from repro_torch.models import tp
 from repro_torch.models.attention import attention, paged_attention, quantize_kv
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
@@ -96,7 +97,7 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
             # the kernels run on this rank's heads (models.tp)
             like = q
             if cache is not None:
-                raise NotImplementedError(
+                raise Unsupported(
                     "tensor-parallel decode waits for sharded serving")
             q, k, v = tp.heads(q), tp.heads(k), tp.heads(v)
         if rope is not None:

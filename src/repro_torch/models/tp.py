@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import Unsupported
+
 
 def is_tp(t) -> bool:
     return isinstance(t, DTensor)
@@ -65,7 +67,7 @@ def heads(t: DTensor) -> torch.Tensor:
     """(B, S, H, D) split on H: this rank's local heads, a plain tensor."""
     n = t.device_mesh.size()
     if t.shape[2] % n:
-        raise NotImplementedError(
+        raise Unsupported(
             f"tensor parallelism splits attention heads: {t.shape[2]} heads "
             f"over a model axis of {n}")
     return _place(t, Shard(2)).to_local()
@@ -125,7 +127,7 @@ def wrapper(mesh):
     def wrap(t: torch.Tensor, leaf) -> DTensor:
         d = leaf.model_dim
         if d is not None and d < leaf.lead:
-            raise NotImplementedError(
+            raise Unsupported(
                 f"a layer stack {leaf.shape} split over the model axis on "
                 f"its stack dim ({leaf.gspec})")
         place = Replicate() if d is None else Shard(d - leaf.lead)

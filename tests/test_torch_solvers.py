@@ -124,6 +124,44 @@ def test_cost_model_and_datasets_match_jax():
     assert PAPER_DATASETS == J_DATASETS
 
 
+def _machine_params_tool():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "tools/machine_params.py"
+    spec = importlib.util.spec_from_file_location("machine_params", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_machine_params_fit_recovers_alpha_and_beta():
+    """tools/machine_params.py's least squares (of relative residuals)
+    recovers a synthetic alpha and beta, one world's and the model's
+    jointly over worlds (T_P = log2 P (alpha + beta w))."""
+    fit = _machine_params_tool().fit_alpha_beta
+    alpha, beta = 4.5e-5, 9.0e-12
+    words = [1 << e for e in range(27)]
+    a, b = fit(words, [alpha + beta * w for w in words])
+    assert a == pytest.approx(alpha, rel=1e-9)
+    assert b == pytest.approx(beta, rel=1e-9)
+    rng = np.random.default_rng(0)
+    pts = [(w, h * (alpha + beta * w) * (1 + 0.01 * rng.standard_normal()),
+            h) for h in (1.0, 2.0) for w in words]
+    a, b = fit(*zip(*pts))
+    assert a == pytest.approx(alpha, rel=0.02)
+    assert b == pytest.approx(beta, rel=0.02)
+
+
+def test_h100_predicts_a_larger_ca_speedup_at_four_cards():
+    """With the H100's measured constants the CA solve's predicted gain
+    over the classical one grows from one card to four on covtype: the
+    Gram flops split over P, the T messages do not."""
+    cm = tcore.CostModel(d=54, n=581_012, b=0.1, T=256, k=32, Q=5)
+    h100 = tcore.MachineParams.h100()
+    for newton in (False, True):
+        assert cm.speedup(4, h100, newton=newton) > cm.speedup(
+            1, h100, newton=newton) > 1.0
+
+
 # ------------------------------------------------------- within the port --
 @pytest.mark.parametrize("k", [1, 8, 32])
 @pytest.mark.parametrize("pair", [("sfista", "ca_sfista"),

@@ -24,8 +24,9 @@ loss of every step (with ``--profile``, one more step under
 ``torch.profiler``: the card's busy share and its time by kind of
 kernel); then the line
 ``{"dp_step_time": {...}}`` with the same numbers (also written to
-``--out``). A run that does not fit ends with the out-of-memory error
-and the bytes it asked for. It imports no JAX.
+``--out``). A run that does not fit ends with the out-of-memory error,
+the bytes it asked for, and rank 0's card at that moment (allocated,
+reserved, free, and the context outside the allocator). It imports no JAX.
 
   python tools/dp_step_time.py --compare a.json b.json ...
 
@@ -73,6 +74,26 @@ def _cards():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()
+
+
+def _memory_now(dev) -> dict:
+    """This rank's card at this moment (in the handler of an out-of-memory
+    error: the step's tensors still live, its process groups' communicators
+    made): what PyTorch's allocator has allocated and reserved, its
+    reserved blocks split but unused, the card's free bytes, and the
+    context, the bytes the process holds outside the allocator (its CUDA
+    context, cuBLAS, the NCCL communicators): total less free less
+    reserved."""
+    if dev.type != "cuda":
+        return {}
+    free, total = torch.cuda.mem_get_info(dev)
+    stats = torch.cuda.memory_stats(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    return dict(allocated=torch.cuda.memory_allocated(dev),
+                reserved=reserved, free=free, total=total,
+                context=total - free - reserved,
+                inactive_split=stats.get("inactive_split_bytes.all.current"),
+                alloc_retries=stats.get("num_alloc_retries"))
 
 
 def stream_batch(args, cfg, dev):
@@ -235,13 +256,15 @@ def main(argv=None) -> int:
         try:
             out = run(args, dev)
         except torch.OutOfMemoryError as e:
-            out = dict(arch=args.arch, mesh=args.mesh, out_of_memory=str(e))
+            out = dict(arch=args.arch, mesh=args.mesh, out_of_memory=str(e),
+                       at_oom=_memory_now(dev))
         if dev.type == "cuda":
             out["cards"] = _cards()
         if rank == 0:
             if "out_of_memory" in out:
                 print(f"{args.arch} mesh {args.mesh}: out of memory: "
-                      f"{out['out_of_memory']}")
+                      f"{out['out_of_memory']}; rank 0's card then, bytes: "
+                      f"{out['at_oom']}")
             else:
                 print(f"cards: {out.get('cards')}")
                 print(f"{out['arch']} mesh {out['mesh']}: median "

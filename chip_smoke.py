@@ -145,8 +145,16 @@ What it does, in order; any failure raises and the exit code is not 0:
    Hkv=8, D=128, page size 16, 64 pages a slot, valid 1..1024, table
    entries past valid at page 0) with bf16, int8 (with scales) and float32
    pools, with page size 5, at D=80 (32 heads), and in bf16 at the
-   engine's own lengths (the first 8 prompts of phase 9 plus 32 tokens).
-   Each against its plain
+   engine's own lengths (the first 8 prompts of phase 9 plus 32 tokens);
+   at the engine's shape in bf16 and int8 also its row-map and lse
+   instance (sharded serving's: each of m = 2 and 4 ranks holds rows
+   [r 16/m, (r+1) 16/m) of every page), each slice's o and lse against
+   the plain version on the slice, the slices merged
+   (``ref.merge_partials``) against the unsplit kernel and the plain
+   version, base 0 with the page size as stride bitwise the default
+   call, and rank 0's call timed beside its bound (``rows_m2_*``,
+   ``rows_m4_*`` in the kernel's JSON entry; on one card the main path
+   launches no row-map instance). Each against its plain
    version, normwise (max |kernel - plain| / max |plain|): at most 1e-5
    for float32 outputs (float32 sums in another order) and 8e-3 for bf16
    outputs (one bf16 rounding at the top of the range, 2^-7). Times:
@@ -1690,9 +1698,78 @@ def paged_decode_phase(dev):
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None, floor_ms=floor,
                 warm_ms=warm, gather_sdpa_ms=pair)
+        if (P, Hq, Hkv, D, lens) == (16, 16, 8, 128, None) and \
+                kv in ("bf16", "int8"):
+            entries["paged_decode"].update(_row_map_check(
+                kernel, plain, q, kp, vp, t, n, scales, shape, flush, kv))
         del q, kp, vp, got, want
     del buf
     return entries
+
+
+def _row_map_check(kernel, plain, q, kp, vp, t, n, scales, shape, flush,
+                   kv):
+    """The row-map and lse instance of ``paged_decode`` (sharded serving:
+    each of m ranks holds rows [r P/m, (r + 1) P/m) of every page) at the
+    engine's shape, on one card: each slice's o and lse against the plain
+    version on the same slice, the m slices merged
+    (``ref.merge_partials``) against the unsplit kernel and the plain
+    version, and base 0 with the page size as stride, no lse, bitwise the
+    default call. Times rank 0's call (the most valid rows) behind the
+    flush beside its bound (the rank's rows only) and its plain version.
+    Returns the keys it adds to the kernel's JSON entry."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    P = kp.shape[1]
+    whole = kernel()
+    check(torch.equal(whole, fa_ops.paged_decode_cuda(
+        q, kp, vp, t, n, **scales, row_base=0, row_stride=P)),
+        "paged_decode: base 0, stride P is not the default call's bits")
+    want = plain()
+    out = {}
+    for m in (2, 4):
+        R = P // m
+        parts, lses, calls = [], [], []
+        for r in range(m):
+            cut = slice(r * R, (r + 1) * R)
+            ks, vs = kp[:, cut].contiguous(), vp[:, cut].contiguous()
+            sc = {k: v[:, cut].contiguous() for k, v in scales.items()}
+            kw = dict(sc, row_base=r * R, row_stride=P, return_lse=True)
+            o, lse = fa_ops.paged_decode_cuda(q, ks, vs, t, n, **kw)
+            wo, wl = fa_ref.paged_decode(q, ks, vs, t, n, **kw)
+            err = _normwise(f"rows {r}/{m}", shape[:6], o, wo,
+                            ATTN_RTOL[str(q.dtype).split(".")[1]])
+            fin = torch.isfinite(wl)
+            check(torch.equal(torch.isinf(lse), torch.isinf(wl)),
+                  f"paged_decode rows {r}/{m}: lse -inf where the plain "
+                  f"version's is not")
+            lerr = float((lse[fin] - wl[fin]).abs().max())
+            check(lerr <= 1e-5 * max(1.0, float(wl[fin].abs().max())),
+                  f"paged_decode rows {r}/{m}: lse off by {lerr:.3e}")
+            parts.append(o)
+            lses.append(lse)
+            calls.append((ks, vs, kw))
+        merged = fa_ref.merge_partials(torch.stack(parts), torch.stack(lses))
+        rtol = ATTN_RTOL[str(q.dtype).split(".")[1]]
+        m_err = _normwise(f"merged m={m}", shape[:6], merged, whole, rtol)
+        _normwise(f"merged m={m}", shape[:6], merged, want, rtol)
+        ks, vs, kw = calls[0]
+        ms = _event_ms(lambda: fa_ops.paged_decode_cuda(q, ks, vs, t, n,
+                                                        **kw), 100, flush)
+        plain_ms = _event_ms(lambda: fa_ref.paged_decode(q, ks, vs, t, n,
+                                                         **kw), 20, flush)
+        bms, by = bound("paged_attention", q, ks, vs, t, n, **kw)
+        print(f"  time paged_decode rows of 1/{m} {str(shape):48s} rank 0: "
+              f"kernel={ms:.4f}ms (behind the flush) plain={plain_ms:.4f}ms "
+              f"bound={bms:.5f}ms ({by}); merged vs the unsplit kernel "
+              f"max |d| {m_err:.3e}")
+        if kv == "bf16":
+            out.update({f"rows_m{m}_ms": ms, f"rows_m{m}_plain_ms": plain_ms,
+                        f"rows_m{m}_bound_ms": bms,
+                        f"rows_m{m}_bound_by": by,
+                        f"rows_m{m}_max_abs_err": m_err})
+    return out
 
 
 def _normwise_dev(got, want):

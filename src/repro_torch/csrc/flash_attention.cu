@@ -1719,6 +1719,30 @@ struct PdLanes {
 // the group size the registers are laid out for (2 or PD_GMAX), at least
 // Hq / Hkv: the engine's group of 2 holds its q and acc in 64 registers a
 // lane, which lets three CTAs share an SM.
+//
+// The row map: a pool may hold one rank's slice of every page's rows (the
+// K/V rows split over a model axis). Local row j of table entry i then
+// stands for position i * rstride + rbase + j, and a row is valid where
+// that position is below the row's valid length. Positions grow with
+// (i, j), so the valid rows are a prefix of the local ones: the kernel
+// counts them (pd_local_valid) and runs as before on that count; at
+// rbase 0 and rstride P the count is the valid length itself. lse, when
+// not null, gets each query head's log-sum-exp (B, Hq) float32 over the
+// valid rows (-inf for none), natural log, for a merge across ranks.
+__device__ __forceinline__ int pd_local_valid(int valid, int P, int rbase,
+                                              int rstride) {
+  const int q = valid - rbase;
+  if (q <= 0) return 0;
+  const int i = q / rstride;
+  return i * P + min(q - i * rstride, P);
+}
+
+// log-sum-exp of a row from its base-2 max and sum: natural log
+__device__ __forceinline__ float pd_lse(float m2, float l) {
+  return m2 == -CUDART_INF_F ? -CUDART_INF_F
+                             : (m2 + log2f(l)) * 0.6931471805599453f;
+}
+
 template <typename TQ, typename TKV, int D, int G>
 __global__ void __launch_bounds__(PD_THREADS, G <= 2 ? 3 : 1)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -1728,8 +1752,9 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const int* __restrict__ table,
                     const int* __restrict__ valid, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc,
-                    int* __restrict__ tickets, TQ* __restrict__ out, int Hq,
-                    int Hkv, int P, int npages, int nsplit,
+                    int* __restrict__ tickets, TQ* __restrict__ out,
+                    float* __restrict__ lse, int Hq, int Hkv, int P,
+                    int npages, int nsplit, int rbase, int rstride,
                     float scale_log2) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   extern __shared__ unsigned char pd_smem[];
@@ -1746,7 +1771,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int64_t h0 = (int64_t)b * Hq + hk * group;  // the group's first head
   const int t0 = split * PD_CHUNK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_valid = valid[b];
+  const int row_valid = pd_local_valid(valid[b], P, rbase, rstride);
   if (warp == 0) {
     // the producer's table entries over the chunk's whole reach, read
     // while `valid` is in flight (those past it are never used)
@@ -1759,9 +1784,12 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int n = max(0, min(row_valid, npages * P));
   if (t0 >= n) {
     // a row with no valid position gives 0, as the Pallas kernel does
-    if (split == 0)
+    if (split == 0) {
       for (int i = threadIdx.x; i < group * D; i += PD_THREADS)
         out[h0 * D + i] = from_f<TQ>(0.f);
+      if (lse != nullptr && threadIdx.x < group)
+        lse[h0 + threadIdx.x] = -CUDART_INF_F;
+    }
     return;
   }
   const int t1 = min(n, t0 + PD_CHUNK);
@@ -1962,6 +1990,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     if (used == 1) {
       out[h0 * D + i] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+      if (lse != nullptr && d == 0) lse[h0 + g] = pd_lse(M, L);
     } else {
       const int64_t hs = (h0 + g) * nsplit + split;
       part_acc[hs * D + d] = A;
@@ -2037,9 +2066,11 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
 #pragma unroll
     for (int t = 0; t < 2; ++t)
-      if (on[t])
-        out[h0 * D + i0 + t * 32 * PD_CWARPS] =
-            from_f<TQ>(A[t] / fmaxf(L[t], 1e-30f));
+      if (on[t]) {
+        const int i = i0 + t * 32 * PD_CWARPS;
+        out[h0 * D + i] = from_f<TQ>(A[t] / fmaxf(L[t], 1e-30f));
+        if (lse != nullptr && dd[t] == 0) lse[h0 + i / D] = pd_lse(M[t], L[t]);
+      }
   }
   if (ct == 0) tickets[b * Hkv + hk] = 0;  // ready for the next launch
 }
@@ -2080,12 +2111,14 @@ template <typename TQ, typename TKV, int D>
 cudaError_t launch_paged(const void* kmap, const void* vmap, const void* q,
                          const float* ks, const float* vs, const int* table,
                          const int* valid, float* part, int* tickets,
-                         void* out, int B, int Hq, int Hkv, int P, int npages,
-                         int nsplit, float scale, cudaStream_t stream) {
+                         void* out, float* lse, int B, int Hq, int Hkv, int P,
+                         int npages, int nsplit, int rbase, int rstride,
+                         float scale, cudaStream_t stream) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   if (QUANT != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
   const PdPlan plan = pd_plan(P, D, (int)sizeof(TKV), QUANT);
   if (plan.smem > PD_SMEM_MAX) return cudaErrorInvalidValue;
+  if (rbase < 0 || rstride < P) return cudaErrorInvalidValue;
   const bool pair = Hq / Hkv <= 2;
   auto kernel = pair ? paged_decode_kernel<TQ, TKV, D, 2>
                      : paged_decode_kernel<TQ, TKV, D, PD_GMAX>;
@@ -2100,8 +2133,8 @@ cudaError_t launch_paged(const void* kmap, const void* vmap, const void* q,
   float* pa = pl + (size_t)B * Hq * nsplit;
   kernel<<<dim3(nsplit, Hkv, B), PD_THREADS, plan.smem, stream>>>(
       tm_k, tm_v, static_cast<const TQ*>(q), ks, vs, table, valid, pm, pl,
-      pa, tickets, static_cast<TQ*>(out), Hq, Hkv, P, npages, nsplit,
-      scale * 1.4426950408889634f);
+      pa, tickets, static_cast<TQ*>(out), lse, Hq, Hkv, P, npages, nsplit,
+      rbase, rstride, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -2116,16 +2149,17 @@ struct PagedArgs {
   float* part;
   int* tickets;
   void* out;
-  int B, Hq, Hkv, P, npages, nsplit;
+  float* lse;
+  int B, Hq, Hkv, P, npages, nsplit, rbase, rstride;
   float scale;
 };
 
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_paged_a(const PagedArgs& a, cudaStream_t st) {
   return launch_paged<TQ, TKV, D>(a.kmap, a.vmap, a.q, a.ks, a.vs, a.table,
-                                  a.valid, a.part, a.tickets, a.out, a.B,
-                                  a.Hq, a.Hkv, a.P, a.npages, a.nsplit,
-                                  a.scale, st);
+                                  a.valid, a.part, a.tickets, a.out, a.lse,
+                                  a.B, a.Hq, a.Hkv, a.P, a.npages, a.nsplit,
+                                  a.rbase, a.rstride, a.scale, st);
 }
 
 template <typename TQ, typename TKV>
@@ -2203,20 +2237,25 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 // (128 bytes each, from paged_decode_map); part: float32 scratch of
 // B*Hq*nsplit*(D + 2) floats, nsplit = ceil(npages*page_size / 128);
 // tickets: B*Hkv int32, zero before the first launch, and every launch
-// leaves them zero; both allocated by the caller
+// leaves them zero; both allocated by the caller. lse: (B, Hq) float32,
+// written when not null. row_base, row_stride: the row map (local row j of
+// table entry i is position i * row_stride + row_base + j); 0 and
+// page_size for a pool of whole pages
 extern "C" int paged_decode(const void* kmap, const void* vmap,
                             const void* q, const void* ks, const void* vs,
                             const void* table, const void* valid, void* part,
-                            void* tickets, void* out, int q_type, int kv_type,
-                            int B, int Hq, int Hkv, int D, int page_size,
-                            int npages, int nsplit, float scale,
+                            void* tickets, void* out, void* lse, int q_type,
+                            int kv_type, int B, int Hq, int Hkv, int D,
+                            int page_size, int npages, int nsplit,
+                            int row_base, int row_stride, float scale,
                             void* stream) {
   const PagedArgs a{kmap, vmap, q, static_cast<const float*>(ks),
                     static_cast<const float*>(vs),
                     static_cast<const int*>(table),
                     static_cast<const int*>(valid), static_cast<float*>(part),
-                    static_cast<int*>(tickets), out, B, Hq, Hkv, page_size,
-                    npages, nsplit, scale};
+                    static_cast<int*>(tickets), out, static_cast<float*>(lse),
+                    B, Hq, Hkv, page_size, npages, nsplit, row_base,
+                    row_stride, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_type == 0) return launch_paged_kv<float>(kv_type, D, a, st);
   if (q_type == 1) return launch_paged_kv<__nv_bfloat16>(kv_type, D, a, st);

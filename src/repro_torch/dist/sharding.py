@@ -397,9 +397,11 @@ class Layout:
     reduce-scatter's (one slot a data rank); a leaf replicated over them
     (its spec names no data axis) is cast in place for the compute copy,
     and its gradients are summed by an all-reduce of
-    :meth:`replicated_buffer`."""
+    :meth:`replicated_buffer`. ``training`` False: a layout of the
+    compute copy alone (serving's weights), which no flat collective
+    gathers, so a leaf may split over a part of the data axes."""
 
-    def __init__(self, params: dict, rules: Rules):
+    def __init__(self, params: dict, rules: Rules, training: bool = True):
         self.rules = rules
         self.depths = {k: _stack_depth(v) for k, v in params.items()
                        if isinstance(v, list)}
@@ -426,7 +428,7 @@ class Layout:
                 glocal=shard_shape(shape, gspec, rules.mesh),
                 data_dim=ddim, lead=t.lead))
             if ddim is not None and set(_axes_of(spec[ddim])) != dp_axes \
-                    and rules.group is not None:
+                    and rules.group is not None and training:
                 raise Unsupported(
                     f"a leaf {shape} split over a part of the data axes "
                     f"({spec}): the flat collectives take whole data groups")
@@ -483,9 +485,12 @@ class Layout:
                             for a in range(lead[0])]
         return out
 
-    def shard(self, params: dict, coords=None) -> list:
+    def shard(self, params: dict, coords=None, gathered: bool = False
+              ) -> list:
         """This rank's shard of every stacked leaf of ``params`` (the port's
-        tree, full), as new tensors of the params' dtype and device."""
+        tree, full), as new tensors of the params' dtype and device; with
+        ``gathered``, in the ``gather_fsdp`` layout (split over the model
+        axis only: the compute copy's, and serving's)."""
         coords = self.rules.coords if coords is None else coords
         mesh, out = self.rules.mesh, []
         srcs = []
@@ -497,12 +502,14 @@ class Layout:
             else:
                 srcs += leaves(params[key])
         for src, lf in zip(srcs, self.leaves):
-            cut = shard_slice(lf.shape, lf.spec, mesh, coords)
+            spec, local = (lf.gspec, lf.glocal) if gathered \
+                else (lf.spec, lf.local)
+            cut = shard_slice(lf.shape, spec, mesh, coords)
             if not lf.lead:
                 out.append(src[cut].clone())
                 continue
             first = src[0]
-            shard = torch.empty(lf.local, dtype=first.dtype,
+            shard = torch.empty(local, dtype=first.dtype,
                                 device=first.device)
             lead = lf.shape[:lf.lead]
             for idx in itertools.product(*(range(c.start, c.stop)
@@ -692,8 +699,9 @@ def _cache_leaf_spec(name, shape: Tuple[int, ...], rules: Rules) -> Spec:
 
 
 def cache_specs(cache, rules: Rules):
-    """A spec tree for a decode cache from ``init_cache``: each leaf by
-    the name of the innermost dict key above it."""
+    """A spec tree for a decode cache from ``init_cache`` (or a paged
+    pool's cache): each leaf by the name of the innermost dict key above
+    it."""
     def walk(sub, name):
         if isinstance(sub, dict):
             return {k: walk(v, k) for k, v in sub.items()}
@@ -701,3 +709,37 @@ def cache_specs(cache, rules: Rules):
             return type(sub)(walk(v, name) for v in sub)
         return _cache_leaf_spec(name, tuple(sub.shape), rules)
     return walk(cache, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """One rank's shard of a decode-cache leaf under :func:`cache_specs`:
+    its shape here (``local``) and, for a K/V leaf (and its scales), its
+    slice of the rows each row block holds, a slot row (B, S) or a page
+    (num_pages, page_size): local row j of a block stands for position
+    ``start + j`` of the block's ``stride`` positions. ``split``: the rows
+    are split over the model axis (else every rank holds whole blocks,
+    ``start`` 0 and ``stride`` the local rows)."""
+    local: Tuple[int, ...]
+    start: int
+    stride: int
+    split: bool
+
+
+def cache_shard(name, shape, rules: Rules, coords=None) -> CacheShard:
+    """The shard of the cache leaf ``name`` of ``shape`` on the rank at
+    ``coords`` (default the rules' own), as :func:`shard_shape` gives a
+    parameter's: the K/V rows (dim -3 of k/v, dim -2 of their scales) cut
+    over the model axis where :func:`cache_specs` splits them."""
+    shape = tuple(shape)
+    spec = _cache_leaf_spec(name, shape, rules)
+    coords = rules.coords if coords is None else coords
+    local = shard_shape(shape, spec, rules.mesh)
+    nd = len(shape)
+    rdim = {"k": nd - 3, "v": nd - 3, "k_scale": nd - 2,
+            "v_scale": nd - 2}.get(name)
+    if rdim is None or rdim < 0:
+        return CacheShard(local, 0, 0, False)
+    cut = shard_slice(shape, spec, rules.mesh, coords)[rdim]
+    return CacheShard(local, cut.start, shape[rdim],
+                      local[rdim] != shape[rdim])

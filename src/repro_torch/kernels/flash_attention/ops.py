@@ -50,7 +50,7 @@ _F = ctypes.c_float
 _FLASH_ARGS = [_P] * 5 + [_I] * 7 + [_P, _I, _F, _P]
 _DQ_ARGS = [_P] * 7 + [_I] * 7 + [_P, _I, _F, _P]
 _DKV_ARGS = [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P]
-_PAGED_ARGS = [_P] * 10 + [_I] * 9 + [_F, _P]
+_PAGED_ARGS = [_P] * 11 + [_I] * 11 + [_F, _P]
 _MAP_ARGS = [_P] * 2 + [_I] * 5
 #: positions per CTA of the paged kernel (``PD_CHUNK`` in the source)
 PAGED_CHUNK = 128
@@ -387,13 +387,19 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       kv_valid_len: torch.Tensor, *,
                       k_scale: Optional[torch.Tensor] = None,
                       v_scale: Optional[torch.Tensor] = None,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None, row_base: int = 0,
+                      row_stride: Optional[int] = None,
+                      return_lse: bool = False):
     """Decode attention through a page table by the Hopper kernel.
     q (B,1,Hq,D) float32 or bf16; pools (num_pages, page_size, Hkv, D)
     float32, bf16 or int8 (int8 with ``k_scale``/``v_scale``
     (num_pages, page_size, Hkv) float32); page_table (B, npages) int32;
     kv_valid_len (B,) int32; all contiguous, on the card -> (B,1,Hq,D) in
-    q's dtype. Nothing here reads a device value back to the host."""
+    q's dtype, and with ``return_lse`` also the lse (B, Hq) float32. The
+    row map ``row_base``/``row_stride`` (:func:`ref.local_valid`) reads a
+    pool of one rank's rows of every page; the defaults, 0 and the page
+    size, read whole pages. Nothing here reads a device value back to the
+    host."""
     what = "paged_decode"
     _check(q, "q", what, 4, (torch.float32, torch.bfloat16))
     _check(k_pool, "k_pool", what, 4,
@@ -426,6 +432,10 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{what}: unsupported shape")
     if P > MAX_PAGE_SIZE:
         raise ValueError(f"{what}: page size {P} past {MAX_PAGE_SIZE}")
+    row_stride = P if row_stride is None else int(row_stride)
+    if row_base < 0 or row_stride < P:
+        raise ValueError(f"{what}: row map base {row_base}, stride "
+                         f"{row_stride} over pages of {P} rows")
     operands = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                 ("page_table", page_table), ("kv_valid_len", kv_valid_len)]
     if quant:
@@ -445,13 +455,16 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if D not in PAGED_HEAD_DIMS:
         return call_padded(paged_decode_cuda, (q, k_pool, v_pool),
                            (page_table, kv_valid_len), k_scale=k_scale,
-                           v_scale=v_scale, scale=scale)
+                           v_scale=v_scale, scale=scale, row_base=row_base,
+                           row_stride=row_stride, return_lse=return_lse)
     scale = D ** -0.5 if scale is None else float(scale)
     npages = page_table.shape[1]
     nsplit = paged_splits(npages, P)
     if nsplit > 2 ** 31 - 1:
         raise ValueError(f"{what}: page table too long")
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     stream = _build.stream_of(q)
     kmap, vmap, _ = _paged_maps(k_pool, v_pool)
     part, tickets = _paged_scratch(q.device, stream,
@@ -463,10 +476,12 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                      v_scale.data_ptr() if quant else None,
                      page_table.data_ptr(), kv_valid_len.data_ptr(),
                      part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+                     lse.data_ptr() if return_lse else None,
                      _TYPE[q.dtype], _TYPE[k_pool.dtype], B, Hq, Hkv, D, P,
-                     npages, nsplit, scale, stream):
+                     npages, nsplit, int(row_base), row_stride, scale,
+                     stream):
         paged_decode_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_decode_cuda.launches = 0
@@ -525,25 +540,31 @@ def flash_dkv_work(q, k, v, do, lse, delta, *, causal: bool = True,
 
 @registry.register_work("paged_attention")
 def paged_attention_work(q, k_pool, v_pool, page_table, kv_valid_len, *,
-                         k_scale=None, v_scale=None,
-                         scale=None) -> registry.Work:
-    """q read and the output written once, each valid K/V row (and its
-    scales) read once, the table and the lengths read once; QK^T and PV
-    over the valid positions, at the peak of the pool's dtype. The valid
-    positions are read from ``kv_valid_len`` (a read of the device), and
-    for a fake one (the dry run) are the most the table reaches."""
+                         k_scale=None, v_scale=None, scale=None,
+                         row_base: int = 0, row_stride=None,
+                         return_lse: bool = False) -> registry.Work:
+    """q read and the output (and lse) written once, each valid K/V row
+    (and its scales) of the pool read once (the rank's rows, under a row
+    map), the table and the lengths read once; QK^T and PV over those
+    rows, at the peak of the pool's dtype. The valid positions are read
+    from ``kv_valid_len`` (a read of the device), and for a fake one (the
+    dry run) are the most the table reaches."""
     B, _, Hq, D = q.shape
     npg, P, Hkv = k_pool.shape[:3]
     if _build.is_fake(kv_valid_len):
         tokens = float(B * page_table.shape[1] * P)
     else:
-        tokens = float(torch.as_tensor(kv_valid_len).sum())
+        tokens = float(ref.local_valid(
+            torch.as_tensor(kv_valid_len), P, row_base,
+            P if row_stride is None else row_stride).clamp(
+                max=page_table.shape[1] * P).sum())
     row = Hkv * D * k_pool.element_size() + (
         Hkv * 4 if k_scale is not None else 0)
     return registry.Work(
         flops=4.0 * tokens * Hq * D,
         bytes=(2 * q.numel() * q.element_size() + 2 * tokens * row
-               + page_table.numel() * page_table.element_size() + 4 * B),
+               + page_table.numel() * page_table.element_size() + 4 * B
+               + (4 * B * Hq if return_lse else 0)),
         dtype=k_pool.dtype)
 
 

@@ -182,17 +182,38 @@ def flash_dkv_rounded(q, k, v, do, lse, delta, *, causal: bool = True,
     return _dkv(q, k, v, do, lse, delta, causal, scale, True)
 
 
+def local_valid(kv_valid_len, rows: int, base: int = 0,
+                stride: Optional[int] = None) -> torch.Tensor:
+    """How many of a row's local pool rows are valid under a row map:
+    local row j of table entry i stands for position i * stride + base +
+    j (rows a page, stride >= rows), and is valid below the row's valid
+    length. Positions grow with (i, j), so the valid rows are a prefix of
+    the local ones; this is its length. At base 0 and stride ``rows`` it
+    is the valid length itself. A pool split over m ranks by page rows has
+    rows = page_size / m, stride = page_size, base = rank * rows; the slot
+    pool's page view, rows = stride = 16 and base = rank * its rows."""
+    stride = rows if stride is None else stride
+    q = torch.as_tensor(kv_valid_len).to(torch.int64) - base
+    i = torch.div(q, stride, rounding_mode="floor")
+    n = i * rows + torch.clamp(q - i * stride, max=rows)
+    return torch.where(q > 0, n, torch.zeros_like(n)).to(torch.int32)
+
+
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  page_table: torch.Tensor, kv_valid_len, *,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, row_base: int = 0,
+                 row_stride: Optional[int] = None, return_lse: bool = False):
     """Single-query decode attention through a page table. q (B,1,Hq,D);
     pools (num_pages, page_size, Hkv, D) of float32, bf16 or int8 (then
     ``k_scale``/``v_scale`` (num_pages, page_size, Hkv) float32, dequantized
     as code * scale); page_table (B, npages) int; kv_valid_len scalar or (B,)
-    -> (B,1,Hq,D) in q's dtype. Positions at or past a row's valid length
-    (table entries 0, the scratch page, among them) weigh exactly 0."""
+    -> (B,1,Hq,D) in q's dtype, and with ``return_lse`` also the lse (B, Hq)
+    float32 (-inf for a row with no valid position). Positions at or past a
+    row's valid length (table entries 0, the scratch page, among them)
+    weigh exactly 0. ``row_base``/``row_stride``: the row map of a pool of
+    one rank's rows (:func:`local_valid`)."""
     B, S, Hq, D = q.shape
     if S != 1:
         raise ValueError(f"paged decode expects a single query, got S={S}")
@@ -205,16 +226,21 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if k_scale is not None:
         k = k * k_scale[table].reshape(B, -1, Hkv)[..., None]
         v = v * v_scale[table].reshape(B, -1, Hkv)[..., None]
-    valid = torch.as_tensor(kv_valid_len, device=q.device).reshape(-1)
-    valid = valid.expand(B).reshape(B, 1, 1, 1, 1)
+    valid = local_valid(kv_valid_len, P, row_base, row_stride).to(q.device)
+    valid = valid.reshape(-1).expand(B).reshape(B, 1, 1, 1, 1)
     qg = q.float().reshape(B, Hkv, group, 1, D)
     kf = k.permute(0, 2, 1, 3).unsqueeze(2)               # (B,Hkv,1,T,D)
     vf = v.permute(0, 2, 1, 3).unsqueeze(2)
     s = (qg @ kf.transpose(-1, -2)) * scale               # (B,Hkv,G,1,T)
     pos = torch.arange(s.shape[-1], device=q.device)
     s = s.masked_fill(pos >= valid, float("-inf"))
-    o = _softmax_pv(s, vf)                                # (B,Hkv,G,1,D)
-    return o.reshape(B, 1, Hq, D).to(q.dtype)
+    o = _softmax_pv(s, vf).reshape(B, 1, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    m = s.amax(dim=-1)
+    m0 = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    l = torch.exp(s - m0[..., None]).sum(dim=-1)
+    return o, (m + torch.log(l.clamp_min(1e-30))).reshape(B, Hq)
 
 
 def paged_decode_gathered(q: torch.Tensor, k_pool: torch.Tensor,
@@ -222,24 +248,53 @@ def paged_decode_gathered(q: torch.Tensor, k_pool: torch.Tensor,
                           kv_valid_len, *,
                           k_scale: Optional[torch.Tensor] = None,
                           v_scale: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, row_base: int = 0,
+                          row_stride: Optional[int] = None,
+                          return_lse: bool = False):
     """The same function as :func:`paged_decode` by the JAX package's XLA
     route (``repro.models.attention._paged_attention_xla``): the row's pages
     gathered in the pool's dtype (int8 dequantized to float32), then the
     slot decode's chunked attention (``models.attention.chunked_attention``:
-    p rounded to v's dtype before p·v) with a per-row valid length. It is
-    the op's CPU path, so the paged engine's rows get the slot engine's
-    bits, as JAX's XLA route gives them; :func:`paged_decode` (the Pallas
-    kernel's arithmetic) stays the oracle the CUDA kernel is held to."""
+    p rounded to v's dtype before p·v) with a per-row valid length (under a
+    row map, the count of valid local rows, :func:`local_valid`) and, with
+    ``return_lse``, its lse (B, Hq). It is the op's CPU path, so the paged
+    engine's rows get the slot engine's bits, as JAX's XLA route gives
+    them; :func:`paged_decode` (the Pallas kernel's arithmetic) stays the
+    oracle the CUDA kernel is held to."""
     from repro_torch.models.attention import (KV_CHUNK_DEFAULT,
                                               chunked_attention)
     B = q.shape[0]
-    Hkv, D = k_pool.shape[2], k_pool.shape[3]
+    P, Hkv, D = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
     table = page_table.long()
     k = k_pool[table].reshape(B, -1, Hkv, D)
     v = v_pool[table].reshape(B, -1, Hkv, D)
     if k_scale is not None:
         k = k.float() * k_scale[table].reshape(B, -1, Hkv)[..., None]
         v = v.float() * v_scale[table].reshape(B, -1, Hkv)[..., None]
-    return chunked_attention(q, k, v, causal=False, chunk=KV_CHUNK_DEFAULT,
-                             scale=scale, kv_valid_len=kv_valid_len)
+    if row_base or (row_stride is not None and row_stride != P):
+        kv_valid_len = local_valid(kv_valid_len, P, row_base, row_stride)
+    out = chunked_attention(q, k, v, causal=False, chunk=KV_CHUNK_DEFAULT,
+                            scale=scale, kv_valid_len=kv_valid_len,
+                            return_lse=return_lse)
+    if not return_lse:
+        return out
+    return out[0], out[1][..., 0]
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over all of a model group's rows from each rank's
+    partial: o (m, B, 1, Hq, D), each rank's attention over its own rows,
+    and lse (m, B, Hq) float32, stacked in rank order -> (B, 1, Hq, D) in
+    o's dtype: sum_r exp(lse_r - lse) o_r, lse = logsumexp_r lse_r, summed
+    in float32 in rank order, so every rank that merges the same gathered
+    partials gets the same bits. A rank with no valid row (lse -inf)
+    weighs 0."""
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse - top)                               # (m, B, Hq)
+    total = torch.zeros_like(top)
+    acc = torch.zeros(o.shape[1:], dtype=torch.float32, device=o.device)
+    for r in range(o.shape[0]):
+        total = total + w[r]
+        acc = acc + w[r][:, None, :, None] * o[r].float()
+    return (acc / total.clamp_min(1e-30)[:, None, :, None]).to(o.dtype)

@@ -16,8 +16,12 @@ program once, with nothing computed:
 * through the port's entry points: ``launch.steps.make_train_step(cfg,
   make_rules(mesh, group))`` on rank 0's shards for a train cell (the
   single-device step for ``--mesh single``), the forward with
-  ``last_only`` for prefill, ``make_serve_step`` over ``init_cache`` for
-  decode, each row at its own position as the engine decodes;
+  ``last_only`` for prefill, ``make_serve_step(cfg, rules)`` over
+  ``init_cache`` for decode, each row at its own position as the engine
+  decodes; a serving cell on a mesh runs rank 0's share: its batch rows
+  (the data axes), its weights (``launch.steps.serve_params``: the dense
+  family's tensor-parallel shards on a model axis past 1) and its shard
+  of the cache (``dist.sharding.cache_shard``: its rows of every slot);
 * under ``roofline.analyze`` with a ``StorageTracker``: the peak of live
   storage bytes a card (what ``torch.cuda.max_memory_allocated`` counts),
   split into state shards, the compute copy, accumulator and staging
@@ -36,10 +40,10 @@ it.
 
 A cell is ``ok``, ``skipped`` (JAX's ``cell_applicable``),
 ``unsupported`` (a ``repro_torch.Unsupported``, the port's own refusal:
-tensor parallelism outside the dense family and kv heads that do not
-divide the model axis, ROADMAP queue 1 item 7(a); serving on more than
-one device, item 7(b)) or ``error`` (any other exception); the run exits
-1 on an error, as JAX's does.
+tensor parallelism outside the dense family, for training and serving,
+and a training step whose kv heads do not divide the model axis, ROADMAP
+queue 1 item 7(a)) or ``error`` (any other exception); the run exits 1 on
+an error, as JAX's does.
 
 Usage (CPU; no card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -65,14 +69,15 @@ import torch.distributed as dist
 from repro_torch import Unsupported, roofline
 from repro_torch.configs import (ARCHS, SHAPES, ShapeConfig, cell_applicable,
                                  get_arch)
-from repro_torch.dist import Mesh, make_rules
+from repro_torch.dist import Mesh, fit_spec, make_rules, shard_shape
 from repro_torch.kernels import registry
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import TrainState, layout, make_serve_step, \
     make_train_step
-from repro_torch.models import forward, init_cache, init_params
+from repro_torch.models import forward, init_cache, init_params, tp
 from repro_torch.optim import adamw_init
 from repro_torch.roofline import H100
+from repro_torch.serve.cache import local_cache
 from repro_torch.tree import leaves, tree_map
 
 #: the meshes the port runs on four cards, beside JAX's production ones
@@ -197,31 +202,36 @@ def _trace(cfg, shape: ShapeConfig, rules, ca_k: int):
                 params = lay.tree([torch.zeros(lf.local, dtype=torch.float32)
                                    for lf in lay.leaves])
             state = TrainState(params, adamw_init(params))
-            held = leaves(state.params) + leaves(state.opt.m) + \
+            weights = leaves(state.params)
+            held = weights + leaves(state.opt.m) + \
                 leaves(state.opt.v) + [state.opt.step]
             fn, args = step, (state, batch)
         else:
-            # prefill and decode both serve: on a mesh, the port refuses
-            serve = make_serve_step(cfg, rules)
-            params = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
-                              init_params(cfg, None, dtype=torch.bfloat16,
-                                          device="meta"))
-            held = leaves(params)
+            # prefill and decode both serve, rank 0 its share of the mesh
+            serve = make_serve_step(cfg, rules, kv_rows=shape.seq_len)
+            params, weights = _serve_weights(cfg, rules)
+            held = list(weights)
+            B = shape.global_batch
+            if rules is not None:
+                B = shard_shape((B,), fit_spec((rules.dp,), (B,),
+                                               rules.mesh), rules.mesh)[0]
+                batch = {k: v[:B] for k, v in batch.items()}
             if shape.kind == "prefill":
                 def fn(params, batch):
                     with torch.no_grad():
                         return forward(params, cfg, batch, last_only=True)
                 args = (params, batch)
             else:
-                cache = init_cache(cfg, shape.global_batch, shape.seq_len,
-                                   enc_len=(shape.seq_len if cfg.family ==
-                                            "audio" else None))
+                cache = local_cache(
+                    init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="meta",
+                               enc_len=(shape.seq_len if cfg.family ==
+                                        "audio" else None)), rules)
                 held += leaves(cache)
 
                 # the engine's decode: each row at its own position, the
                 # slot cache read through the paged_attention op
-                pos = torch.full((shape.global_batch,), shape.seq_len - 1,
-                                 dtype=torch.int32)
+                pos = torch.full((B,), shape.seq_len - 1, dtype=torch.int32)
 
                 def fn(params, cache, tokens, pos):
                     with torch.no_grad():
@@ -229,8 +239,25 @@ def _trace(cfg, shape: ShapeConfig, rules, ca_k: int):
                 args = (params, cache, batch["tokens"], pos)
         for t in held + list(batch.values()):
             tracker.add(t, "state")
-        pbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        pbytes = sum(t.numel() * t.element_size() for t in weights)
         return roofline.analyze(fn, *args, tracker=tracker), pbytes
+
+
+def _serve_weights(cfg, rules):
+    """Rank 0's bf16 serving weights (fake tensors) and the plain tensors
+    that hold them: the whole tree on one device or a data-only mesh, the
+    tensor-parallel shards (``launch.steps.serve_params``'s layout) as
+    DTensors on a model axis past 1."""
+    meta = init_params(cfg, None, dtype=torch.bfloat16, device="meta")
+    if rules is None or rules.tp_size == 1:
+        params = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                          meta)
+        return params, leaves(params)
+    lay = layout(cfg, rules, training=False)
+    shards = [torch.zeros(lf.glocal, dtype=torch.bfloat16)
+              for lf in lay.leaves]
+    return lay.unstack(shards, tp.wrapper(rules.tp_mesh)), shards
+
 
 
 def run_cell(arch: str, shape: ShapeConfig, mesh: Optional[Mesh],
@@ -290,7 +317,7 @@ def cells(args) -> list:
                               f"_s{args.seq or s.seq_len}",
                               args.seq or s.seq_len,
                               args.batch or s.global_batch, s.kind)
-                  if s.kind == "train" else s for s in shapes]
+                  for s in shapes]
     if args.mesh:
         meshes = [parse_mesh(args.mesh)]
     else:
@@ -329,9 +356,10 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", choices=["on", "off", "both"],
                     default="both")
     ap.add_argument("--batch", type=int, default=None,
-                    help="a train cell's global batch")
+                    help="a cell's global batch")
     ap.add_argument("--seq", type=int, default=None,
-                    help="a train cell's sequence length")
+                    help="a cell's sequence length (a decode cell's "
+                    "cache depth)")
     ap.add_argument("--ca-k", type=int, default=8)
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--force", action="store_true",

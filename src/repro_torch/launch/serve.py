@@ -26,20 +26,39 @@ timeline), plus ``--device`` (default ``cuda``, raising on a host with no
 card). whisper's requests carry seeded frame embeddings (``enc_len`` =
 ``--max-len``). The JAX CLI's ``--autotune`` has no counterpart (the port
 has no autotuner).
+
+Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) every rank joins the
+default group (``launch.mesh.init``: nccl on the card, gloo with
+``--device cpu``) and the engine serves on the mesh JAX's CLI builds
+(``make_rules(make_host_mesh(), group)``): the dense family
+tensor-parallel at (1, world) for a world of 1, 2 or 4 (its weights the
+rank's shards, its pool the rank's rows of every page or slot), the other
+families on the data-only mesh, which the engine refuses (ROADMAP queue 1
+item 7(d), as is a dense world past 4, whose mesh has a data axis). Every
+rank serves the same requests; rank 0 prints.
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --preset tiny --page-size 4
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
+from repro_torch.dist import make_rules
+from repro_torch.launch import mesh
 from repro_torch.launch.obs_cli import add_obs_args, obs_begin, obs_end
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.steps import make_serve_step, serve_params
 from repro_torch.models import init_cache, init_params, prefill_audio_cache
 from repro_torch.serve import Engine, Request, SamplingParams
 
@@ -105,15 +124,16 @@ def serve_stream(cfg, engine, reqs, args):
     return engine
 
 
-def serve_engine(cfg, args, device: torch.device):
-    params = _params(cfg, device)
+def serve_engine(cfg, args, device: torch.device, rules=None):
+    # a rank of a mesh keeps its shards only
+    params = serve_params(cfg, _params(cfg, device), rules)
     max_prompt = min(16, args.max_len // 2)
     engine = Engine(params, cfg, num_slots=args.batch, max_len=args.max_len,
                     k=args.k, max_prompt=max_prompt,
                     enc_len=args.max_len if cfg.family == "audio" else None,
                     page_size=args.page_size or None,
                     kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-                    overlap=args.overlap, device=device)
+                    overlap=args.overlap, device=device, rules=rules)
     reqs = _synthetic_requests(cfg, args.requests or 2 * args.batch,
                                max_prompt, args.new_tokens, args.max_len,
                                sampling=_cli_sampling(args), fanout=args.n)
@@ -250,13 +270,31 @@ def main(argv=None):
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = smoke_config(arch) if args.preset == "tiny" else arch
+    rules, joined, quiet = None, False, contextlib.nullcontext()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if args.engine != "on":
+            raise ValueError("--engine off serves on one device; under "
+                             "torchrun the engine serves on the mesh")
+        if not dist.is_initialized():
+            device = mesh.init(device.type)
+            joined = True
+        host = mesh.make_host_mesh(tensor_parallel=cfg.family == "dense")
+        rules = make_rules(host, dist.group.WORLD)
+        if dist.get_rank() == 0:
+            print(f"mesh (data, model) = {host.sizes} over "
+                  f"{rules.n_devices} ranks")
+        else:
+            quiet = contextlib.redirect_stdout(io.StringIO())
     observing = obs_begin(args)
     try:
-        if args.engine == "on":
-            return serve_engine(cfg, args, device)
-        return serve_classic(cfg, args, device)
+        with quiet:
+            if args.engine == "on":
+                return serve_engine(cfg, args, device, rules)
+            return serve_classic(cfg, args, device)
     finally:
         obs_end(args, observing)
+        if joined:
+            mesh.shutdown()
 
 
 if __name__ == "__main__":

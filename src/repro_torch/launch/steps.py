@@ -11,7 +11,9 @@ gather a step into the bf16 compute copy, each microbatch's gradients
 reduce-scattered into a sharded float32 accumulator, and the dense family
 computing tensor-parallel over the model axis (``models.tp``).
 
-serve_step: one-token decode against the KV cache.
+serve_step: one-token decode against the KV cache; on a mesh, each rank
+its batch rows, and the dense family tensor-parallel over the model axis
+with the cache's rows split over it (JAX's ``cache_specs``).
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def layout(cfg, rules) -> Layout:
-    """The layout of ``cfg``'s parameters under ``rules``."""
-    return Layout(init_params(cfg, None, device="meta"), rules)
+def layout(cfg, rules, training: bool = True) -> Layout:
+    """The layout of ``cfg``'s parameters under ``rules`` (``training``
+    False: of serving's weights, ``dist.sharding.Layout``)."""
+    return Layout(init_params(cfg, None, device="meta"), rules, training)
 
 
 def _sharded(rules) -> bool:
@@ -142,10 +145,7 @@ def make_train_step(cfg, rules=None, *, ca_k: int = 8, peak_lr: float = 3e-4,
     step is built is pinned for every call."""
     backend = registry.policy()
     if rules is not None and rules.tp_size > 1 and cfg.family != "dense":
-        raise Unsupported(
-            f"{cfg.name}: tensor parallelism over the model axis is the "
-            f"dense family's so far (ROADMAP queue 1 item 7); train the "
-            f"{cfg.family!r} family on a data-only mesh (model = 1)")
+        raise Unsupported(_tp_family(cfg))
     if rules is not None and (cfg.n_heads % rules.tp_size
                               or cfg.n_kv_heads % rules.tp_size):
         raise Unsupported(
@@ -339,13 +339,52 @@ def _sharded_step(cfg, rules, *, ca_k, peak_lr, warmup, total_steps, remat,
     return step
 
 
-def make_serve_step(cfg, rules=None):
+def serve_params(cfg, params: dict, rules=None) -> dict:
+    """This rank's serving weights from the whole tree ``params`` (the
+    port's, any dtype): on a model axis past 1, each leaf cut as
+    ``param_specs(gather_fsdp=True)`` cuts it (the training's compute
+    copy: split over the model axis, whole over the data axes) and wrapped
+    as a DTensor on the model group's mesh (``models.tp.wrapper``), new
+    tensors, so the caller may drop the whole tree; ``params`` itself
+    otherwise (one device, or a data-only mesh: every rank holds them
+    whole)."""
+    if rules is None or rules.tp_size == 1:
+        return params
+    if cfg.family != "dense":
+        raise Unsupported(_tp_family(cfg))
+    lay = layout(cfg, rules, training=False)
+    return lay.unstack(lay.shard(params, gathered=True),
+                       tp.wrapper(rules.tp_mesh))
+
+
+def _tp_family(cfg) -> str:
+    return (f"{cfg.name}: tensor parallelism over the model axis, for "
+            f"training and serving, is the dense family's so far; the "
+            f"{cfg.family!r} family's is ROADMAP queue 1 item 7(a) (use a "
+            f"data-only mesh, model = 1)")
+
+
+def make_serve_step(cfg, rules=None, *, kv_rows: Optional[int] = None,
+                    counter: Optional[CollectiveCount] = None):
     """Returns serve_step(params, cache, tokens, positions=None,
     page_table=None) -> (next_tokens (B,1) int32, logits, cache).
 
-    ``rules``: the mesh to serve on. The port serves on one device: rules
-    on a mesh of more devices raise (sharded serving, the JAX engine's
-    ``rules=``, is ROADMAP queue 1 item 7(b)).
+    ``rules``: the mesh to serve on (None: one device). On a mesh each
+    rank decodes its own batch rows (its shard of the cache under
+    ``dist.sharding.cache_specs``), with no collective over the data axes.
+    On a model axis past 1 the dense family runs tensor-parallel: its
+    weights are the rank's shards (:func:`serve_params`), q, k and v are
+    replicated over the model axis, the rank that holds the new position's
+    row writes it, each rank reads its own rows and the group merges the
+    partials (``models.tp.merge_ranks``, one ``all_gather`` a layer,
+    counted in ``counter``), and the logits are replicated before the
+    pick. ``kv_rows``: the rows of one K/V row block of the whole cache
+    (the page size, or the slot cache's depth), which ``cache_specs``
+    splits over the model axis where the axis divides them (required on a
+    model axis past 1). The other families raise on a model axis past 1
+    (ROADMAP queue 1 item 7(a)), and a paged pool on a data axis past 1
+    raises (pages over the data axes need the engine's scheduler across
+    data ranks, item 7(d)).
 
     positions: optional (B,) per-slot decode depths (the continuous-batching
     engine); page_table: optional (B, pages_per_slot) int32 when the K/V
@@ -353,18 +392,35 @@ def make_serve_step(cfg, rules=None):
     built is pinned for every call (``auto`` still resolves by device).
     The next token is the greedy argmax; the engine's k-step block samples
     from the logits (``repro_torch.serve.sampling``) where a slot asks."""
+    shard = None
+    dp = 1
     if rules is not None and rules.n_devices > 1:
-        raise Unsupported(
-            f"{cfg.name}: the port serves on one device; sharded serving "
-            f"over a mesh of {rules.n_devices} devices is ROADMAP queue 1 "
-            f"item 7(b)")
+        if rules.group is None:
+            raise ValueError(f"rules: a mesh of {rules.n_devices} devices "
+                             f"with no process group")
+        dp = rules.dp_size
+        if rules.tp_size > 1:
+            if cfg.family != "dense":
+                raise Unsupported(_tp_family(cfg))
+            if kv_rows is None:
+                raise ValueError("make_serve_step: on a model axis past 1, "
+                                 "give kv_rows (the page size or the slot "
+                                 "cache's depth)")
+            if kv_rows % rules.tp_size == 0:
+                shard = tp.RowShard(rules.tp_rank, rules.tp_size,
+                                    rules.tp_group, counter)
     backend = registry.policy()
 
     def serve_step(params, cache, tokens, positions=None, page_table=None):
+        if page_table is not None and dp > 1:
+            raise Unsupported(
+                f"{cfg.name}: a paged pool on a data axis of {dp}: its pages "
+                f"over the data axes need the engine's scheduler across "
+                f"data ranks (ROADMAP queue 1 item 7(d))")
         with registry.use(backend):
             logits, cache = decode_step(params, cfg, cache, tokens,
                                         positions=positions,
-                                        page_table=page_table)
+                                        page_table=page_table, shard=shard)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
         return nxt, logits, cache
 

@@ -35,11 +35,13 @@ KV_CHUNK_DEFAULT = 1024
 
 
 def _attn_inner(q, k, v, *, causal: bool, chunk: int, scale: float,
-                kv_valid_len, qpos_offset: int):
+                kv_valid_len, qpos_offset: int, return_lse: bool = False):
     """Online softmax over kv chunks. q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D).
     Global query position of row i is qpos_offset + i (for causal masking).
     The arithmetic of the JAX XLA path: scores of the stream-dtype operands
-    summed in float32, p rounded to v's dtype for p·v, float32 sums."""
+    summed in float32, p rounded to v's dtype for p·v, float32 sums. With
+    ``return_lse`` also the lse (B, Hq, Sq) float32, m + log(l) of the
+    online softmax (-inf for a row that sees no key)."""
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -80,17 +82,25 @@ def _attn_inner(q, k, v, *, causal: bool, chunk: int, scale: float,
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.reshape(B, Hkv * group, S, D).transpose(1, 2)
-    return out.to(q.dtype)
+    out = out.reshape(B, Hkv * group, S, D).transpose(1, 2).to(q.dtype)
+    if not return_lse:
+        return out
+    # a row whose keys are all masked keeps m at NEG_INF (its l counts
+    # the masked entries): lse -inf, weight 0 in a merge
+    lse = torch.where(m > NEG_INF, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full((), float("-inf"), device=q.device))
+    return out, lse.reshape(B, Hkv * group, S)
 
 
 def chunked_attention(q, k, v, *, causal: bool = True,
                       chunk: int = KV_CHUNK_DEFAULT,
                       q_chunk: Optional[int] = Q_CHUNK_DEFAULT,
-                      scale: Optional[float] = None, kv_valid_len=None):
+                      scale: Optional[float] = None, kv_valid_len=None,
+                      return_lse: bool = False):
     """Flash-style attention in plain PyTorch, (B,S,H,D) layout; see
     :func:`_attn_inner`. Long query axes are blocked by ``q_chunk``, and a
-    causal q block with a static mask scans only the kv prefix it sees."""
+    causal q block with a static mask scans only the kv prefix it sees.
+    ``return_lse`` (one query block only): also the lse (B, Hq, S)."""
     B, S, Hq, D = q.shape
     Skv = k.shape[1]
     scale = D ** -0.5 if scale is None else scale
@@ -98,7 +108,11 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 
     if q_chunk is None or S <= q_chunk:
         return _attn_inner(q, k, v, causal=causal, chunk=chunk, scale=scale,
-                           kv_valid_len=kv_valid_len, qpos_offset=off)
+                           kv_valid_len=kv_valid_len, qpos_offset=off,
+                           return_lse=return_lse)
+    if return_lse:
+        raise ValueError("chunked_attention: the lse of one query block "
+                         f"only (S={S} past q_chunk={q_chunk})")
 
     if S % q_chunk:
         raise ValueError(f"callers pad seq to the q-chunk multiple: S={S}, "
@@ -146,7 +160,7 @@ def quantize_kv(x: torch.Tensor):
 
 
 def paged_attention(q, k_pool, v_pool, page_table, kv_valid_len, *,
-                    k_scale=None, v_scale=None, scale=None):
+                    k_scale=None, v_scale=None, scale=None, **row_map):
     """Decode attention over a paged KV pool, dispatched to the registry op
     ``paged_attention``.
 
@@ -156,8 +170,11 @@ def paged_attention(q, k_pool, v_pool, page_table, kv_valid_len, *,
     ``kv_valid_len`` — everything reached through table entry 0, the serve
     layer's scratch page, among them — weigh exactly 0. Quantized pools
     pass int8 K/V plus ``k_scale``/``v_scale`` (num_pages, page_size, Hkv)
-    float32, dequantized on read (``x = int8 * scale``).
+    float32, dequantized on read (``x = int8 * scale``). ``row_map``:
+    ``row_base``, ``row_stride`` and ``return_lse`` for a pool of one
+    rank's rows of every page (``kernels.flash_attention.ref.local_valid``),
+    which then returns (o, lse (B, Hq) float32).
     """
     return registry.dispatch("paged_attention", q, k_pool, v_pool,
                              page_table, kv_valid_len, k_scale=k_scale,
-                             v_scale=v_scale, scale=scale)
+                             v_scale=v_scale, scale=scale, **row_map)

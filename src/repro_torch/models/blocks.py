@@ -11,14 +11,18 @@ writes are (``repro_torch.serve.decode``): a frozen or finished slot keeps
 writing at a position at or past its own ``kv_valid`` horizon, which no
 read unmasks, and a freed slot's page-table row is all 0, so its writes
 land in page 0, the pool's scratch page, which no read unmasks either.
+
+On a model axis (``models.tp``) a pool holds one rank's slice of each
+page's rows (:class:`PagedRows`' row map): the rank that owns the new
+position's row writes it, and the others write back what their clamped
+row already holds, so no rank's rows change but the owner's.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import Unsupported
 from repro_torch.models import tp
 from repro_torch.models.attention import attention, paged_attention, quantize_kv
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
@@ -50,13 +54,52 @@ def _write_rows(leaf: torch.Tensor, cache_pos, new: torch.Tensor) -> None:
     leaf[rows, cols.expand(B, S)] = new.to(leaf.dtype)
 
 
-def paged_rows(page_table: torch.Tensor, cache_pos: torch.Tensor,
-               page_size: int):
+class PagedRows(NamedTuple):
     """Where a decode step writes in a paged pool, and what it then reads:
-    (pool page (B,), row in the page (B,), valid length (B,)) for per-row
-    positions ``cache_pos``. The same for every layer of a step."""
-    pidx = page_table.gather(1, (cache_pos // page_size)[:, None].long())
-    return pidx[:, 0].long(), (cache_pos % page_size).long(), cache_pos + 1
+    pool page (B,), row in the page (B,) and valid length (B,) for per-row
+    positions. Under a row map (a pool of one rank's rows of every page:
+    local row j of table entry i is position ``i * stride + base + j``)
+    also ``own`` (B,) bool, whether this rank holds the written row (else
+    page and row are clamped into the row's own entries), the map, and the
+    model group's :class:`models.tp.RowShard` when the rows are split
+    across it (the attention then merges over the group)."""
+    pidx: torch.Tensor
+    off: torch.Tensor
+    valid: torch.Tensor
+    own: Optional[torch.Tensor] = None
+    base: int = 0
+    stride: Optional[int] = None
+    shard: Optional[tp.RowShard] = None
+
+
+def paged_rows(page_table: torch.Tensor, cache_pos: torch.Tensor,
+               page_size: int, *, stride: Optional[int] = None,
+               base: int = 0, shard=None) -> PagedRows:
+    """The :class:`PagedRows` of per-row positions ``cache_pos`` in pages
+    of ``page_size`` (local) rows, under the row map ``stride``/``base``
+    when given. The same for every layer of a step."""
+    if stride is None:
+        pidx = page_table.gather(1, (cache_pos // page_size)[:, None].long())
+        return PagedRows(pidx[:, 0].long(), (cache_pos % page_size).long(),
+                         cache_pos + 1)
+    q = cache_pos.long() - base
+    i = torch.div(q, stride, rounding_mode="floor")
+    j = q - i * stride
+    npages = page_table.shape[1]
+    own = (q >= 0) & (j < page_size) & (i < npages)
+    i, j = i.clamp(0, npages - 1), j.clamp(0, page_size - 1)
+    pidx = page_table.gather(1, i[:, None])[:, 0].long()
+    return PagedRows(pidx, j, cache_pos + 1, own, base, stride, shard)
+
+
+def _put(leaf: torch.Tensor, rows: PagedRows, new: torch.Tensor) -> None:
+    """leaf[page, row] = new (B, ...) in place, where this rank owns the
+    row; elsewhere the row keeps what it holds."""
+    new = new.to(leaf.dtype)
+    if rows.own is not None:
+        own = rows.own.view(-1, *([1] * (new.dim() - 1)))
+        new = torch.where(own, new, leaf[rows.pidx, rows.off])
+    leaf[rows.pidx, rows.off] = new
 
 
 def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -79,26 +122,36 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     as JAX with no positions); rows: its :func:`paged_rows` (required with
     ``page_table``). The caller computes both once for every layer of the
     step.
+    Weights split over the model axis (DTensors, ``models.tp``): a decode
+    step, and a forward whose heads do not divide the axis, take q, k and
+    v whole on every rank (replicated), read the rank's rows of the pool
+    through ``rows``' map and merge the ranks' partials
+    (``tp.merge_ranks``); a forward whose heads divide the axis runs on
+    the rank's own heads.
     kv_override: (k, v) (B, Skv, Hkv, Dh) for cross-attention (whisper's
     decoder): K/V are not projected nor rotated, and with no cache the
     attention is ``flash_attention`` (the kernel on the card) at any Sq,
     decode's single query too, as JAX runs its Pallas kernel there.
     """
     B, S, d = x.shape
-    q = tp.matmul(x, params["wq"].to(x.dtype)).reshape(B, S, n_heads,
-                                                       head_dim)
+    q = tp.matmul(x, params["wq"].to(x.dtype))
     split = tp.is_tp(q)
+    # serving on the model axis: every rank all heads of its own rows
+    whole = split and (cache is not None
+                       or not tp.divides(n_heads, n_kv, q))
+    like = q
+    if whole:
+        q = tp.local(q)
+    q = q.reshape(B, S, n_heads, head_dim)
     if kv_override is None:
-        k = tp.matmul(x, params["wk"].to(x.dtype)).reshape(B, S, n_kv,
-                                                           head_dim)
-        v = tp.matmul(x, params["wv"].to(x.dtype)).reshape(B, S, n_kv,
-                                                           head_dim)
-        if split:
+        k = tp.matmul(x, params["wk"].to(x.dtype))
+        v = tp.matmul(x, params["wv"].to(x.dtype))
+        if whole:
+            k, v = tp.local(k), tp.local(v)
+        k = k.reshape(B, S, n_kv, head_dim)
+        v = v.reshape(B, S, n_kv, head_dim)
+        if split and not whole:
             # the kernels run on this rank's heads (models.tp)
-            like = q
-            if cache is not None:
-                raise Unsupported(
-                    "tensor-parallel decode waits for sharded serving")
             q, k, v = tp.heads(q), tp.heads(k), tp.heads(v)
         if rope is not None:
             q = apply_rope(q, None, tables=rope)
@@ -111,27 +164,36 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         if S != 1 or rows is None:
             raise ValueError("paged KV cache is decode-only: S == 1 with "
                              "the step's paged_rows")
-        pidx, off, valid = rows
+        mapped = {} if rows.stride is None else dict(
+            row_base=rows.base, row_stride=rows.stride,
+            return_lse=rows.shard is not None)
         if "k_scale" in cache:
             # int8 pool: quantize on scatter — codes and their per-(row,
             # head) scales land in the same page row, so a page is
             # self-describing and defrag moves both together
             kq, ks = quantize_kv(k[:, 0])
             vq, vs = quantize_kv(v[:, 0])
-            cache["k"][pidx, off] = kq
-            cache["v"][pidx, off] = vq
-            cache["k_scale"][pidx, off] = ks
-            cache["v_scale"][pidx, off] = vs
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                _put(cache[name], rows, new)
             o = paged_attention(q, cache["k"], cache["v"], page_table,
-                                valid, k_scale=cache["k_scale"],
-                                v_scale=cache["v_scale"])
+                                rows.valid, k_scale=cache["k_scale"],
+                                v_scale=cache["v_scale"], **mapped)
         else:
-            cache["k"][pidx, off] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][pidx, off] = v[:, 0].to(cache["v"].dtype)
+            _put(cache["k"], rows, k[:, 0])
+            _put(cache["v"], rows, v[:, 0])
             o = paged_attention(q, cache["k"], cache["v"], page_table,
-                                valid)
+                                rows.valid, **mapped)
+        if rows.shard is not None:
+            o = tp.merge_ranks(*o, rows.shard)
         o = o.reshape(B, S, n_heads * head_dim)
+        if whole:
+            return tp.replicate(tp.matmul(tp.replicated(o, like),
+                                          params["wo"].to(x.dtype))), cache
         return o @ params["wo"].to(x.dtype), cache
+    if whole and cache is not None:
+        raise ValueError("a decode step on the model axis reads its cache "
+                         "through a page table (decode_step's slot view)")
     if cache is not None:
         _write_rows(cache["k"], cache_pos, k)
         _write_rows(cache["v"], cache_pos, v)
@@ -141,7 +203,9 @@ def attn_forward(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
 
     o = attention(q, k, v, causal=causal, chunk=attn_chunk,
                   kv_valid_len=kv_valid)
-    if split:
+    if whole:
+        o = tp.replicated(o, like)
+    elif split:
         o = tp.from_heads(o, like)
     o = o.reshape(B, S, n_heads * head_dim)
     return tp.replicate(tp.matmul(o, params["wo"].to(x.dtype))), cache

@@ -27,16 +27,31 @@ kernels) runs on each rank's local heads (:func:`heads`,
 (:func:`embedding`), and the loss is DTensor's vocab-parallel cross
 entropy (:func:`cross_entropy`, inside :func:`loss_context`). Off the
 model axis (plain tensors) every function here is the plain operation.
+
+Serving on the model axis (the flash-decoding layout of JAX's
+``cache_specs``: each rank holds a slice of every K/V row block) takes q,
+k and v replicated instead (:func:`local`): every rank reads every head
+of its own rows, so no head count need divide the axis. Each rank runs
+``paged_decode`` over its rows with the lse, and the group gathers the
+(o, lse) partials and merges them in rank order (:func:`merge_ranks`),
+so every rank holds the same bits; the logits are replicated before the
+pick, so every rank draws the same token. :class:`RowShard` names the
+rank's place in that group. A forward whose heads do not divide the axis
+(the dry run's prefill) takes the same replicated heads.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import Unsupported
+from repro_torch.kernels.flash_attention import ref as fa_ref
 
 
 def is_tp(t) -> bool:
@@ -52,15 +67,98 @@ def replicate(x):
     return _place(x, Replicate()) if is_tp(x) else x
 
 
+#: whether a product split on its input dim sums its partials in float32
+#: (:func:`float32_partials`)
+_F32_PARTIALS = [False]
+
+
+@contextlib.contextmanager
+def float32_partials():
+    """Inside: a product whose weight is split on its input dim (:func:`
+    matmul`) sums the ranks' partial products in float32 and rounds the
+    sum once to the stream's dtype, as one device's GEMM rounds its
+    float32 sum once, instead of summing partials each rounded to bf16.
+    The decode step on the model axis runs inside it, so its logits stay
+    within the float32 summation order of the single card's."""
+    prev = _F32_PARTIALS[0]
+    _F32_PARTIALS[0] = True
+    try:
+        yield
+    finally:
+        _F32_PARTIALS[0] = prev
+
+
 def matmul(x, w):
     """``x @ w``; with ``w`` a DTensor, ``x`` laid out as the product
     wants it first: split on its last dim for a weight split on its input
-    dim, replicated otherwise."""
+    dim, replicated otherwise; under :func:`float32_partials` the former's
+    partial products summed in float32 and returned replicated."""
     if not is_tp(w):
         return x @ w
     p = w.placements[0]
     row = isinstance(p, Shard) and p.dim == 0
+    if row and _F32_PARTIALS[0]:
+        part = _place(x, Shard(x.ndim - 1)).to_local().float() \
+            @ w.to_local().float()
+        out = DTensor.from_local(part, w.device_mesh, [Partial()],
+                                 run_check=False)
+        return _place(out, Replicate()).to(x.dtype)
     return _place(x, Shard(x.ndim - 1) if row else Replicate()) @ w
+
+
+def local(x) -> torch.Tensor:
+    """``x`` whole on this rank as a plain tensor: a DTensor replicated
+    first (a plain tensor as it is)."""
+    return replicate(x).to_local() if is_tp(x) else x
+
+
+def replicated(x: torch.Tensor, like: DTensor) -> DTensor:
+    """A plain tensor every rank holds whole, as the replicated DTensor on
+    ``like``'s mesh."""
+    return DTensor.from_local(x, like.device_mesh, [Replicate()],
+                              run_check=False)
+
+
+def divides(n_heads: int, n_kv: int, like) -> bool:
+    """Whether both head counts divide the model axis ``like`` (a DTensor)
+    lies over: then a forward splits attention by heads."""
+    m = like.device_mesh.size()
+    return n_heads % m == 0 and n_kv % m == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's place in the model group that splits every K/V row
+    block of a decode cache (``dist.sharding.cache_shard``): its index
+    ``rank`` of ``size`` ranks in ``group``. ``counter`` (a
+    ``core.distributed.CollectiveCount``), when given, counts the merge's
+    gathers."""
+    rank: int
+    size: int
+    group: Any = None
+    counter: Any = None
+
+
+def merge_ranks(o: torch.Tensor, lse: torch.Tensor,
+                shard: RowShard) -> torch.Tensor:
+    """The decode attention over the whole group's rows from this rank's
+    partial o (B, 1, Hq, D) and lse (B, Hq) float32: one
+    ``all_gather_into_tensor`` of both, in float32, over the group, then
+    ``ref.merge_partials`` in rank order, rounded once to o's dtype. A
+    gather, not an all-reduce: every rank merges the same bits in the same
+    order, so all hold the same result."""
+    send = torch.cat([o.float().reshape(-1), lse.reshape(-1)])
+    recv = torch.empty(shard.size * send.numel(), dtype=send.dtype,
+                       device=send.device)
+    dist.all_gather_into_tensor(recv, send, group=shard.group)
+    if shard.counter is not None:
+        shard.counter.all_gathers += 1
+        shard.counter.words += recv.numel()
+    recv = recv.view(shard.size, -1)
+    n = o.numel()
+    parts = recv[:, :n].view(shard.size, *o.shape)
+    return fa_ref.merge_partials(parts, recv[:, n:].view(
+        shard.size, *lse.shape)).to(o.dtype)
 
 
 def heads(t: DTensor) -> torch.Tensor:

@@ -338,11 +338,12 @@ def _mamba_step(lp, x, st: dict, cfg):
 SLOT_PAGE = 16
 
 
-def slot_rows(max_len: int) -> int:
+def slot_rows(max_len: int, ranks: int = 1) -> int:
     """The rows a slot cache of depth ``max_len`` holds: ``max_len``
-    rounded up to a whole :data:`SLOT_PAGE` (rows past ``max_len`` are
-    never read)."""
-    return -(-int(max_len) // SLOT_PAGE) * SLOT_PAGE
+    rounded up to a whole :data:`SLOT_PAGE` on each of ``ranks`` ranks
+    that split the rows (rows past ``max_len`` are never read)."""
+    unit = SLOT_PAGE * ranks
+    return -(-int(max_len) // unit) * unit
 
 
 def _slot_view(cache: dict, fam: str, B: int):
@@ -371,7 +372,8 @@ def _slot_view(cache: dict, fam: str, B: int):
 
 def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
-                page_table: Optional[torch.Tensor] = None):
+                page_table: Optional[torch.Tensor] = None,
+                shard: Optional[tp.RowShard] = None):
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     positions: optional (B,) int32 per-slot decode depths (the
@@ -398,6 +400,16 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
 
     The cache's tensors are written in place (see
     ``repro_torch.models.blocks``); ``cache["pos"]`` is replaced.
+
+    Weights split over the model axis (the dense family's DTensors,
+    ``models.tp``): the step runs at per-row positions (the scalar
+    ``cache["pos"]`` broadcast when none are given), the slot cache
+    through its page view, and returns the logits replicated, a plain
+    tensor on every rank. ``shard``: the model group when every K/V row
+    block of the cache is split over it, this rank holding rows
+    [rank R, (rank + 1) R) of each block of size R (a page's or a slot
+    row's rows, ``dist.sharding.cache_shard``), so the attention merges
+    the group's partials; None when every rank holds whole blocks.
     Self-attention dispatches ``paged_attention`` (paged, or a slot cache
     at per-row positions) or runs ``chunked_attention`` (a slot cache at
     the scalar ``cache["pos"]``); whisper's cross-attention runs
@@ -418,7 +430,19 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
             x = _mamba_step(lp, x, _at(layers, i), cfg)
         return _logits(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
 
+    split = tp.is_tp(params["embed"])
+    with tp.float32_partials() if split else contextlib.nullcontext():
+        return _decode(params, cfg, cache, tokens, positions, page_table,
+                       shard, split)
+
+
+def _decode(params, cfg, cache, tokens, positions, page_table, shard,
+            split):
+    """:func:`decode_step` of the attention families."""
+    fam = cfg.family
     B = tokens.shape[0]
+    if split and positions is None:
+        positions = cache["pos"].expand(B)
     if page_table is not None and positions is None:
         raise ValueError("a paged cache needs per-row positions")
     if positions is None:
@@ -428,7 +452,8 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
         pos = positions
         rope_pos = positions[:, None]
     out_cache = cache
-    if page_table is None and positions is not None:
+    slot = page_table is None and positions is not None
+    if slot:
         cache, page_table = _slot_view(cache, fam, B)
     x = _embed(params, tokens)
     # what every layer of the step shares, computed once: the rotary
@@ -442,7 +467,18 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
     layers = cache["layers"]
     if page_table is not None:
         kv = cache["shared"] if fam == "hybrid" else layers
-        pos_info["rows"] = paged_rows(page_table, pos, kv["k"].shape[2])
+        rows = kv["k"].shape[2]
+        if shard is None:
+            pos_info["rows"] = paged_rows(page_table, pos, rows)
+        else:
+            # the rank's rows of each block: of a slot row, a run of
+            # whole pages; of a pool page, a slice of its rows
+            base = shard.rank * (page_table.shape[1] * rows if slot
+                                 else rows)
+            pos_info["rows"] = paged_rows(
+                page_table, pos, rows,
+                stride=rows if slot else rows * shard.size, base=base,
+                shard=shard)
 
     if fam == "moe" and cfg.first_layer_dense:
         x, _ = dense_block(params["dense0"], x, _dense0_cfg(cfg),
@@ -473,8 +509,8 @@ def decode_step(params, cfg, cache: dict, tokens: torch.Tensor, *,
                 cache=_at(cache["shared"], i), cache_pos=pos,
                 page_table=page_table, rows=pos_info.get("rows"))
             x = x + h
-    return _logits(params, cfg, x), dict(out_cache,
-                                         pos=out_cache["pos"] + 1)
+    return tp.local(_logits(params, cfg, x)), dict(out_cache,
+                                                   pos=out_cache["pos"] + 1)
 
 
 def prefill_audio_cache(params, cfg, cache: dict,

@@ -23,6 +23,11 @@ RNG state: each slot also carries a per-request PRNG key (``seed_slot`` /
 host and never fetched from the device: it is seeded at admission, zeroed
 on free, and follows the request through defrag, which makes sampled token
 streams independent of slot placement.
+
+Sharded (``rules``, a model axis past 1): the pool holds this rank's
+shard of every leaf (``dist.sharding.cache_shard``: JAX's ``cache_specs``,
+the K/V rows split over the model axis), and every slot op reads and
+writes the rank's rows only. The bookkeeping is the same on every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, to_device
+from repro_torch.dist.sharding import cache_shard
 from repro_torch.models import init_cache
 from repro_torch.models.transformer import require_supported, slot_rows
 
@@ -59,6 +65,46 @@ def meta_cache(cfg, batch: int, max_len: int, enc_len: Optional[int]):
     return init_cache(cfg, batch, max_len, device="meta", enc_len=enc_len)
 
 
+def local_zeros(name, shape, dtype, rules, device, fill: float = 0.0):
+    """A cache leaf ``name`` of the whole ``shape`` as this rank holds it
+    under ``rules`` (all of it with None), filled with ``fill``."""
+    if rules is not None:
+        shape = cache_shard(name, shape, rules).local
+    return torch.full(tuple(shape), fill, dtype=dtype, device=device)
+
+
+def local_cache(whole: dict, rules, device=None) -> dict:
+    """Zeros at this rank's shard of every leaf of the ``whole`` cache
+    (shapes and dtypes: ``meta`` tensors; ``init_cache`` is all zeros)
+    under ``rules``."""
+    def walk(sub, name):
+        if isinstance(sub, dict):
+            return {k: walk(v, k) for k, v in sub.items()}
+        return local_zeros(name, sub.shape, sub.dtype, rules, device)
+    return walk(whole, None)
+
+
+#: bytes a compaction moves through its temporary at once
+_COMPACT_BYTES = 1 << 28
+
+
+def compact(leaf: torch.Tensor, ax: int, perm: torch.Tensor,
+            n_live: int) -> None:
+    """Move entries ``perm[:n_live]`` (ascending) of ``leaf``'s axis ``ax``
+    to its front, in place, through temporaries of at most
+    ``_COMPACT_BYTES``: entry i takes entry perm[i] >= i in ascending
+    order, so no entry is overwritten before it is read, and a pool is
+    never copied whole (a 32 GiB leaf has no room for a second copy). The
+    entries past ``n_live`` keep what they held: a free slot is zeroed at
+    admission, a free page's rows are written before any read unmasks
+    them."""
+    per = leaf.element_size() * (leaf.numel() // max(leaf.shape[ax], 1))
+    step = max(1, _COMPACT_BYTES // max(per, 1))
+    for a in range(0, n_live, step):
+        idx = perm[a:a + step]
+        leaf.narrow(ax, a, idx.numel()).copy_(leaf.index_select(ax, idx))
+
+
 def _batch_axes(cfg, max_len: int, enc_len: Optional[int]) -> dict:
     """Tree of batch-axis indices (``_NO_BATCH`` for batchless leaves)."""
     a = meta_cache(cfg, 2, max_len, enc_len)
@@ -80,10 +126,11 @@ class CachePool:
     """Bookkeeping + slot ops for a ``num_slots``-row decode cache on
     ``device`` (``cuda`` unless the caller names another; raises without a
     card, as the engine does). ``enc_len``: whisper's encoder length (the
-    cross K/V rows), ignored by the other families."""
+    cross K/V rows), ignored by the other families. ``rules``: the mesh
+    the cache is sharded on (the module docstring)."""
 
     def __init__(self, cfg, num_slots: int, max_len: int, *,
-                 enc_len: Optional[int] = None, device=None):
+                 enc_len: Optional[int] = None, device=None, rules=None):
         require_supported(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
@@ -92,6 +139,7 @@ class CachePool:
         self.max_len = int(max_len)
         self.enc_len = enc_len
         self.device = resolve_device(device)
+        self.rules = rules
         self.batch_axes = _batch_axes(cfg, self.max_len, enc_len)
         # min-heap: lowest-index-first allocation keeps live slots packed at
         # the front, and free stays O(log n) instead of a full re-sort
@@ -101,13 +149,20 @@ class CachePool:
         self._keys = np.zeros((num_slots, 2), np.uint32)
 
     # ----------------------------------------------------------- construction
+    @property
+    def rows(self) -> int:
+        """The K/V rows a slot holds in all: ``max_len`` rounded up to
+        whole pages of the decode's slot view on each rank that splits
+        them (``models.transformer.slot_rows``); the rows past ``max_len``
+        are never read."""
+        ranks = self.rules.tp_size if self.rules is not None else 1
+        return slot_rows(self.max_len, ranks)
+
     def make_cache(self) -> dict:
-        """Fresh pool cache; ownership passes to the caller. Its K/V rows
-        are ``max_len`` rounded up to whole pages of the decode's slot view
-        (``models.transformer.slot_rows``); the rows past ``max_len`` are
-        never read."""
-        return init_cache(self.cfg, self.num_slots, slot_rows(self.max_len),
-                          device=self.device, enc_len=self.enc_len)
+        """Fresh pool cache (this rank's shard of it under ``rules``);
+        ownership passes to the caller. Its K/V rows are :attr:`rows`."""
+        return local_cache(meta_cache(self.cfg, self.num_slots, self.rows,
+                                      self.enc_len), self.rules, self.device)
 
     # ------------------------------------------------------------ bookkeeping
     @property
@@ -198,7 +253,7 @@ class CachePool:
         permutation applied along every batch axis (new row i holds old row
         ``perm[i]``) — callers apply the same :meth:`take_rows` to their
         per-slot side arrays; ``mapping`` is old->new for the live slots.
-        The cache tensors are permuted in place.
+        The live rows of the cache tensors move in place (:func:`compact`).
         """
         live = self.live_slots()
         perm = live + [s for s in range(self.num_slots) if s not in self._owner]
@@ -207,7 +262,7 @@ class CachePool:
 
         def f(leaf, ax):
             if ax != _NO_BATCH:
-                leaf.copy_(leaf.index_select(ax, perm_dev))
+                compact(leaf, ax, perm_dev, len(live))
             return leaf
 
         cache = tree_map(f, cache, self.batch_axes)

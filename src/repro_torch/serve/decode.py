@@ -111,7 +111,8 @@ def _sync_debug(on: bool):
 
 def make_decode_block(cfg, *, k: int, max_len: int,
                       eos_id: Optional[int] = None,
-                      sync_debug: bool = False):
+                      sync_debug: bool = False, rules=None,
+                      kv_rows: Optional[int] = None, counter=None):
     """Build the k-step block.
 
     block(params, state, prompts, prompt_len, max_new, active,
@@ -136,10 +137,15 @@ def make_decode_block(cfg, *, k: int, max_len: int,
     step (:func:`decode_dtypes`: the mamba2 conv window comes out of a step
     in bf16 inside a float32-initialised buffer, as JAX's block casts its
     carry through ``eval_shape``); after the first block that is no copy.
+
+    rules, kv_rows, counter: the mesh the cache and the weights are
+    sharded on (``launch.steps.make_serve_step``); every rank of a model
+    group runs the same block on the same inputs and draws the same
+    tokens.
     """
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    serve = make_serve_step(cfg)
+    serve = make_serve_step(cfg, rules, kv_rows=kv_rows, counter=counter)
 
     def block(params, state: DecodeState, prompts, prompt_len, max_new,
               active, samp: Optional[SlotSampling] = None, page_table=None):

@@ -51,6 +51,21 @@ rewrite its arrays while a copy is still in flight; admission's device
 writes run on the same stream, after the in-flight block. Token streams
 are bit-identical to the blocking engine's.
 
+Sharded serving (``rules=``, the JAX engine's): on a mesh (1, m) the dense
+family serves tensor-parallel over the model axis. The weights become
+this rank's shards at construction (``launch.steps.serve_params``), the
+pool holds the rank's rows of every slot or page (JAX's ``cache_specs``),
+and the block merges the ranks' attention partials
+(``launch.steps.make_serve_step``). Every rank runs this host loop on the
+same requests: page tables, the allocator, the prefix trie and its
+copy-on-write, fan-out and the scheduler decide the same on every rank,
+the seed drawn for a seedless sampled request is rank 0's, and every rank
+draws the same tokens, so each returns the same responses. The other
+families on a model axis past 1 raise (ROADMAP queue 1 item 7(a)), as
+does a data axis past 1 (pages and slots over the data ranks need a
+scheduler across them, item 7(d)) and a deadline gate on a model group (a
+rank's own clock would shed its own way, item 7(d)).
+
 Observability (``repro_torch.obs``): the JAX engine's counters and
 histograms under its names, the ``serve.admit`` span and instant, the
 ``serve.decode_block`` spans around the block and around its fetch, the
@@ -69,8 +84,10 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs, resolve_device, to_device
-from repro_torch.models import init_cache, prefill_audio_cache
+from repro_torch import Unsupported, obs, resolve_device, to_device
+from repro_torch.core.distributed import CollectiveCount
+from repro_torch.launch.steps import serve_params
+from repro_torch.models import init_cache, prefill_audio_cache, tp
 from repro_torch.models.transformer import slot_rows
 from repro_torch.serve.api import (Request, Response, EngineStats, StreamDelta,
                                    FINISH_EOS, FINISH_ERROR, FINISH_LENGTH,
@@ -176,6 +193,12 @@ class Engine:
     under ``torch.cuda.set_sync_debug_mode("error")`` so a hidden host sync
     in it raises (a card only).
 
+    rules: ``dist.sharding.make_rules(mesh, group)`` to serve on a mesh
+    (the module docstring); ``params`` are then the whole tree (each rank
+    keeps its shards only) or this rank's shards already
+    (``launch.steps.serve_params``). ``collectives`` counts the merge's
+    gathers of the model axis.
+
     ``Request.n > 1`` fans a request into n slots (see the module
     docstring); each stream finishes with its own ``Response``.
     """
@@ -192,10 +215,27 @@ class Engine:
                  num_pages: Optional[int] = None,
                  kv_dtype: str = "f32",
                  overlap: bool = False,
-                 device=None, sync_debug: bool = False):
+                 device=None, sync_debug: bool = False, rules=None):
         self.device = resolve_device(device)
-        self.params = params
         self.cfg = cfg
+        tp_size = 1
+        if rules is not None:
+            tp_size = rules.tp_size
+            if rules.dp_size > 1:
+                raise Unsupported(
+                    f"{cfg.name}: the engine on a data axis of "
+                    f"{rules.dp_size}: pages and slots over the data ranks "
+                    f"need a scheduler across them (ROADMAP queue 1 item "
+                    f"7(d))")
+            if tp_size > 1 and scheduler is not None and \
+                    scheduler.gate is not None:
+                raise Unsupported(
+                    "a deadline gate on a model group: each rank would "
+                    "shed by its own clock (ROADMAP queue 1 item 7(d))")
+        self.rules = rules if tp_size > 1 else None
+        if self.rules is not None and not tp.is_tp(params["embed"]):
+            params = serve_params(cfg, params, rules)
+        self.params = params
         self.k = int(k)
         self.max_len = int(max_len)
         self.max_prompt = int(max_prompt if max_prompt is not None
@@ -210,12 +250,12 @@ class Engine:
             pool = PagedCachePool(cfg, num_slots, max_len,
                                   page_size=page_size, enc_len=enc_len,
                                   num_pages=num_pages, kv_dtype=kv_dtype,
-                                  device=self.device)
+                                  device=self.device, rules=self.rules)
             if not pool.has_paged:
                 pool = None                 # pure SSM: nothing to page
         if pool is None:
             pool = CachePool(cfg, num_slots, max_len, enc_len=enc_len,
-                             device=self.device)
+                             device=self.device, rules=self.rules)
         self.pool = pool
         self.paged = isinstance(pool, PagedCachePool)
         self.prefix_on = (bool(prefix_cache) and self.paged
@@ -224,9 +264,13 @@ class Engine:
         self.defrag_threshold = float(defrag_threshold)
         self.overlap = bool(overlap)
         self._pipe: List[_InFlight] = []    # one-deep launch pipeline
+        self.collectives = CollectiveCount()
         self._block = make_decode_block(
             cfg, k=self.k, max_len=self.max_len, eos_id=eos_id,
-            sync_debug=sync_debug and self.device.type == "cuda")
+            sync_debug=sync_debug and self.device.type == "cuda",
+            rules=self.rules,
+            kv_rows=pool.page_size if self.paged else pool.rows,
+            counter=self.collectives)
         self.state = init_decode_state(self.pool.make_cache(), num_slots,
                                        self.device)
         B, P = num_slots, self.max_prompt
@@ -240,7 +284,8 @@ class Engine:
         self._temp = np.zeros((B,), np.float32)
         self._top_p = np.ones((B,), np.float32)
         self._top_k = np.zeros((B,), np.int32)
-        self._seed_rng = np.random.RandomState()    # for seedless requests
+        # for seedless requests: rank 0's seed on every rank of a group
+        self._seed_rng = np.random.RandomState(self._group_seed())
         self._slot_req: dict = {}
         self._slot_toks: dict = {}
         self._slot_t0: dict = {}
@@ -249,6 +294,17 @@ class Engine:
         self._slot_stream: dict = {}    # fan-out stream index per slot
         self._groups: dict = {}         # request id -> unfinished streams
         self.stats = EngineStats()
+
+    def _group_seed(self) -> Optional[int]:
+        """None (fresh entropy) on one device; on a model group, a seed
+        rank 0 draws, broadcast once over the group."""
+        if self.rules is None:
+            return None
+        import torch.distributed as dist
+        seed = torch.tensor([np.random.randint(0, 2 ** 31 - 1)],
+                            dtype=torch.int64, device=self.device)
+        dist.broadcast(seed, group_src=0, group=self.rules.group)
+        return int(seed.item())
 
     # -------------------------------------------------------------- ingest
     def submit(self, req: Request) -> None:

@@ -57,7 +57,8 @@ import torch
 
 from repro_torch import to_device
 from repro_torch.serve.cache import (CachePool, SlotError, _NO_BATCH,
-                                     meta_cache, tree_leaves, tree_map)
+                                     compact, local_zeros, meta_cache,
+                                     tree_leaves, tree_map)
 
 
 class PageError(RuntimeError):
@@ -235,7 +236,7 @@ class PagedCachePool(CachePool):
     def __init__(self, cfg, num_slots: int, max_len: int, *,
                  page_size: int, enc_len: Optional[int] = None,
                  num_pages: Optional[int] = None, kv_dtype: str = "f32",
-                 device=None):
+                 device=None, rules=None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if kv_dtype not in ("f32", "int8"):
@@ -244,7 +245,7 @@ class PagedCachePool(CachePool):
         if getattr(cfg, "family", None) == "audio" and enc_len is None:
             enc_len = max_len      # pin enc_len so the max_len diff is clean
         super().__init__(cfg, num_slots, max_len, enc_len=enc_len,
-                         device=device)
+                         device=device, rules=rules)
         self.page_size = int(page_size)
         self.pages_per_slot = -(-self.max_len // self.page_size)   # ceil
         base_pax = _page_axes(cfg, self.max_len, self.enc_len,
@@ -298,27 +299,28 @@ class PagedCachePool(CachePool):
     def _pool_arrays(self, device) -> dict:
         """The pool cache on ``device`` — paged leaves in page-pool layout,
         int8 + float32 scale siblings when quantized; ``meta`` for shapes
-        only. Built from ``init_cache``'s shapes on the ``meta`` device
-        (every leaf of it is zeros), so the slot-layout K/V is never
-        allocated."""
+        only; this rank's shard of every leaf under ``rules`` (a page's
+        rows split over the model axis). Built from ``init_cache``'s shapes
+        on the ``meta`` device (every leaf of it is zeros), so the
+        slot-layout K/V is never allocated."""
         cache = meta_cache(self.cfg, self.num_slots, self.max_len,
                            self.enc_len)
 
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=device)
+        def zeros(name, shape, dtype, fill=0.0):
+            return local_zeros(name, shape, dtype, self.rules, device, fill)
 
         def f(name, leaf, pax):
             if pax == _NO_BATCH:
-                return zeros(leaf.shape, leaf.dtype), None
+                return zeros(name, leaf.shape, leaf.dtype), None
             shp = (tuple(leaf.shape[:pax - 1])
                    + (self.num_pages, self.page_size)
                    + tuple(leaf.shape[pax + 1:]))
             if not self.quantized or not self._quant_leaf(name, pax):
-                return zeros(shp, leaf.dtype), None
+                return zeros(name, shp, leaf.dtype), None
             # scale = parent minus the trailing head_dim axis; unwritten
             # rows dequantize to 0 * 1.0
-            return (zeros(shp, torch.int8),
-                    torch.ones(shp[:-1], dtype=torch.float32, device=device))
+            return (zeros(name, shp, torch.int8),
+                    zeros(name + "_scale", shp[:-1], torch.float32, 1.0))
 
         return _with_scale_siblings(cache, self._base_page_axes, f)
 
@@ -327,7 +329,7 @@ class PagedCachePool(CachePool):
 
     def page_bytes(self) -> int:
         """Bytes one pool page costs across every paged leaf, scale siblings
-        included."""
+        included (this rank's rows of it under ``rules``)."""
         shapes = self._pool_arrays("meta")
         total = 0
         for leaf, pax in zip(tree_leaves(shapes),
@@ -542,9 +544,10 @@ class PagedCachePool(CachePool):
     def defrag_pages(self, cache: dict) -> dict:
         """Compact live pages to the front of the pool, in place.
 
-        A permutation along every page axis; tables, refcounts and trie
-        pointers are remapped through the same lookup table, so slot
-        contents (and the emission-count PRNG streams) are unchanged."""
+        A permutation along every page axis (the live pages moved by
+        :func:`serve.cache.compact`); tables, refcounts and trie pointers
+        are remapped through the same lookup table, so slot contents (and
+        the emission-count PRNG streams) are unchanged."""
         live = [0] + [int(p) for p in np.flatnonzero(self._ref[1:] > 0) + 1]
         dead = [p for p in range(self.num_pages) if self._ref[p] == 0]
         perm = np.asarray(live + dead, np.int64)
@@ -556,7 +559,7 @@ class PagedCachePool(CachePool):
 
         def f(leaf, pax):
             if pax != _NO_BATCH:
-                leaf.copy_(leaf.index_select(pax - 1, perm_dev))
+                compact(leaf, pax - 1, perm_dev, len(live))
             return leaf
 
         cache = tree_map(f, cache, self.page_axes)

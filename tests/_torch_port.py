@@ -202,8 +202,8 @@ def jax_model_in_port_engine(cfg, jax_params):
     import repro_torch.serve.decode as tdecode
     import repro_torch.serve.engine as tengine
     saved = tdecode.make_serve_step, tengine.prefill_audio_cache
-    tdecode.make_serve_step = lambda tcfg: jax_model_serve_step(cfg,
-                                                                jax_params)
+    tdecode.make_serve_step = lambda tcfg, *_, **__: jax_model_serve_step(
+        cfg, jax_params)
     tengine.prefill_audio_cache = jax_audio_prefill(cfg, jax_params)
     try:
         yield

@@ -826,6 +826,61 @@ def test_paged_decode_cuda_matches_plain(cuda, kv, P, npages, D, Hq, Hkv):
     assert _normwise(got.float(), want.float()) <= ATTN_RTOL[got.dtype]
 
 
+def _row_slices(args, scales, m):
+    """Each of m ranks' rows of every page of the case's pools: (k, v,
+    scales, row_base) a rank, contiguous."""
+    P = args[1].shape[1]
+    R = P // m
+    out = []
+    for r in range(m):
+        cut = slice(r * R, (r + 1) * R)
+        out.append((args[1][:, cut].contiguous(),
+                    args[2][:, cut].contiguous(),
+                    {n: t[:, cut].contiguous() for n, t in scales.items()},
+                    r * R))
+    return out
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 16, 8), (64, 16, 8),
+                                      (80, 32, 32)])
+def test_paged_decode_cuda_row_map_and_lse(cuda, kv, D, Hq, Hkv, m):
+    """The row-map and lse instance: each of m ranks' rows of every page
+    (local row j of entry i at position i * P + rank P/m + j) against
+    ``ref.paged_decode`` on the same slice, o normwise and the lse within
+    1e-5 (-inf where the rank holds no valid row); the ranks merged
+    (``ref.merge_partials``) against the unsplit kernel; with base 0 and
+    the page size as stride, no lse, bitwise the default call. Lengths up
+    to 1,024 cross the kernel's 128-position chunks (its ticket merge)."""
+    args, scales = _paged_case(cuda, B=8, Hq=Hq, Hkv=Hkv, D=D, P=16,
+                               npages=64, kv=kv,
+                               valid=[1, 3, 9, 17, 130, 500, 777, 1024])
+    q, _, _, t, n = args
+    whole = fa_ops.paged_decode_cuda(*args, **scales)
+    same = fa_ops.paged_decode_cuda(*args, **scales, row_base=0,
+                                    row_stride=16)
+    assert torch.equal(whole, same)
+    outs, lses = [], []
+    for k, v, sc, base in _row_slices(args, scales, m):
+        o, lse = fa_ops.paged_decode_cuda(q, k, v, t, n, **sc,
+                                          row_base=base, row_stride=16,
+                                          return_lse=True)
+        wo, wl = fa_ref.paged_decode(q, k, v, t, n, **sc, row_base=base,
+                                     row_stride=16, return_lse=True)
+        torch.cuda.synchronize()
+        assert _normwise(o.float(), wo.float()) <= ATTN_RTOL[o.dtype]
+        assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+        fin = torch.isfinite(wl)
+        assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5 * max(
+            1.0, float(wl[fin].abs().max()))
+        outs.append(o)
+        lses.append(lse)
+    merged = fa_ref.merge_partials(torch.stack(outs), torch.stack(lses))
+    assert _normwise(merged.float(), whole.float()) <= ATTN_RTOL[
+        merged.dtype]
+
+
 def test_paged_decode_cuda_never_reads_past_valid(cuda):
     """Pool rows at and past valid, page 0 among them, weigh exactly 0:
     filling them with NaN changes no output bit."""

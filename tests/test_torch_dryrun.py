@@ -100,12 +100,45 @@ def test_nondense_family_at_model_axis_is_unsupported(monkeypatch):
 
 
 def test_serving_on_a_mesh_is_unsupported():
+    """Sharded serving (ROADMAP queue 1 item 7(b)) is done on the model
+    axis for the dense family: internlm2's decode at (2, 1), each rank its
+    batch rows, is ``ok``; another family's serving cell on a model axis
+    past 1 stays ``unsupported``, naming item 7(a)."""
     cfg = smoke_config(ARCHS["internlm2-1.8b"])
     shape = ShapeConfig("decode_tiny", 32, 2, "decode")
     rec = dryrun.run_cell(cfg.name, shape, Mesh(("data", "model"), (2, 1)),
                           cfg=cfg)
+    assert rec["status"] == "ok", rec
+    assert not dist.is_initialized()
+    moe = smoke_config(ARCHS["granite-moe-1b-a400m"])
+    rec = dryrun.run_cell(moe.name, shape, Mesh(("data", "model"), (1, 2)),
+                          cfg=moe)
     assert rec["status"] == "unsupported"
-    assert "item 7(b)" in rec["reason"]
+    assert "queue 1 item 7(a)" in rec["reason"]
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("sizes", [(1, 2), (1, 4), (2, 2)])
+def test_dense_serving_cell_traces_rank0s_share(kind, sizes, monkeypatch):
+    """A dense serving cell on a mesh traces rank 0's program: its
+    tensor-parallel weight shards (the compute copy's layout), its rows of
+    the batch and of every slot (``cache_shard``), the model axis's
+    collectives (decode: the (o, lse) gather a layer among them)."""
+    monkeypatch.setattr(sharding, "_MIN_SHARD_BYTES_ELEMS", 128)
+    cfg = smoke_config(ARCHS["internlm2-1.8b"])
+    mesh = Mesh(("data", "model"), sizes)
+    shape = ShapeConfig(kind, 64, 4, kind)
+    rec = dryrun.run_cell(cfg.name, shape, mesh, cfg=cfg)
+    assert rec["status"] == "ok", rec
+    lay = layout(cfg, make_rules(mesh))
+    assert rec["shard_bytes"] == 2 * sum(lf.gnumel for lf in lay.leaves)
+    one = dryrun.run_cell(cfg.name, shape, None, cfg=cfg)
+    assert rec["peak_bytes"] < one["peak_bytes"]
+    assert rec["roofline"]["registry_ops"] == one["roofline"][
+        "registry_ops"]
+    kinds = {k.split("/")[0] for k in rec["roofline"]["collective_detail"]}
+    assert {"all_gather", "all_reduce"} <= kinds
     assert not dist.is_initialized()
 
 
